@@ -1,0 +1,154 @@
+"""Typed experiment configs (copy of the JAX package's configs/base.py).
+
+Plain frozen dataclasses, one factory function per experiment. The port
+keeps its own copy so that it imports nothing of the JAX package; a test
+holds the copy equal to the original field for field. Fields that only the
+TPU path reads (``msda_impl``, ``bev_partition``) are kept for that
+equality and ignored by the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    # BEV grid
+    bev_h: int = 200
+    bev_w: int = 200
+    pc_range: Tuple[float, ...] = (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
+    num_points_in_pillar: int = 4
+    # queries / classes
+    num_query: int = 900
+    num_classes: int = 10
+    code_size: int = 10
+    # trunk
+    embed_dims: int = 256
+    encoder_layers: int = 3
+    decoder_layers: int = 6
+    feedforward_channels: int = 512
+    num_cams: int = 6
+    num_feature_levels: int = 1
+    backbone_type: str = "resnet"
+    backbone_depth: int = 50
+    backbone_out_indices: Tuple[int, ...] = (3,)
+    backbone_dcn_stages: Tuple[bool, ...] = (False, False, False, False)
+    neck_type: str = "fpn"
+    group_detr: int = 1
+    # inputs
+    img_shape: Tuple[int, int] = (480, 800)  # post-pipeline (H, W)
+    queue_length: int = 3
+    # behaviour
+    use_grid_mask: bool = True
+    rotate_prev_bev: bool = True
+    use_shift: bool = True
+    use_can_bus: bool = True
+    shift_current_refs: bool = True  # reference aliasing-bug parity
+    attn_logits_clamp: Optional[float] = None
+    video_test_mode: bool = True
+    msda_impl: str = "auto"
+    # transformer-trunk activation dtype; None -> follow compute_dtype
+    # (conv trunk). Pin "float32" for exact-parity runs on bf16 configs.
+    transformer_dtype: Optional[str] = None
+    bev_partition: Optional[Tuple[Optional[str], ...]] = None
+    # tasks
+    with_occupancy: bool = False
+    with_map: bool = False
+    # occupancy (Apollo det+occ: 200x200x16 @0.5m, occ_dims 128)
+    occupancy_classes: int = 16
+    occ_xdim: int = 200
+    occ_ydim: int = 200
+    occ_zdim: int = 16
+    occ_dims: int = 128
+    occ_head_type: str = "cnn"
+    occ_tsa: bool = False
+    predict_flow: bool = False
+    # temporal flow warping of occupancy features across the queue
+    # (reference with_occupancy_flow, bevformer_occupancy_head.py:253-301);
+    # implies keep_bev_history (multi-frame occ supervision)
+    with_occupancy_flow: bool = False
+    # supervise occupancy at every queue frame (reference keep_bev_history /
+    # obtain_all_history_bev, detectors/bevformer.py:278-296); the dataset
+    # then provides gt_occupancy of shape (S, voxel_num) per sample
+    keep_bev_history: bool = False
+    occ_loss_type: str = "CustomFocalLoss"
+    # map (MapTR v1 protocol)
+    num_map_vec: int = 50
+    map_num_pts: int = 20
+    map_num_classes: int = 3
+    map_decoder_layers: int = 6
+    map_shift_pattern: str = "v2"
+    # MapTRv2 (one2one/one2many)
+    map_version: int = 1
+    num_vec_one2many: int = 300
+    map_k_one2many: int = 6
+    map_lambda_one2many: float = 1.0
+    with_aux_seg: bool = False
+    # rasterized aux-seg GT dilation radii (v2 head map_aux_seg_radius /
+    # map_aux_pv_radius, bevformer_det_map_head_apollo_v2.py:246,374)
+    map_aux_seg_radius: int = 1
+    map_aux_pv_radius: int = 1
+    # voxel / hybrid trunks
+    head_family: str = "bev"  # 'bev' | 'voxel' | 'hybrid'
+    bev_z: int = 4
+    num_points_in_voxel: int = 1
+    hybrid_encoder_embed_dims: Tuple[int, ...] = (256, 128, 64, 32, 16)
+    hybrid_feature_map_z: Tuple[int, ...] = (1, 2, 4, 8, 16)
+
+    @property
+    def map_patch_size(self) -> Tuple[float, float]:
+        """(patch_h, patch_w) — derived from pc_range like the reference's
+        VectorizedLocalMap (det_occ_map_dataset.py:300-307)."""
+        return (
+            self.pc_range[4] - self.pc_range[1],
+            self.pc_range[3] - self.pc_range[0],
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    lr: float = 2e-4
+    weight_decay: float = 0.01
+    backbone_lr_mult: float = 0.1  # paramwise_cfg img_backbone lr_mult
+    grad_clip_norm: float = 35.0   # optimizer_config grad_clip max_norm
+    warmup_iters: int = 500
+    warmup_ratio: float = 1.0 / 3.0
+    min_lr_ratio: float = 1e-3     # CosineAnnealing min_lr_ratio
+    total_steps: int = 100_000
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    batch_size_per_device: int = 1
+    max_gt_boxes: int = 64
+    img_mean: Tuple[float, ...] = (123.675, 116.28, 103.53)
+    img_std: Tuple[float, ...] = (58.395, 57.12, 57.375)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    name: str
+    model: ModelConfig
+    optim: OptimConfig = OptimConfig()
+    data: DataConfig = DataConfig()
+    compute_dtype: str = "float32"  # or "bfloat16"
+    # torch checkpoint to initialize img_backbone (+ FPN neck when present)
+    # from — the reference's pretrained=dict(img=...) + mmcv load_checkpoint
+    # (bev_tiny_det_map_apollo.py:91); '' trains from random init.
+    pretrained_path: str = ""
+
+
+def bev_tiny_det_map_apollo() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_det_map_apollo.py — det+map:
+    DLA-34 + SECONDFPNV2, 50×50 BEV, queue 3, 900 det queries, 50×20 map
+    point queries (cfg:74-246)."""
+    return ExperimentConfig(
+        name="bev_tiny_det_map_apollo",
+        model=ModelConfig(
+            bev_h=50, bev_w=50,
+            backbone_type="dla", backbone_out_indices=(3, 4, 5),
+            neck_type="secondfpn",
+            with_map=True, msda_impl="auto_fast",
+        ),
+        compute_dtype="bfloat16",
+    )

@@ -1,0 +1,126 @@
+"""Synthetic multi-camera inputs matching the real data contracts.
+
+``camera_ring_lidar2img`` and ``make_batch`` are copies of the JAX package's
+data/synthetic.py (a ring of forward-facing pinhole cameras, ego motion
+along +x), limited to the fields inference and the detection GT use; the
+map and occupancy GT come with the training slice. ``make_stream`` lays the
+same kind of data out as a stream of frames for the streaming runner.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from apollo_vision_net_tpu_torch.configs import ExperimentConfig
+
+
+def camera_ring_lidar2img(num_cams: int, img_h: int, img_w: int,
+                          fov_deg: float = 70.0) -> np.ndarray:
+    """(N, 4, 4) lidar→image matrices for a ring of forward-tilted cameras."""
+    f = (img_w / 2.0) / np.tan(np.deg2rad(fov_deg) / 2.0)
+    K = np.array(
+        [[f, 0, img_w / 2.0, 0],
+         [0, f, img_h / 2.0, 0],
+         [0, 0, 1, 0],
+         [0, 0, 0, 1]], np.float64,
+    )
+    mats = []
+    for n in range(num_cams):
+        yaw = 2.0 * np.pi * n / num_cams
+        # lidar (x fwd, y left, z up) -> camera (x right, y down, z fwd)
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array(
+            [[-s, c, 0, 0],
+             [0, 0, -1, 0],
+             [c, s, 0, 0],
+             [0, 0, 0, 1]], np.float64,
+        )
+        mats.append(K @ R)
+    return np.stack(mats).astype(np.float32)
+
+
+def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
+               dtype=np.float32) -> Dict[str, np.ndarray]:
+    """A (B, T = queue_length) batch of images, can_bus deltas, camera
+    matrices, has_prev flags and padded detection GT; the same arrays as the
+    JAX package's make_batch for these keys and seed."""
+    m, d = cfg.model, cfg.data
+    rng = np.random.default_rng(seed)
+    B, T, N = batch_size, m.queue_length, m.num_cams
+    H, W = m.img_shape
+    G = d.max_gt_boxes
+
+    img = rng.standard_normal((B, T, N, H, W, 3)).astype(dtype)
+    can_bus = np.zeros((B, T, 18), np.float32)
+    # ~0.5 m/frame forward motion, slight yaw drift; frame 0 deltas zeroed
+    can_bus[:, 1:, 0] = rng.normal(0.5, 0.05, (B, T - 1)) if T > 1 else 0
+    can_bus[:, :, -2] = rng.normal(0.0, 0.01, (B, T))  # global yaw (rad)
+    can_bus[:, :, -1] = 0.0  # yaw delta (deg); 0 for frame 0
+    if T > 1:
+        can_bus[:, 1:, -1] = rng.normal(0.0, 0.2, (B, T - 1))
+
+    l2i = camera_ring_lidar2img(N, H, W)
+    lidar2img = np.broadcast_to(l2i, (B, T, N, 4, 4)).copy()
+    has_prev = np.ones((B, T), np.float32)
+    has_prev[:, 0] = 0.0
+
+    n_real = rng.integers(1, max(G // 2, 2), B)
+    gt_boxes = np.zeros((B, G, 9), np.float32)
+    gt_boxes[..., 3:6] = 1.0
+    gt_labels = np.zeros((B, G), np.int32)
+    gt_mask = np.zeros((B, G), bool)
+    pc = np.asarray(m.pc_range)
+    for b in range(B):
+        k = int(n_real[b])
+        gt_boxes[b, :k, 0] = rng.uniform(pc[0] * 0.8, pc[3] * 0.8, k)
+        gt_boxes[b, :k, 1] = rng.uniform(pc[1] * 0.8, pc[4] * 0.8, k)
+        gt_boxes[b, :k, 2] = rng.uniform(-2.0, 0.5, k)
+        gt_boxes[b, :k, 3:6] = rng.uniform(0.5, 5.0, (k, 3))
+        gt_boxes[b, :k, 6] = rng.uniform(-np.pi, np.pi, k)
+        gt_boxes[b, :k, 7:9] = rng.normal(0, 2, (k, 2))
+        gt_labels[b, :k] = rng.integers(0, m.num_classes, k)
+        gt_mask[b, :k] = True
+
+    return dict(
+        img=img,
+        can_bus=can_bus,
+        lidar2img=lidar2img,
+        has_prev=has_prev,
+        gt_boxes=gt_boxes,
+        gt_labels=gt_labels,
+        gt_mask=gt_mask,
+    )
+
+
+def make_stream(cfg: ExperimentConfig, num_frames: int, seed: int = 0,
+                scene_change_at: tuple = ()) -> List[dict]:
+    """Frames for the streaming runner: img (N, H, W, 3), ABSOLUTE can_bus
+    (18,) (position in [0:3], global yaw in rad at [-2], yaw in degrees at
+    [-1]), lidar2img (N, 4, 4) and a scene token that changes at every index
+    in ``scene_change_at``."""
+    m = cfg.model
+    rng = np.random.default_rng(seed)
+    N, (H, W) = m.num_cams, m.img_shape
+    l2i = camera_ring_lidar2img(N, H, W)
+    pos = np.zeros(3, np.float64)
+    yaw_deg = 0.0
+    scene = 0
+    frames = []
+    for t in range(num_frames):
+        if t in scene_change_at:
+            scene += 1
+        pos[0] += rng.normal(0.5, 0.05)
+        pos[1] += rng.normal(0.0, 0.05)
+        yaw_deg += rng.normal(0.0, 0.5)
+        can_bus = np.zeros(18, np.float32)
+        can_bus[:3] = pos
+        can_bus[-2] = np.deg2rad(yaw_deg)
+        can_bus[-1] = yaw_deg
+        frames.append(dict(
+            img=rng.standard_normal((N, H, W, 3)).astype(np.float32),
+            can_bus=can_bus,
+            lidar2img=l2i.copy(),
+            scene_token=f"scene-{scene}",
+        ))
+    return frames

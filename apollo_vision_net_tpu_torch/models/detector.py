@@ -1,0 +1,173 @@
+"""BEVFormer detector: image features and the streaming inference step.
+
+Counterpart of the JAX package's models/detector.py (reference
+bevformer/detectors/bevformer.py): backbone + neck over the folded cameras,
+then the head; ``forward_test_frame`` is the stateful streaming step.
+``build_model`` builds the flagship family (DLA-34 + SECONDFPNV2, det or
+det+map head) from a config, with random weights made from a seed.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from apollo_vision_net_tpu_torch import resolve_device
+from apollo_vision_net_tpu_torch.configs import ExperimentConfig
+from apollo_vision_net_tpu_torch.models.attention import grid_offset_bias
+from apollo_vision_net_tpu_torch.models.dla import DLA
+from apollo_vision_net_tpu_torch.models.heads.det_head import (
+    FOCAL_BIAS_INIT,
+    BEVFormerHead,
+)
+from apollo_vision_net_tpu_torch.models.heads.map_head import BEVFormerDetMapHead
+from apollo_vision_net_tpu_torch.models.layers import FrozenBatchNorm
+from apollo_vision_net_tpu_torch.models.second_fpn import SECONDFPNV2
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class BEVFormer(nn.Module):
+    def __init__(self, head: nn.Module, *, backbone_out_indices=(3, 4, 5),
+                 embed_dims: int = 256,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.img_backbone = DLA(out_indices=backbone_out_indices)
+        dla_ch = (16, 32, 64, 128, 256, 512)
+        self.img_neck = SECONDFPNV2(
+            in_channels=[dla_ch[i] for i in backbone_out_indices],
+            fuse_channels=embed_dims)
+        self.head = head
+        self.compute_dtype = compute_dtype
+
+    def extract_img_feat(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """(B, N, H, W, 3) -> [(B, N, h, w, C)] per level, in f32 (the conv
+        trunk runs in compute_dtype)."""
+        B, N, H, W, C = img.shape
+        x = img.reshape(B * N, H, W, C).permute(0, 3, 1, 2).to(self.compute_dtype)
+        feats = self.img_neck(self.img_backbone(x))
+        return tuple(
+            f.permute(0, 2, 3, 1).reshape((B, N) + f.shape[2:] + f.shape[1:2]).float()
+            for f in feats)
+
+    def forward_test_frame(self, img, can_bus, lidar2img, prev_bev, has_prev):
+        """Streaming inference step: img (B, N, H, W, 3), can_bus (B, 18)
+        with the deltas applied, lidar2img (B, N, 4, 4), prev_bev (B, Q, C),
+        has_prev (B,) -> (outs, new_prev_bev)."""
+        feats = self.extract_img_feat(img)
+        outs = self.head(feats, can_bus=can_bus, lidar2img=lidar2img,
+                         prev_bev=prev_bev, has_prev=has_prev)
+        return outs, outs["bev_embed"]
+
+
+def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
+    m = cfg.model
+    common = dict(
+        bev_h=m.bev_h, bev_w=m.bev_w, num_query=m.num_query,
+        num_classes=m.num_classes, embed_dims=m.embed_dims,
+        code_size=m.code_size, pc_range=m.pc_range,
+        num_points_in_pillar=m.num_points_in_pillar, img_shape=m.img_shape,
+        num_cams=m.num_cams, num_feature_levels=m.num_feature_levels,
+        encoder_layers=m.encoder_layers, decoder_layers=m.decoder_layers,
+        feedforward_channels=m.feedforward_channels,
+        rotate_prev_bev=m.rotate_prev_bev, use_shift=m.use_shift,
+        use_can_bus=m.use_can_bus, shift_current_refs=m.shift_current_refs,
+        attn_logits_clamp=m.attn_logits_clamp, group_detr=m.group_detr,
+        # transformer activations follow the conv trunk's dtype unless the
+        # config pins them
+        dtype=_DTYPES[m.transformer_dtype or cfg.compute_dtype],
+    )
+    if m.with_map:
+        return BEVFormerDetMapHead(
+            num_map_vec=m.num_map_vec, map_num_pts=m.map_num_pts,
+            map_num_classes=m.map_num_classes,
+            map_decoder_layers=m.map_decoder_layers, **common)
+    return BEVFormerHead(**common)
+
+
+def _check_supported(cfg: ExperimentConfig) -> None:
+    m = cfg.model
+    unported = {
+        "backbone_type": (m.backbone_type, "dla"),
+        "neck_type": (m.neck_type, "secondfpn"),
+        "head_family": (m.head_family, "bev"),
+        "with_occupancy": (m.with_occupancy, False),
+        "map_version": (m.map_version, 1),
+        "num_feature_levels": (m.num_feature_levels, 1),
+    }
+    for key, (got, want) in unported.items():
+        if got != want:
+            raise NotImplementedError(
+                f"{cfg.name}: {key}={got!r} is not ported yet (port has {want!r})")
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights shaped like the JAX package's initializers:
+    lecun-normal convs, xavier-uniform dense layers, zero sampling-offset
+    and attention kernels with the grid offset bias, focal-prior
+    classification bias, N(0, 1) BEV and level/camera embeddings, U[0, 1)
+    query and positional tables, identity norms and frozen BN statistics."""
+    def normal_(t, std=1.0):
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    def uniform_(t, lo, hi):
+        t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
+
+    for name, mod in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = mod.weight
+            fan_in = w[0].numel() if isinstance(mod, nn.Conv2d) else w.shape[0] * w[0, 0].numel()
+            normal_(w, 1.0 / math.sqrt(fan_in))
+        elif isinstance(mod, nn.Linear):
+            if leaf in ("sampling_offsets", "attention_weights"):
+                mod.weight.zero_()
+                mod.bias.zero_()
+                if leaf == "sampling_offsets":
+                    attn = model.get_submodule(name.rsplit(".", 1)[0])
+                    groups = mod.out_features // (2 * attn.num_heads * attn.num_points)
+                    mod.bias.copy_(torch.as_tensor(grid_offset_bias(
+                        attn.num_heads, groups, attn.num_points)))
+                continue
+            fan_out, fan_in = mod.weight.shape
+            a = math.sqrt(6.0 / (fan_in + fan_out))
+            uniform_(mod.weight, -a, a)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, FrozenBatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("bev_embedding", "level_embeds", "cams_embeds"):
+            normal_(p)
+        elif leaf in ("query_embedding", "row_embed", "col_embed",
+                      "map_instance_embedding", "map_pts_embedding"):
+            uniform_(p, 0.0, 1.0)
+        elif name.endswith("Dense_2.bias") and "cls_branches" in name:
+            p.fill_(FOCAL_BIAS_INIT)
+
+
+def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:
+    """The config's model on ``device`` (default: the GPU; raises without
+    one unless ``device="cpu"``), in eval mode, with random weights from
+    ``seed``. Load bridged weights with ``load_state_dict`` afterwards."""
+    dev = resolve_device(device)
+    _check_supported(cfg)
+    m = cfg.model
+    with torch.device("meta"):
+        model = BEVFormer(build_head(cfg),
+                          backbone_out_indices=m.backbone_out_indices,
+                          embed_dims=m.embed_dims,
+                          compute_dtype=_DTYPES[cfg.compute_dtype])
+    model = model.to_empty(device="cpu")
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

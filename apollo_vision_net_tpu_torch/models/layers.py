@@ -1,0 +1,100 @@
+"""Layers with flax.linen's numerics, for the port's modules.
+
+Parameters stay f32; ``dtype`` is the activation dtype a layer computes in,
+as flax's ``dtype`` argument: ``None`` promotes the input with the f32
+parameters (so a bf16 input runs in f32), a dtype casts input and
+parameters to it. Norms take their statistics in f32 and use flax's
+epsilon of 1e-6 (FrozenBatchNorm keeps the JAX package's 1e-5).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def _compute_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
+    return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``: y = x @ W + b in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(x, self.compute_dtype)
+        b = self.bias.to(dt) if self.bias is not None else None
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm`` (eps 1e-6): f32 statistics, output in dtype."""
+
+    def __init__(self, dim: int, *, dtype: Optional[torch.dtype] = None):
+        super().__init__(dim, eps=1e-6)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(x, self.compute_dtype)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(dt)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm`` (eps 1e-6) on NCHW: f32 statistics, output in
+    the input's dtype."""
+
+    def __init__(self, num_groups: int, channels: int):
+        super().__init__(num_groups, channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BN with fixed statistics on NCHW (JAX models/resnet.py:25-42):
+    y = x * scale / sqrt(var + 1e-5) + (bias - mean * scale / sqrt(var + 1e-5)),
+    the affine folded in f32 and applied in the input's dtype."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.register_buffer("weight", torch.ones(channels))
+        self.register_buffer("bias", torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = self.weight * torch.rsqrt(self.running_var + 1e-5)
+        shift = self.bias - self.running_mean * inv
+        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    """Bias-free NCHW convolution in the input's dtype. ``padding=None`` is
+    flax's default 'SAME': total padding max((ceil(n/s) - 1)·s + k - n, 0)
+    per spatial dim, the smaller half low, as XLA splits it."""
+
+    def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
+                 padding: Optional[int] = None):
+        super().__init__(cin, cout, k, stride=stride,
+                         padding=0 if padding is None else padding, bias=False)
+        self.same = padding is None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.same:
+            pads = []
+            for size, k, s in zip(x.shape[:1:-1], self.kernel_size[::-1],
+                                  self.stride[::-1]):
+                total = max((-(-size // s) - 1) * s + k - size, 0)
+                pads += [total // 2, total - total // 2]
+            if any(pads):
+                x = F.pad(x, pads)
+        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
+                        self.padding)

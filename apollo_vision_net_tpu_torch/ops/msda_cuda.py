@@ -1,0 +1,107 @@
+"""Wrapper of the hand-written CUDA MSDA forward (csrc/msda_fwd.cu).
+
+``msda_fwd`` checks its inputs, allocates the output and launches the
+kernel on the current CUDA stream. Its plain counterpart is
+``ops.msda.ms_deform_attn_ref``; the kernel replaces the Pallas kernels
+``_msda_kernel`` and ``_msda_kernel_slab`` of the JAX package.
+
+Launch counts: ``launches_plain`` (no tile mask: TSA, det and map decoder
+cross-attention) and ``launches_masked`` (SCA with its per-(camera, tile)
+mask) each grow by one per kernel launch, so a run can show that its main
+path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+SOURCE = "msda_fwd.cu"
+
+launches_plain = 0
+launches_masked = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    global launches_plain, launches_masked
+    launches_plain = 0
+    launches_masked = 0
+
+
+def _lib() -> ctypes.CDLL:
+    from apollo_vision_net_tpu_torch.ops import _build
+
+    lib = _build.load(SOURCE)
+    fn = lib.msda_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build() -> None:
+    """Compile and load the kernel library (first use builds it)."""
+    _lib()
+
+
+def _check(name, t, shape, dtypes, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, value on {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def msda_fwd(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    *,
+    tile_mask: Optional[torch.Tensor] = None,
+    q_tile: int = 32,
+) -> torch.Tensor:
+    """value (B, V, H, D) f32|bf16, loc (B, Q, H, L, P, 2) f32, attn
+    (B, Q, H, L, P) f32, tile_mask (B, ceil(Q / q_tile)) int32 or None ->
+    (B, Q, H * D) in value's dtype."""
+    global launches_plain, launches_masked
+    if value.device.type != "cuda":
+        raise ValueError(f"msda_fwd launches on CUDA tensors, got {value.device}")
+    if value.dim() != 4 or sampling_locations.dim() != 6:
+        raise ValueError("value must be (B, V, H, D), locations (B, Q, H, L, P, 2)")
+    B, V, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    if len(spatial_shapes) != L or sum(h * w for h, w in spatial_shapes) != V:
+        raise ValueError(f"spatial_shapes {spatial_shapes} do not match V={V}, L={L}")
+    dev = value.device
+    _check("value", value, (B, V, H, D), (torch.float32, torch.bfloat16), dev)
+    _check("sampling_locations", sampling_locations, (B, Q, H, L, P, 2),
+           (torch.float32,), dev)
+    _check("attention_weights", attention_weights, (B, Q, H, L, P),
+           (torch.float32,), dev)
+    if tile_mask is not None:
+        _check("tile_mask", tile_mask, (B, (Q + q_tile - 1) // q_tile),
+               (torch.int32,), dev)
+    lib = _lib()
+    out = torch.empty((B, Q, H * D), dtype=value.dtype, device=dev)
+    shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.msda_fwd(
+        value.data_ptr(), _DTYPES[value.dtype], sampling_locations.data_ptr(),
+        attention_weights.data_ptr(),
+        tile_mask.data_ptr() if tile_mask is not None else None,
+        out.data_ptr(), B, V, H, D, Q, L, P, shapes, q_tile, stream)
+    if err != 0:
+        raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {err}")
+    if tile_mask is None:
+        launches_plain += 1
+    else:
+        launches_masked += 1
+    return out

@@ -1,0 +1,127 @@
+"""The port stands alone: no JAX, no JAX package, its own config copy, and
+entry points that refuse to fall back to the CPU without being asked."""
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from apollo_vision_net_tpu.configs import base as jax_configs
+from apollo_vision_net_tpu_torch import configs as port_configs
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_MODULES = [
+    "apollo_vision_net_tpu_torch",
+    "apollo_vision_net_tpu_torch.bridge",
+    "apollo_vision_net_tpu_torch.configs",
+    "apollo_vision_net_tpu_torch.data.synthetic",
+    "apollo_vision_net_tpu_torch.data.temporal",
+    "apollo_vision_net_tpu_torch.ops._build",
+    "apollo_vision_net_tpu_torch.ops.grid_sample",
+    "apollo_vision_net_tpu_torch.ops.msda",
+    "apollo_vision_net_tpu_torch.ops.msda_cuda",
+    "apollo_vision_net_tpu_torch.utils.box_coder",
+    "apollo_vision_net_tpu_torch.utils.geometry",
+    "apollo_vision_net_tpu_torch.models.detector",
+    "apollo_vision_net_tpu_torch.runtime.inference",
+]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no GPU, whatever the machine has
+    return env
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'apollo_vision_net_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "OptimConfig", "DataConfig",
+                                  "ExperimentConfig"])
+def test_config_classes_equal_the_jax_ones(name):
+    def fields(cls):
+        return [(f.name, f.type, dataclasses.asdict(f.default)
+                 if dataclasses.is_dataclass(f.default) else f.default)
+                for f in dataclasses.fields(cls)]
+
+    assert fields(getattr(port_configs, name)) == fields(getattr(jax_configs, name))
+
+
+def test_flagship_config_equals_the_jax_one():
+    j = jax_configs.bev_tiny_det_map_apollo()
+    t = port_configs.bev_tiny_det_map_apollo()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.map_patch_size == j.model.map_patch_size
+
+
+def test_data_copies_equal_the_jax_ones():
+    """camera_ring_lidar2img, make_batch (inference and det-GT keys) and
+    StreamingState behave as the JAX package's originals."""
+    import numpy as np
+
+    from apollo_vision_net_tpu.data import synthetic as jsyn
+    from apollo_vision_net_tpu.data.temporal import StreamingState as JState
+    from apollo_vision_net_tpu_torch.data import synthetic as tsyn
+    from apollo_vision_net_tpu_torch.data.temporal import StreamingState
+
+    np.testing.assert_array_equal(tsyn.camera_ring_lidar2img(6, 480, 800),
+                                  jsyn.camera_ring_lidar2img(6, 480, 800))
+    cfg = jax_configs.bev_smoke_det_map()
+    want = jsyn.make_batch(cfg, batch_size=2, seed=5)
+    got = tsyn.make_batch(port_configs.ExperimentConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}),
+        batch_size=2, seed=5)
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+    frames = tsyn.make_stream(cfg, 5, seed=1, scene_change_at=(3,))
+    js, ts = JState(), StreamingState()
+    for f in frames:
+        a = js.prepare_frame(f["can_bus"], f["scene_token"])
+        b = ts.prepare_frame(f["can_bus"], f["scene_token"])
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+        js.update(object())
+        ts.update(object())
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    from apollo_vision_net_tpu_torch import resolve_device
+    from apollo_vision_net_tpu_torch.models.detector import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(port_configs.bev_tiny_det_map_apollo())
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):
+    """No result line without a GPU, and none from a directory that holds
+    chip_smoke.py and nothing else of the repo."""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = _env()
+    env.pop("PYTHONPATH")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == ""
