@@ -18,7 +18,10 @@ torch key by joining its names with dots, after these rewrites:
 - flax MHA ``query/key/value`` kernels (C, H, D) and biases (H, D), and the
   ``out`` kernel (H, D, C), flatten to (H·D)-wide Linear layers;
 - norm ``scale`` -> ``weight``; FrozenBatchNorm ``mean``/``var`` ->
-  ``running_mean``/``running_var``.
+  ``running_mean``/``running_var``;
+- every other leaf keeps its name and layout, e.g. conv biases and the
+  ResNet DCN weight ``conv2_dcn_weight`` (9, C, O), which the port keeps
+  in the JAX layout.
 
 Every flax leaf is used exactly once.
 """

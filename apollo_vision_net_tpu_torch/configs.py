@@ -152,3 +152,20 @@ def bev_tiny_det_map_apollo() -> ExperimentConfig:
         ),
         compute_dtype="bfloat16",
     )
+
+
+def bev_base_det_map() -> ExperimentConfig:
+    """Base-scale det+map: the flagship's det and MapTR v1 heads on
+    BEVFormer-base's trunk (R101 with DCN in stages 3-4, a 4-level FPN over
+    stages 2-4, 200×200 BEV, 6 encoder layers)."""
+    return ExperimentConfig(
+        name="bev_base_det_map",
+        model=ModelConfig(
+            bev_h=200, bev_w=200, backbone_depth=101,
+            backbone_dcn_stages=(False, False, True, True),
+            backbone_out_indices=(1, 2, 3), num_feature_levels=4,
+            encoder_layers=6, with_map=True,
+            msda_impl="auto_fast",
+        ),
+        compute_dtype="bfloat16",
+    )

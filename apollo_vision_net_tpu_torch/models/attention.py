@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's models/attention.py (reference
 temporal_self_attention.py, spatial_cross_attention.py, decoder.py). Every
-deformable sampler goes through ``ops.msda.ms_deform_attn``: the CUDA kernel
+deformable sampler goes through ``ops.msda.ms_deform_attn`` (or, for SCA
+over several levels, ``ops.msda.ms_deform_attn_factored``): a CUDA kernel
 on the GPU, its plain version on the CPU. Softmax logits, sampling locations
 and the MSDA accumulator stay f32 whatever the activation ``dtype``.
 """
@@ -20,6 +21,7 @@ from apollo_vision_net_tpu_torch.models.layers import Dense
 from apollo_vision_net_tpu_torch.ops.msda import (
     materialize_factored,
     ms_deform_attn,
+    ms_deform_attn_factored,
 )
 from apollo_vision_net_tpu_torch.utils.geometry import spatial_block_order
 
@@ -102,7 +104,10 @@ class MSDeformableAttention3D(nn.Module):
     """Inner sampler of SCA: no output projection; offsets spread over the
     pillar's z-anchors. ``query`` may have a smaller batch Bs than ``value``
     (B = Bs · N cameras, camera axis fast): offsets and weights come from the
-    shared BEV query once and are materialized per camera."""
+    shared BEV query once. Over several levels the sampler takes them
+    factored (``ms_deform_attn_factored``: on the GPU the per-camera
+    locations are never materialized); over one level they are materialized
+    per camera for ``ms_deform_attn``, as the JAX package dispatches."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 8,
@@ -133,6 +138,11 @@ class MSDeformableAttention3D(nn.Module):
         D_z = reference_points.shape[2]
         assert P % D_z == 0, (P, D_z)
         ref_flat = reference_points.float().reshape(B, Q, D_z * 2).repeat(1, 1, P // D_z)
+        if L > 1:
+            return ms_deform_attn_factored(
+                v.contiguous(), spatial_shapes, ref_flat.contiguous(),
+                offsets.contiguous(), attn.contiguous(),
+                tile_mask=tile_mask, q_tile=q_tile)
         loc, attn = materialize_factored(ref_flat, offsets, attn, spatial_shapes, H, P)
         return ms_deform_attn(
             v.contiguous(), spatial_shapes,
@@ -147,16 +157,19 @@ class SpatialCrossAttention(nn.Module):
     With ``bev_hw`` set, queries are reordered into 8×(q_tile/8) spatial
     blocks and a per-(camera, query-tile) visibility mask lets the kernel
     skip tiles no pillar of which projects into the camera. Outputs are
-    masked by pillar visibility and normalized by the hit count."""
+    masked by pillar visibility and normalized by the hit count. ``q_tile``
+    defaults to the JAX package's choice, 128 over several levels and 32
+    over one; it only changes which tiles are skipped, not the result."""
 
     def __init__(self, embed_dims: int = 256, num_cams: int = 6,
                  num_heads: int = 8, num_levels: int = 1, num_points: int = 8,
-                 bev_hw: Optional[Tuple[int, int]] = None, q_tile: int = 32,
+                 bev_hw: Optional[Tuple[int, int]] = None,
+                 q_tile: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_cams = num_cams
         self.bev_hw = bev_hw
-        self.q_tile = q_tile
+        self.q_tile = q_tile or (128 if num_levels > 1 else 32)
         self.dtype = dtype
         self.deformable_attention = MSDeformableAttention3D(
             embed_dims, num_heads, num_levels, num_points, dtype=dtype)

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's models/detector.py (reference
 bevformer/detectors/bevformer.py): backbone + neck over the folded cameras,
 then the head; ``forward_test_frame`` is the stateful streaming step.
-``build_model`` builds the flagship family (DLA-34 + SECONDFPNV2, det or
-det+map head) from a config, with random weights made from a seed.
+``build_model`` builds a det or det+map model from a config, with DLA-34 +
+SECONDFPNV2 (the flagship) or ResNet (optionally with DCN stages) + FPN
+(the base configs), with random weights made from a seed.
 """
 from __future__ import annotations
 
@@ -18,27 +19,26 @@ from apollo_vision_net_tpu_torch import resolve_device
 from apollo_vision_net_tpu_torch.configs import ExperimentConfig
 from apollo_vision_net_tpu_torch.models.attention import grid_offset_bias
 from apollo_vision_net_tpu_torch.models.dla import DLA
+from apollo_vision_net_tpu_torch.models.fpn import FPN
 from apollo_vision_net_tpu_torch.models.heads.det_head import (
     FOCAL_BIAS_INIT,
     BEVFormerHead,
 )
 from apollo_vision_net_tpu_torch.models.heads.map_head import BEVFormerDetMapHead
 from apollo_vision_net_tpu_torch.models.layers import FrozenBatchNorm
+from apollo_vision_net_tpu_torch.models.resnet import CHANNELS, ResNet
 from apollo_vision_net_tpu_torch.models.second_fpn import SECONDFPNV2
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class BEVFormer(nn.Module):
-    def __init__(self, head: nn.Module, *, backbone_out_indices=(3, 4, 5),
-                 embed_dims: int = 256,
+    def __init__(self, head: nn.Module, img_backbone: nn.Module,
+                 img_neck: nn.Module, *,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.img_backbone = DLA(out_indices=backbone_out_indices)
-        dla_ch = (16, 32, 64, 128, 256, 512)
-        self.img_neck = SECONDFPNV2(
-            in_channels=[dla_ch[i] for i in backbone_out_indices],
-            fuse_channels=embed_dims)
+        self.img_backbone = img_backbone
+        self.img_neck = img_neck
         self.head = head
         self.compute_dtype = compute_dtype
 
@@ -87,15 +87,31 @@ def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
     return BEVFormerHead(**common)
 
 
+def build_trunk(cfg: ExperimentConfig) -> Tuple[nn.Module, nn.Module]:
+    """(img_backbone, img_neck) of the config: DLA-34 + SECONDFPNV2, or
+    ResNet + FPN with ``num_feature_levels`` outputs."""
+    m = cfg.model
+    if m.backbone_type == "dla":
+        dla_ch = (16, 32, 64, 128, 256, 512)
+        return (DLA(out_indices=m.backbone_out_indices),
+                SECONDFPNV2(in_channels=[dla_ch[i] for i in m.backbone_out_indices],
+                            fuse_channels=m.embed_dims))
+    return (ResNet(m.backbone_depth, m.backbone_out_indices, m.backbone_dcn_stages),
+            FPN([CHANNELS[i] for i in m.backbone_out_indices], m.embed_dims,
+                num_outs=m.num_feature_levels))
+
+
 def _check_supported(cfg: ExperimentConfig) -> None:
     m = cfg.model
+    trunks = {("dla", "secondfpn"), ("resnet", "fpn")}
+    if (m.backbone_type, m.neck_type) not in trunks:
+        raise NotImplementedError(
+            f"{cfg.name}: {m.backbone_type} + {m.neck_type} is not ported yet "
+            f"(port has {sorted(trunks)})")
     unported = {
-        "backbone_type": (m.backbone_type, "dla"),
-        "neck_type": (m.neck_type, "secondfpn"),
         "head_family": (m.head_family, "bev"),
         "with_occupancy": (m.with_occupancy, False),
         "map_version": (m.map_version, 1),
-        "num_feature_levels": (m.num_feature_levels, 1),
     }
     for key, (got, want) in unported.items():
         if got != want:
@@ -106,10 +122,12 @@ def _check_supported(cfg: ExperimentConfig) -> None:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights shaped like the JAX package's initializers:
-    lecun-normal convs, xavier-uniform dense layers, zero sampling-offset
-    and attention kernels with the grid offset bias, focal-prior
-    classification bias, N(0, 1) BEV and level/camera embeddings, U[0, 1)
-    query and positional tables, identity norms and frozen BN statistics."""
+    lecun-normal convs with zero biases, a zero DCN offset conv and a
+    truncated-normal DCN weight (variance scaling 2.0, fan_out),
+    xavier-uniform dense layers, zero sampling-offset and attention kernels
+    with the grid offset bias, focal-prior classification bias, N(0, 1) BEV
+    and level/camera embeddings, U[0, 1) query and positional tables,
+    identity norms and frozen BN statistics."""
     def normal_(t, std=1.0):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
@@ -121,7 +139,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             w = mod.weight
             fan_in = w[0].numel() if isinstance(mod, nn.Conv2d) else w.shape[0] * w[0, 0].numel()
-            normal_(w, 1.0 / math.sqrt(fan_in))
+            normal_(w, 0.0 if leaf == "conv2_offset" else 1.0 / math.sqrt(fan_in))
+            if mod.bias is not None:
+                mod.bias.zero_()
         elif isinstance(mod, nn.Linear):
             if leaf in ("sampling_offsets", "attention_weights"):
                 mod.weight.zero_()
@@ -149,6 +169,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("bev_embedding", "level_embeds", "cams_embeds"):
             normal_(p)
+        elif leaf == "conv2_dcn_weight":
+            # flax variance_scaling(2.0, "fan_out", "truncated_normal") on
+            # (9, C, O): fan_out = 9·O, truncated at two std
+            std = math.sqrt(2.0 / (p.shape[0] * p.shape[2])) / 0.87962566103423978
+            nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
         elif leaf in ("query_embedding", "row_embed", "col_embed",
                       "map_instance_embedding", "map_pts_embedding"):
             uniform_(p, 0.0, 1.0)
@@ -162,11 +188,8 @@ def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:
     ``seed``. Load bridged weights with ``load_state_dict`` afterwards."""
     dev = resolve_device(device)
     _check_supported(cfg)
-    m = cfg.model
     with torch.device("meta"):
-        model = BEVFormer(build_head(cfg),
-                          backbone_out_indices=m.backbone_out_indices,
-                          embed_dims=m.embed_dims,
+        model = BEVFormer(build_head(cfg), *build_trunk(cfg),
                           compute_dtype=_DTYPES[cfg.compute_dtype])
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))

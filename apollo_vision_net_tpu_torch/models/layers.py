@@ -77,14 +77,15 @@ class FrozenBatchNorm(nn.Module):
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free NCHW convolution in the input's dtype. ``padding=None`` is
-    flax's default 'SAME': total padding max((ceil(n/s) - 1)·s + k - n, 0)
-    per spatial dim, the smaller half low, as XLA splits it."""
+    """NCHW convolution in the input's dtype, bias-free unless ``bias``
+    (flax ``nn.Conv`` has one by default). ``padding=None`` is flax's
+    default 'SAME': total padding max((ceil(n/s) - 1)·s + k - n, 0) per
+    spatial dim, the smaller half low, as XLA splits it."""
 
     def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
-                 padding: Optional[int] = None):
+                 padding: Optional[int] = None, bias: bool = False):
         super().__init__(cin, cout, k, stride=stride,
-                         padding=0 if padding is None else padding, bias=False)
+                         padding=0 if padding is None else padding, bias=bias)
         self.same = padding is None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -96,5 +97,6 @@ class Conv2d(nn.Conv2d):
                 pads += [total // 2, total - total // 2]
             if any(pads):
                 x = F.pad(x, pads)
-        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
                         self.padding)

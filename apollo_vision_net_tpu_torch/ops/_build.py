@@ -4,7 +4,10 @@ Each source under ``apollo_vision_net_tpu_torch/csrc/`` is compiled on first
 use into ``apollo_vision_net_tpu_torch/build/`` as a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). The library
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.
+rebuilt and a stale library is never loaded. ``build_many`` starts one
+nvcc per source, all at once, and returns each build's seconds and the
+compiler's resource report (``-Xptxas -v``: registers, shared memory,
+spills per kernel).
 """
 from __future__ import annotations
 
@@ -14,13 +17,15 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+from typing import Dict, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -41,20 +46,54 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def build(source: str) -> Path:
-    """Compile csrc/<source> unless the library for its current text exists.
-    Returns the library path."""
+def _start(source: str):
     out = library_path(source)
     if out.exists():
-        return out
+        return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # the compiler's output goes to a file: a pipe nobody reads until the
+    # end could fill and stall nvcc
+    with open(tmp.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    return out, tmp, proc
+
+
+def _finish(source: str, out: Path, tmp: Path, proc) -> str:
+    proc.wait()
+    log = tmp.with_suffix(".log")
+    report = log.read_text()
+    log.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {source}:\n{report}")
     os.replace(tmp, out)
+    return report
+
+
+def build(source: str) -> Path:
+    """Compile csrc/<source> unless the library for its current text exists.
+    Returns the library path."""
+    out, tmp, proc = _start(source)
+    if proc is not None:
+        _finish(source, out, tmp, proc)
     return out
+
+
+def build_many(sources: Sequence[str]) -> Dict[str, Tuple[float, str]]:
+    """Compile the sources in parallel (one nvcc each, started together).
+    Returns {source: (seconds from the common start, ptxas report)}; a
+    library already built reports 0 seconds and no report."""
+    t0 = time.perf_counter()
+    started = {s: _start(s) for s in sources}
+    done = {s: 0.0 for s, (_, _, proc) in started.items() if proc is None}
+    while len(done) < len(started):
+        for s, (_, _, proc) in started.items():
+            if s not in done and proc.poll() is not None:
+                done[s] = time.perf_counter() - t0
+        time.sleep(0.05)
+    return {s: (done[s], _finish(s, *started[s]) if started[s][2] else "")
+            for s in sources}
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -12,7 +12,9 @@ Shapes (batch-first, the JAX package's layout):
   returns:             (B, Q, H * D) in value's dtype
 
 ``ms_deform_attn`` runs the plain version for CPU tensors and the CUDA
-kernel (ops/msda_cuda.py) for CUDA tensors.
+kernel (ops/msda_cuda.py) for CUDA tensors. ``ms_deform_attn_factored``
+does the same for multi-level SCA on factored operands: per-camera
+reference points, offsets and weights shared by the cameras of a sample.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from apollo_vision_net_tpu_torch.ops import use_plain
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -119,7 +123,7 @@ def ms_deform_attn(
 ) -> torch.Tensor:
     """MSDA front end: the plain version for CPU tensors, the hand-written
     CUDA kernel for CUDA tensors (which raises on inputs it does not take)."""
-    if value.device.type == "cpu":
+    if use_plain(value):
         return ms_deform_attn_ref(
             value, spatial_shapes, sampling_locations, attention_weights,
             tile_mask=tile_mask, q_tile=q_tile)
@@ -127,4 +131,34 @@ def ms_deform_attn(
 
     return msda_cuda.msda_fwd(
         value, spatial_shapes, sampling_locations, attention_weights,
+        tile_mask=tile_mask, q_tile=q_tile)
+
+
+def ms_deform_attn_factored(
+    value: torch.Tensor,
+    spatial_shapes: Shapes,
+    ref_flat: torch.Tensor,
+    off_flat: torch.Tensor,
+    attn_flat: torch.Tensor,
+    *,
+    tile_mask: Optional[torch.Tensor] = None,
+    q_tile: int = 128,
+) -> torch.Tensor:
+    """MSDA on factored operands (see ``materialize_factored``): value
+    (B, V, H, D), ref_flat (B, Q, P·2), off_flat (Bs, Q, H·L·P·2) raw-cell
+    offsets, attn_flat (Bs, Q, H·L·P) -> (B, Q, H·D). The plain version
+    materializes the locations and runs ``ms_deform_attn_ref``; on CUDA
+    tensors the kernel forms them in registers and never materializes."""
+    if use_plain(value):
+        B, V, H, D = value.shape
+        Q, P, L = ref_flat.shape[1], ref_flat.shape[2] // 2, len(spatial_shapes)
+        loc, attn = materialize_factored(ref_flat, off_flat, attn_flat,
+                                         spatial_shapes, H, P)
+        return ms_deform_attn_ref(
+            value, spatial_shapes, loc.reshape(B, Q, H, L, P, 2),
+            attn.reshape(B, Q, H, L, P), tile_mask=tile_mask, q_tile=q_tile)
+    from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+    return msda_cuda.msda_fwd_factored(
+        value, spatial_shapes, ref_flat, off_flat, attn_flat,
         tile_mask=tile_mask, q_tile=q_tile)

@@ -1,14 +1,18 @@
-"""Wrapper of the hand-written CUDA MSDA forward (csrc/msda_fwd.cu).
+"""Wrappers of the hand-written CUDA MSDA forwards (csrc/msda_fwd.cu).
 
-``msda_fwd`` checks its inputs, allocates the output and launches the
-kernel on the current CUDA stream. Its plain counterpart is
-``ops.msda.ms_deform_attn_ref``; the kernel replaces the Pallas kernels
-``_msda_kernel`` and ``_msda_kernel_slab`` of the JAX package.
+``msda_fwd`` and ``msda_fwd_factored`` check their inputs, allocate the
+output and launch a kernel on the current CUDA stream. Their plain
+counterparts are ``ops.msda.ms_deform_attn_ref`` and the materialization of
+the factored operands followed by it. ``msda_fwd`` replaces the Pallas
+kernels ``_msda_kernel``, ``_msda_kernel_slab``, ``_msda_kernel_masked``,
+``_msda_kernel_window`` and ``_msda_kernel_ml_chunk`` of the JAX package;
+``msda_fwd_factored`` replaces ``_msda_kernel_pt2d``.
 
 Launch counts: ``launches_plain`` (no tile mask: TSA, det and map decoder
-cross-attention) and ``launches_masked`` (SCA with its per-(camera, tile)
-mask) each grow by one per kernel launch, so a run can show that its main
-path went through the kernel.
+cross-attention), ``launches_masked`` (single-level SCA with its
+per-(camera, tile) mask) and ``launches_factored`` (multi-level SCA on
+factored operands) each grow by one per kernel launch, so a run can show
+that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -21,31 +25,30 @@ SOURCE = "msda_fwd.cu"
 
 launches_plain = 0
 launches_masked = 0
+launches_factored = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    global launches_plain, launches_masked
+    global launches_plain, launches_masked, launches_factored
     launches_plain = 0
     launches_masked = 0
+    launches_factored = 0
 
 
 def _lib() -> ctypes.CDLL:
     from apollo_vision_net_tpu_torch.ops import _build
 
     lib = _build.load(SOURCE)
-    fn = lib.msda_fwd
-    if fn.argtypes is None:
+    if lib.msda_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p, i, p]
-        fn.restype = ctypes.c_int
+        lib.msda_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p, i, p]
+        lib.msda_fwd.restype = ctypes.c_int
+        lib.msda_fwd_factored.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
+                                          i, i, i, p, i, p]
+        lib.msda_fwd_factored.restype = ctypes.c_int
     return lib
-
-
-def build() -> None:
-    """Compile and load the kernel library (first use builds it)."""
-    _lib()
 
 
 def _check(name, t, shape, dtypes, device):
@@ -104,4 +107,55 @@ def msda_fwd(
         launches_plain += 1
     else:
         launches_masked += 1
+    return out
+
+
+def msda_fwd_factored(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    ref_flat: torch.Tensor,
+    off_flat: torch.Tensor,
+    attn_flat: torch.Tensor,
+    *,
+    tile_mask: Optional[torch.Tensor] = None,
+    q_tile: int = 128,
+) -> torch.Tensor:
+    """value (B, V, H, D) f32|bf16; ref_flat (B, Q, P·2) f32 per camera;
+    off_flat (Bs, Q, H·L·P·2) f32 in cells of each level and attn_flat
+    (Bs, Q, H·L·P) f32, shared by the N = B / Bs cameras of a sample
+    (camera axis fast); tile_mask (B, ceil(Q / q_tile)) int32 or None ->
+    (B, Q, H * D) in value's dtype. Locations are formed in the kernel."""
+    global launches_factored
+    if value.device.type != "cuda":
+        raise ValueError(f"msda_fwd_factored launches on CUDA tensors, got {value.device}")
+    if value.dim() != 4 or ref_flat.dim() != 3:
+        raise ValueError("value must be (B, V, H, D), ref_flat (B, Q, P * 2)")
+    B, V, H, D = value.shape
+    _, Q, P2 = ref_flat.shape
+    P, L, Bs = P2 // 2, len(spatial_shapes), attn_flat.shape[0]
+    if sum(h * w for h, w in spatial_shapes) != V:
+        raise ValueError(f"spatial_shapes {spatial_shapes} do not match V={V}")
+    if P2 % 2 or Bs < 1 or B % Bs:
+        raise ValueError(f"ref_flat {tuple(ref_flat.shape)} / attn batch {Bs} "
+                         f"do not fit value batch {B}")
+    dev = value.device
+    _check("value", value, (B, V, H, D), (torch.float32, torch.bfloat16), dev)
+    _check("ref_flat", ref_flat, (B, Q, P2), (torch.float32,), dev)
+    _check("off_flat", off_flat, (Bs, Q, H * L * P * 2), (torch.float32,), dev)
+    _check("attn_flat", attn_flat, (Bs, Q, H * L * P), (torch.float32,), dev)
+    if tile_mask is not None:
+        _check("tile_mask", tile_mask, (B, (Q + q_tile - 1) // q_tile),
+               (torch.int32,), dev)
+    lib = _lib()
+    out = torch.empty((B, Q, H * D), dtype=value.dtype, device=dev)
+    shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.msda_fwd_factored(
+        value.data_ptr(), _DTYPES[value.dtype], ref_flat.data_ptr(),
+        off_flat.data_ptr(), attn_flat.data_ptr(),
+        tile_mask.data_ptr() if tile_mask is not None else None,
+        out.data_ptr(), B, B // Bs, V, H, D, Q, L, P, shapes, q_tile, stream)
+    if err != 0:
+        raise RuntimeError(f"msda_fwd_factored kernel launch failed: CUDA error {err}")
+    launches_factored += 1
     return out

@@ -3,19 +3,37 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA GPU, nvcc (PATH or /usr/local/cuda/bin) and this checkout.
 
-Phases, each printing one JSON line:
-  env      card name and power limit (nvidia-smi), torch and CUDA versions.
-  build    builds the MSDA kernel from csrc/ and prints the build seconds.
-  kernels  the CUDA MSDA kernel against its plain PyTorch version at the
-           flagship's four call shapes (TSA, SCA with a tile mask from the
-           camera-ring geometry, det decoder, map decoder) in f32 and bf16:
-           max abs error, kernel / plain time (CUDA events), and the bound.
-  stream   the flagship bev_tiny_det_map_apollo at full width (6 cams at
-           480x800, 50x50 BEV, 3 encoder + 6 det + 6 map decoder layers,
-           random weights from a seed) through the streaming runner: frames
-           with can_bus deltas and one scene change, launch counts per frame,
-           finite outputs, one f32 frame held against the CPU plain path,
-           and steady-state frames/s as configured (bf16) and in f32.
+Phases, each printing JSON lines:
+  env          card name and power limit (nvidia-smi), torch and CUDA versions.
+  build        builds the kernels of csrc/ in parallel (one nvcc each) and
+               prints each source's seconds and the compiler's resource report.
+  kernels      every CUDA kernel against its plain PyTorch version, in f32 and
+               bf16: max abs error and tolerance, device time per call (CUDA
+               graph replay), the plain version's time, an eager call's time
+               and the bound. Shapes: the flagship's four MSDA calls (TSA, SCA
+               with a tile mask from the camera-ring geometry, det and map
+               decoders); the base config's TSA over 200x200, det and map
+               decoders over the 200x200 BEV, SCA over 4 levels on factored
+               operands (tile mask at q_tile 128) and the same SCA on
+               materialized operands through the masked entry; the four DCN
+               shapes of R101 stages 3-4 (random ~2 px offsets, sigmoid masks;
+               cuDNN's time for a plain 3x3 conv of the same shape beside them
+               as a yardstick); small edge shapes of both kernels.
+  stream       the flagship bev_tiny_det_map_apollo at full width (6 cams at
+               480x800, 50x50 BEV, 3 encoder + 6 det + 6 map decoder layers,
+               random weights from a seed) through the streaming runner: frames
+               with can_bus deltas and one scene change, launch counts per
+               frame, finite outputs, one f32 frame held against the CPU plain
+               path, steady-state frames/s as configured (bf16) and in f32, and
+               a profile of each.
+  stream_base  bev_base_det_map at full width (R101 with DCN in stages 3-4, a
+               4-level FPN, 200x200 BEV, 6 encoder + 6 det + 6 map decoder
+               layers) the same way, with exact launch counts per frame; its
+               f32 frame with history is held against the same frame run
+               under ``ops.plain_versions()`` on the GPU. Its random weights
+               come from seed 0, and the zero-initialized offset predictors
+               (``conv2_offset``, ``sampling_offsets``) get seeded noise so
+               that the deformable samples land between pixels.
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 """
@@ -23,22 +41,30 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
-from apollo_vision_net_tpu_torch.configs import bev_tiny_det_map_apollo
+from apollo_vision_net_tpu_torch import ops
+from apollo_vision_net_tpu_torch.configs import (
+    bev_base_det_map,
+    bev_tiny_det_map_apollo,
+)
 from apollo_vision_net_tpu_torch.data.synthetic import (
     camera_ring_lidar2img,
     make_stream,
 )
 from apollo_vision_net_tpu_torch.data.temporal import StreamingState
 from apollo_vision_net_tpu_torch.models.detector import build_model
-from apollo_vision_net_tpu_torch.ops import msda_cuda
+from apollo_vision_net_tpu_torch.ops import _build, dcn_cuda, msda_cuda
+from apollo_vision_net_tpu_torch.ops.dcn import modulated_deform_conv_ref
 from apollo_vision_net_tpu_torch.ops.msda import (
     materialize_factored,
+    ms_deform_attn_factored,
     ms_deform_attn_ref,
 )
 from apollo_vision_net_tpu_torch.runtime.inference import (
@@ -47,25 +73,51 @@ from apollo_vision_net_tpu_torch.runtime.inference import (
 )
 from apollo_vision_net_tpu_torch.utils import geometry
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and f32 rate
-# outside the tensor cores. MSDA's arithmetic is f32 FMAs on CUDA cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 rate
+# outside the tensor cores, dense bf16 tensor-core rate. MSDA's arithmetic
+# is f32 FMAs on CUDA cores; the DCN product runs on CUDA cores in f32 and
+# on the tensor cores in bf16.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 # kernel vs plain: f32 differs only in summation order; bf16 rounds the same
-# f32 sum to bf16 in both, which may land one bf16 ulp apart (2^-7 at |x|<2)
+# f32 sum to bf16 in both, which may land one bf16 ulp apart (2^-7 at |x|<2,
+# 2^-6 at |x|<4; the DCN rows' outputs stay under 4)
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # one f32 frame on the GPU against the CPU plain path: different conv and
 # matmul algorithms and summation orders through ~60 layers; error relative
 # to each output's largest magnitude
 STREAM_REL_TOL = 2e-3
-KERNEL_SOURCE = "apollo_vision_net_tpu_torch/csrc/msda_fwd.cu"
+# the base f32 frame with kernels against the same frame under
+# ops.plain_versions() on the GPU: the same convolutions and products, the
+# kernels' sums in other orders through 101 + ~80 layers; relative as above
+BASE_REL_TOL = 2e-3
+SOURCES = {"msda_fwd.cu": "apollo_vision_net_tpu_torch/csrc/msda_fwd.cu",
+           "dcn_fwd.cu": "apollo_vision_net_tpu_torch/csrc/dcn_fwd.cu"}
+MSDA_PALLAS = "apollo_vision_net_tpu/ops/msda_pallas.py"
 REPLACES = {
-    "msda_fwd": ("apollo_vision_net_tpu/ops/msda_pallas.py:194 (_msda_kernel); "
-                 "apollo_vision_net_tpu/ops/msda_pallas.py:234 "
-                 "(_msda_kernel_slab, TSA use)"),
-    "msda_fwd_masked": ("apollo_vision_net_tpu/ops/msda_pallas.py:234 "
-                        "(_msda_kernel_slab with tile mask, SCA use)"),
+    "msda_fwd": (f"{MSDA_PALLAS}:194 (_msda_kernel); {MSDA_PALLAS}:234 "
+                 f"(_msda_kernel_slab, TSA use); {MSDA_PALLAS}:1293 "
+                 "(_msda_kernel_window, 200x200 TSA, run exactly)"),
+    "msda_fwd_masked": (f"{MSDA_PALLAS}:234 (_msda_kernel_slab with tile mask, "
+                        f"SCA use); {MSDA_PALLAS}:212 (_msda_kernel_masked); "
+                        f"{MSDA_PALLAS}:385 (_msda_kernel_ml_chunk, "
+                        "multi-level SCA on materialized operands)"),
+    "msda_fwd_factored": f"{MSDA_PALLAS}:676 (_msda_kernel_pt2d)",
+    "dcn_fwd": "apollo_vision_net_tpu/ops/dcn_pallas.py:73 (_dcn_kernel)",
 }
+# per-frame calls of each entry point, by kernels-phase case: the base frame
+# where the base path launches the entry, else the flagship frame
+FRAME_CALLS = {
+    "msda_fwd": ("bev_base_det_map", {"tsa_base": 6, "det_decoder_base": 6,
+                                      "map_decoder_base": 6}),
+    "msda_fwd_masked": ("bev_tiny_det_map_apollo", {"sca": 3}),
+    "msda_fwd_factored": ("bev_base_det_map", {"sca_base_factored": 6}),
+    "dcn_fwd": ("bev_base_det_map", {"dcn_s3_stride2": 1, "dcn_s3": 22,
+                                     "dcn_s4_stride2": 1, "dcn_s4": 2}),
+}
+ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
+                "msda_fwd_factored": "msda_fwd.cu", "dcn_fwd": "dcn_fwd.cu"}
 
 
 def emit(obj) -> None:
@@ -119,21 +171,111 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def reset_launch_counts() -> None:
+    msda_cuda.reset_launch_counts()
+    dcn_cuda.reset_launch_counts()
+
+
+def read_launch_counts() -> dict:
+    return {"msda_fwd": msda_cuda.launches_plain,
+            "msda_fwd_masked": msda_cuda.launches_masked,
+            "msda_fwd_factored": msda_cuda.launches_factored,
+            "dcn_fwd": dcn_cuda.launches}
+
+
 # ---------------------------------------------------------------- kernels
 
-def _case(name, g, dev, *, B, hw, H, D, Q, P, ref_xy, tile_mask=None):
-    """Inputs of one MSDA call: ref_xy (B, Q, P, 2) normalized reference
-    points per point, offsets of ~2 cells, softmaxed weights."""
+def tile_sizes(Q: int, q_tile: int, n_tiles: int, device) -> torch.Tensor:
+    per_tile = torch.full((n_tiles,), q_tile, device=device)
+    per_tile[-1] = Q - q_tile * (n_tiles - 1)
+    return per_tile
+
+
+def msda_bound(value, Q, L, P, tile_mask, q_tile, shared_batch=None):
+    """Least time for an MSDA call: each input read once (locations and
+    weights of active tiles only), the output written once; 4 corners x D
+    FMAs per sample. ``shared_batch`` = Bs for the factored entry: per-camera
+    refs, and offsets/weights read once per sample for the queries that any
+    of its cameras needs."""
+    B, V, H, D = value.shape
+    elem = value.element_size()
+    active_q = B * Q
+    if tile_mask is not None:
+        sizes = tile_sizes(Q, q_tile, tile_mask.shape[1], tile_mask.device)
+        active_q = int((tile_mask.to(torch.int64) * sizes).sum())
+    if shared_batch is None:
+        operand_bytes = active_q * H * L * P * (2 + 1) * 4
+    else:
+        Bs = shared_batch
+        union_q = Bs * Q
+        if tile_mask is not None:
+            any_cam = tile_mask.reshape(Bs, B // Bs, -1).any(1).to(torch.int64)
+            union_q = int((any_cam * sizes).sum())
+        operand_bytes = active_q * P * 2 * 4 + union_q * H * L * P * (2 + 1) * 4
+    nbytes = value.numel() * elem + operand_bytes + B * Q * H * D * elem
+    ops_ = active_q * H * L * P * (4 * 2 * D)
+    return _bound(nbytes, ops_ / F32_FLOP_PER_S)
+
+
+def _bound(nbytes, t_ops_s):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = t_ops_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dcn_bound(x, offset, weight, out):
+    """Least time for a DCN call: x, offsets, mask and weight read once,
+    the output written once; 2·9·C·O operations per output pixel at the
+    card's rate for the dtype (bf16 tensor cores, f32 CUDA cores)."""
+    B, Ho, Wo, _, _ = offset.shape
+    _, C, O = weight.shape
+    nbytes = (x.numel() * x.element_size() + offset.numel() * 4
+              + offset.numel() // 2 * 4 + weight.numel() * weight.element_size()
+              + out.numel() * out.element_size())
+    rate = BF16_TENSOR_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    return _bound(nbytes, 2 * B * Ho * Wo * 9 * C * O / rate)
+
+
+def _softmax_attn(g, dev, shape, groups):
+    """Softmaxed weights (..., H·L·P) normalized over each head's L·P."""
+    a = torch.randn(shape[:-1] + (shape[-1] // groups, groups),
+                    generator=g, device=dev)
+    return torch.softmax(a, -1).reshape(shape).contiguous()
+
+
+def msda_case(name, g, dev, *, B, hw, H, D, Q, P, ref_xy):
+    """Inputs of one single-level MSDA call: ref_xy (B, Q, P, 2) normalized
+    reference points per point, offsets of ~2 cells, softmaxed weights."""
     h, w = hw
     value = torch.randn((B, h * w, H, D), generator=g, device=dev)
     off = torch.randn((B, Q, H, 1, P, 2), generator=g, device=dev) * 2.0
     off = off / torch.tensor([w, h], device=dev, dtype=torch.float32)
     loc = (ref_xy[:, :, None, None] + off).contiguous()
-    attn = torch.softmax(
-        torch.randn((B, Q, H, P), generator=g, device=dev), -1
-    ).reshape(B, Q, H, 1, P).contiguous()
-    return dict(name=name, value=value, shapes=((h, w),), loc=loc, attn=attn,
-                tile_mask=tile_mask)
+    attn = _softmax_attn(g, dev, (B, Q, H * P), P).reshape(B, Q, H, 1, P)
+    return dict(name=name, kind="msda", value=value, shapes=((h, w),), loc=loc,
+                attn=attn, tile_mask=None, q_tile=32)
+
+
+def sca_geometry(cfg, dev, q_tile):
+    """Pillar reference points projected into the camera ring, queries in
+    8 x (q_tile / 8) blocks as SpatialCrossAttention orders them, and the
+    per-(camera, tile) visibility mask: ref (N, Q, D_z, 2), mask (N, T)."""
+    m = cfg.model
+    bh, bw = m.bev_h, m.bev_w
+    Q, N = bh * bw, m.num_cams
+    ref3d = torch.as_tensor(geometry.bev_reference_points_3d(
+        bh, bw, m.pc_range[5] - m.pc_range[2], m.num_points_in_pillar),
+        device=dev)
+    l2i = torch.as_tensor(camera_ring_lidar2img(N, *m.img_shape), device=dev)
+    ref_cam, bev_mask = geometry.point_sampling(
+        ref3d, m.pc_range, l2i[None], m.img_shape)
+    perm, _ = geometry.spatial_block_order(bh, bw, 8, q_tile // 8)
+    perm = torch.as_tensor(perm, device=dev, dtype=torch.int64)
+    ref_cam = ref_cam[0][:, perm]                      # (N, Q, Dz, 2)
+    hit = bev_mask[0].any(-1)[:, perm]                 # (N, Q)
+    n_tiles = (Q + q_tile - 1) // q_tile
+    hit_pad = F.pad(hit, (0, n_tiles * q_tile - Q))
+    return ref_cam, hit_pad.reshape(N, n_tiles, q_tile).any(-1).to(torch.int32)
 
 
 def flagship_cases(dev):
@@ -148,24 +290,11 @@ def flagship_cases(dev):
     cases = []
     # TSA: 2-slot queue folded into the batch, refs on the BEV grid
     ref2d = torch.as_tensor(geometry.bev_reference_points_2d(bh, bw), device=dev)
-    cases.append(_case("tsa", g, dev, B=2, hw=(bh, bw), H=H, D=D, Q=Q, P=4,
-                       ref_xy=ref2d[None, :, None].expand(2, Q, 4, 2)))
-    # SCA: pillar points projected into the camera ring, queries in 8x4
-    # blocks, tiles of 32 masked by visibility (as SpatialCrossAttention)
-    ref3d = torch.as_tensor(geometry.bev_reference_points_3d(
-        bh, bw, m.pc_range[5] - m.pc_range[2], m.num_points_in_pillar),
-        device=dev)
-    l2i = torch.as_tensor(camera_ring_lidar2img(N, *m.img_shape), device=dev)
-    ref_cam, bev_mask = geometry.point_sampling(
-        ref3d, m.pc_range, l2i[None], m.img_shape)
-    perm, _ = geometry.spatial_block_order(bh, bw, 8, 4)
-    perm = torch.as_tensor(perm, device=dev, dtype=torch.int64)
-    ref_cam = ref_cam[0][:, perm]                      # (N, Q, Dz, 2)
-    hit = bev_mask[0].any(-1)[:, perm]                 # (N, Q)
+    cases.append(msda_case("tsa", g, dev, B=2, hw=(bh, bw), H=H, D=D, Q=Q, P=4,
+                           ref_xy=ref2d[None, :, None].expand(2, Q, 4, 2)))
+    # SCA: tiles of 32 masked by visibility (as SpatialCrossAttention)
     qt = 32
-    n_tiles = (Q + qt - 1) // qt
-    hit_pad = torch.nn.functional.pad(hit, (0, n_tiles * qt - Q))
-    tile_mask = hit_pad.reshape(N, n_tiles, qt).any(-1).to(torch.int32)
+    ref_cam, tile_mask = sca_geometry(cfg, dev, qt)
     P = 8
     ref_flat = ref_cam.reshape(N, Q, -1).repeat(1, 1, P // ref_cam.shape[2])
     off = torch.randn((1, Q, H * P * 2), generator=g, device=dev) * 2.0
@@ -173,21 +302,71 @@ def flagship_cases(dev):
     loc, attn = materialize_factored(ref_flat, off, attn.reshape(1, Q, -1),
                                      ((fh, fw),), H, P)
     cases.append(dict(
-        name="sca", value=torch.randn((N, fh * fw, H, D), generator=g, device=dev),
+        name="sca", kind="msda",
+        value=torch.randn((N, fh * fw, H, D), generator=g, device=dev),
         shapes=((fh, fw),), loc=loc.reshape(N, Q, H, 1, P, 2).contiguous(),
-        attn=attn.reshape(N, Q, H, 1, P).contiguous(), tile_mask=tile_mask))
+        attn=attn.reshape(N, Q, H, 1, P).contiguous(), tile_mask=tile_mask,
+        q_tile=qt))
     # det and map decoders: queries at random reference points on the BEV
     for name, nq in (("det_decoder", m.num_query),
                      ("map_decoder", m.num_map_vec * m.map_num_pts)):
         ref = torch.rand((1, nq, 1, 2), generator=g, device=dev)
-        cases.append(_case(name, g, dev, B=1, hw=(bh, bw), H=H, D=D, Q=nq, P=4,
-                           ref_xy=ref.expand(1, nq, 4, 2)))
+        cases.append(msda_case(name, g, dev, B=1, hw=(bh, bw), H=H, D=D, Q=nq,
+                               P=4, ref_xy=ref.expand(1, nq, 4, 2)))
     return cases
 
 
-def edge_cases(dev):
-    """Small shapes the flagship does not reach: D < 32 and D > 32, two
-    levels, Q not a multiple of the tile, locations outside the grid."""
+def base_msda_cases(dev):
+    """The MSDA call shapes of one bev_base_det_map frame: TSA over the
+    200x200 BEV (kernel 6's contract, exact), det and map decoders over it,
+    SCA over the 4 FPN levels on factored operands (kernel 4) and on
+    materialized ones through the masked entry (kernel 5's contract)."""
+    cfg = bev_base_det_map()
+    m = cfg.model
+    g = torch.Generator(device=dev).manual_seed(2)
+    bh, bw = m.bev_h, m.bev_w
+    Q = bh * bw
+    N, H, D = m.num_cams, 8, m.embed_dims // 8
+    cases = []
+    ref2d = torch.as_tensor(geometry.bev_reference_points_2d(bh, bw), device=dev)
+    cases.append(msda_case("tsa_base", g, dev, B=2, hw=(bh, bw), H=H, D=D, Q=Q,
+                           P=4, ref_xy=ref2d[None, :, None].expand(2, Q, 4, 2)))
+    for name, nq in (("det_decoder_base", m.num_query),
+                     ("map_decoder_base", m.num_map_vec * m.map_num_pts)):
+        ref = torch.rand((1, nq, 1, 2), generator=g, device=dev)
+        cases.append(msda_case(name, g, dev, B=1, hw=(bh, bw), H=H, D=D, Q=nq,
+                               P=4, ref_xy=ref.expand(1, nq, 4, 2)))
+    # the 4 FPN levels of a 480x800 image: stride 8, then each stride-2 conv
+    # (3x3, padding 1) halves rounding up: (60, 100) ... (8, 13)
+    hh, ww = m.img_shape[0] // 8, m.img_shape[1] // 8
+    shapes = []
+    for _ in range(m.num_feature_levels):
+        shapes.append((hh, ww))
+        hh, ww = (hh + 1) // 2, (ww + 1) // 2
+    shapes = tuple(shapes)
+    V, L, P, qt = sum(h * w for h, w in shapes), len(shapes), 8, 128
+    ref_cam, tile_mask = sca_geometry(cfg, dev, qt)
+    ref_flat = ref_cam.reshape(N, Q, -1).repeat(1, 1, P // ref_cam.shape[2]).contiguous()
+    off = (torch.randn((1, Q, H * L * P * 2), generator=g, device=dev) * 2.0).contiguous()
+    attn = _softmax_attn(g, dev, (1, Q, H * L * P), L * P)
+    value = torch.randn((N, V, H, D), generator=g, device=dev)
+    cases.append(dict(name="sca_base_factored", kind="factored", value=value,
+                      shapes=shapes, ref_flat=ref_flat, off=off, attn=attn,
+                      tile_mask=tile_mask, q_tile=qt))
+    loc, attn_m = materialize_factored(ref_flat, off, attn, shapes, H, P)
+    cases.append(dict(name="sca_base_materialized", kind="msda", value=value,
+                      shapes=shapes,
+                      loc=loc.reshape(N, Q, H, L, P, 2).contiguous(),
+                      attn=attn_m.reshape(N, Q, H, L, P).contiguous(),
+                      tile_mask=tile_mask, q_tile=qt,
+                      same_as="sca_base_factored"))
+    return cases
+
+
+def msda_edge_cases(dev):
+    """Small shapes the main paths do not reach: D < 32 and D > 32, two
+    levels, Q not a multiple of the tile, locations outside the grid; the
+    factored entry with N = 3 cameras and a tail tile."""
     g = torch.Generator(device=dev).manual_seed(1)
     out = []
     for (B, H, D, Q, P, shapes) in ((2, 4, 4, 37, 5, ((6, 9), (3, 5))),
@@ -199,70 +378,146 @@ def edge_cases(dev):
         attn = torch.rand((B, Q, H, L, P), generator=g, device=dev)
         n_tiles = (Q + 31) // 32
         tm = (torch.rand((B, n_tiles), generator=g, device=dev) > 0.4).to(torch.int32)
-        out.append(dict(name=f"edge_D{D}", value=value, shapes=shapes, loc=loc,
-                        attn=attn, tile_mask=None))
-        out.append(dict(name=f"edge_D{D}_masked", value=value, shapes=shapes,
-                        loc=loc, attn=attn, tile_mask=tm))
+        out.append(dict(name=f"edge_D{D}", kind="msda", value=value,
+                        shapes=shapes, loc=loc, attn=attn, tile_mask=None,
+                        q_tile=32))
+        out.append(dict(name=f"edge_D{D}_masked", kind="msda", value=value,
+                        shapes=shapes, loc=loc, attn=attn, tile_mask=tm,
+                        q_tile=32))
+    Bs, N, H, D, Q, P = 2, 3, 4, 24, 150, 4
+    shapes = ((9, 11), (5, 6), (3, 3))
+    L, V = len(shapes), sum(h * w for h, w in shapes)
+    tm = (torch.rand((Bs * N, 3), generator=g, device=dev) > 0.3).to(torch.int32)
+    out.append(dict(
+        name="edge_factored", kind="factored",
+        value=torch.randn((Bs * N, V, H, D), generator=g, device=dev),
+        shapes=shapes,
+        ref_flat=torch.rand((Bs * N, Q, P * 2), generator=g, device=dev) * 1.4 - 0.2,
+        off=torch.randn((Bs, Q, H * L * P * 2), generator=g, device=dev) * 3.0,
+        attn=_softmax_attn(g, dev, (Bs, Q, H * L * P), L * P),
+        tile_mask=tm, q_tile=64))
     return out
 
 
-def bound(case, value):
-    """Least time for the call: each input read once (loc/attn of active
-    tiles only), the output written once; 4 corners x D FMAs per sample."""
-    B, V, H, D = value.shape
+def dcn_case(name, g, dev, *, B, H, W, C, O, stride, off_std):
+    """One DCN call: x ~ N(0, 1), offsets ~ N(0, off_std) pixels, sigmoid
+    masks, weights ~ N(0, 1 / (9 C)) so that outputs stay of order 1."""
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    return dict(
+        name=name, kind="dcn", stride=stride,
+        x=torch.randn((B, H, W, C), generator=g, device=dev),
+        offset=torch.randn((B, Ho, Wo, 9, 2), generator=g, device=dev) * off_std,
+        mask=torch.sigmoid(torch.randn((B, Ho, Wo, 9), generator=g, device=dev)),
+        weight=torch.randn((9, C, O), generator=g, device=dev) / math.sqrt(9 * C))
+
+
+def dcn_cases(dev):
+    """The four DCN shapes of R101 stages 3-4 on six 480x800 cameras, then
+    edge shapes: odd sizes at stride 2, offsets far beyond the image, C and
+    O that are not multiples of the kernel's 32 x 64 tiles."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    return [
+        dcn_case("dcn_s3_stride2", g, dev, B=6, H=60, W=100, C=256, O=256, stride=2, off_std=2.0),
+        dcn_case("dcn_s3", g, dev, B=6, H=30, W=50, C=256, O=256, stride=1, off_std=2.0),
+        dcn_case("dcn_s4_stride2", g, dev, B=6, H=30, W=50, C=512, O=512, stride=2, off_std=2.0),
+        dcn_case("dcn_s4", g, dev, B=6, H=15, W=25, C=512, O=512, stride=1, off_std=2.0),
+        dcn_case("edge_dcn_odd_stride2", g, dev, B=1, H=7, W=9, C=20, O=37, stride=2, off_std=4.0),
+        dcn_case("edge_dcn_far", g, dev, B=2, H=5, W=6, C=33, O=70, stride=1, off_std=8.0),
+    ]
+
+
+def bind(case, dtype):
+    """(kernel, plain, bound) callables and numbers of one case in one
+    dtype. The plain versions of the factored and DCN cases copy host
+    constants to the device, which a CUDA graph cannot capture, so their
+    ``plain_ms`` are eager calls timed with CUDA events."""
+    kind = case["kind"]
+    if kind == "dcn":
+        x = case["x"].to(dtype).contiguous()
+        w = case["weight"].to(dtype).contiguous()
+        args = (x, case["offset"], case["mask"], w, case["stride"])
+        kernel = lambda: dcn_cuda.dcn_fwd(*args)          # noqa: E731
+        plain = lambda: modulated_deform_conv_ref(*args)  # noqa: E731
+        return kernel, plain, lambda out: dcn_bound(x, case["offset"], w, out)
+    value = case["value"].to(dtype).contiguous()
+    kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
+    if kind == "factored":
+        args = (value, case["shapes"], case["ref_flat"], case["off"], case["attn"])
+        Q, P = case["ref_flat"].shape[1], case["ref_flat"].shape[2] // 2
+
+        def plain():
+            with ops.plain_versions():
+                return ms_deform_attn_factored(*args, **kw)
+
+        return (lambda: msda_cuda.msda_fwd_factored(*args, **kw), plain,
+                lambda out: msda_bound(value, Q, len(case["shapes"]), P,
+                                       kw["tile_mask"], kw["q_tile"],
+                                       shared_batch=case["attn"].shape[0]))
+    args = (value, case["shapes"], case["loc"], case["attn"])
     _, Q, _, L, P, _ = case["loc"].shape
-    tm = case["tile_mask"]
-    active_q = Q * B
-    if tm is not None:
-        qt = 32
-        per_tile = torch.full((tm.shape[1],), qt, device=tm.device)
-        per_tile[-1] = Q - qt * (tm.shape[1] - 1)
-        active_q = int((tm.to(torch.int64) * per_tile).sum())
-    elem = value.element_size()
-    nbytes = (value.numel() * elem + active_q * H * L * P * (2 + 1) * 4
-              + B * Q * H * D * elem)
-    ops = active_q * H * L * P * (4 * 2 * D)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return (lambda: msda_cuda.msda_fwd(*args, **kw),
+            lambda: ms_deform_attn_ref(*args, **kw),
+            lambda out: msda_bound(value, Q, L, P, kw["tile_mask"], kw["q_tile"]))
+
+
+def conv3x3_ms(case, dtype):
+    """cuDNN's time for a plain 3x3 conv of the DCN case's shape (NCHW,
+    channels_last), a yardstick and not the same function."""
+    B, H, W, C = case["x"].shape
+    O = case["weight"].shape[-1]
+    x = case["x"].to(dtype).permute(0, 3, 1, 2)
+    w = case["weight"].to(dtype).permute(2, 1, 0).reshape(O, C, 3, 3)
+    w = w.contiguous(memory_format=torch.channels_last)
+    return graph_time_ms(lambda: F.conv2d(x, w, None, case["stride"], 1))
 
 
 def phase_kernels(dev):
-    rows = []
-    for case in flagship_cases(dev) + edge_cases(dev):
+    rows, outs = [], {}
+    cases = (flagship_cases(dev) + base_msda_cases(dev) + msda_edge_cases(dev)
+             + dcn_cases(dev))
+    for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
-            value = case["value"].to(dtype).contiguous()
-            args = (value, case["shapes"], case["loc"], case["attn"])
-            kw = dict(tile_mask=case["tile_mask"], q_tile=32)
-            got = msda_cuda.msda_fwd(*args, **kw)
+            kernel, plain, bound = bind(case, dtype)
+            got = kernel()
             torch.cuda.synchronize()
-            want = ms_deform_attn_ref(*args, **kw)
+            want = plain()
             err = float((got.float() - want.float()).abs().max())
             finite = bool(torch.isfinite(got).all())
             row = dict(case=case["name"], dtype=dname, max_abs_err=err,
-                       tol=TOL[dname], finite=finite)
+                       tol=TOL[dname], finite=finite,
+                       max_abs_out=float(want.float().abs().max()))
+            ok = finite and err <= TOL[dname]
+            if "same_as" in case:
+                # the materialized route against the factored kernel
+                other = outs[(case["same_as"], dname)]
+                row["max_abs_err_vs_" + case["same_as"]] = float(
+                    (got.float() - other.float()).abs().max())
+                ok = ok and row["max_abs_err_vs_" + case["same_as"]] <= TOL[dname]
             if not case["name"].startswith("edge"):
-                def kernel():
-                    return msda_cuda.msda_fwd(*args, **kw)
-
-                def plain():
-                    return ms_deform_attn_ref(*args, **kw)
-
-                # ms / plain_ms: device time (CUDA graph replay);
-                # call_ms: an eager call as the main path makes it
+                # ms: device time (CUDA graph replay); call_ms: an eager call
+                # as the main path makes it; plain_ms: see bind()
                 row["ms"] = graph_time_ms(kernel)
-                row["plain_ms"] = graph_time_ms(plain, iters=10)
+                row["plain_ms"] = (graph_time_ms(plain, iters=10)
+                                   if case["kind"] == "msda"
+                                   else time_ms(plain, warmup=2, iters=5))
                 row["call_ms"] = time_ms(kernel)
-                row["bound_ms"], row["bound_by"] = bound(case, value)
-                if case["tile_mask"] is not None:
+                row["bound_ms"], row["bound_by"] = bound(got)
+                if case.get("tile_mask") is not None:
                     row["active_tiles"] = int(case["tile_mask"].sum())
                     row["tiles"] = int(case["tile_mask"].numel())
+                if case["kind"] == "dcn":
+                    row["conv3x3_cudnn_ms"] = conv3x3_ms(case, dtype)
+                if case["name"] == "sca_base_factored":
+                    outs[(case["name"], dname)] = got
             rows.append(row)
             emit({"phase": "kernels", **row})
-            if not finite or err > TOL[dname]:
+            if not ok:
                 raise AssertionError(f"kernel disagrees with plain: {row}")
-    msda_cuda.reset_launch_counts()
+            del got, want, kernel, plain, bound
+    del cases, outs
+    torch.cuda.empty_cache()
+    reset_launch_counts()
     return rows
 
 
@@ -280,40 +535,89 @@ def _rel_err(a, b):
     return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
 
 
-def phase_stream(dev):
-    cfg = bev_tiny_det_map_apollo()
-    cfg32 = dataclasses.replace(
+def f32_config(cfg):
+    return dataclasses.replace(
         cfg, compute_dtype="float32",
         model=dataclasses.replace(cfg.model, transformer_dtype="float32"))
+
+
+def frame_step(model, dev, frame, delta, prev):
+    cb, hp = delta
+    with torch.inference_mode():
+        outs, new_prev = model.forward_test_frame(
+            frame["img"].to(dev)[None], torch.as_tensor(cb, device=dev)[None],
+            frame["lidar2img"].to(dev)[None], prev,
+            torch.full((1,), hp, device=dev))
+    return last_layer(outs), new_prev
+
+
+def first_deltas(frames):
+    """(can_bus delta, has_prev) of the stream's first two frames."""
+    state = StreamingState()
+    deltas = []
+    for f in frames[:2]:
+        deltas.append(state.prepare_frame(f["can_bus"], f["scene_token"]))
+        state.update(True)
+    return deltas
+
+
+def drive(name, cfg, model, frames, expect_per_frame):
+    """The main path: counts set to 0 just before the frames run through
+    the streaming runner, read just after; exact launches per frame, finite
+    outputs and the scene resets checked."""
+    runner = StreamingRunner(cfg, model)
+    reset_launch_counts()
+    results = [runner.step(f) for f in frames]
+    torch.cuda.synchronize()
+    launches = read_launch_counts()
+    n = len(frames)
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for r in results for t in r["outs"].values())
+    has_prev = [r["has_prev"] for r in results]
+    emit({"phase": name, "frames": n, "launches": launches,
+          "per_frame": {k: v / n for k, v in launches.items()},
+          "finite": finite, "has_prev": has_prev,
+          "dets_valid": [int(r["det"].valid.sum()) for r in results]})
+    expect = {k: v * n for k, v in expect_per_frame.items()}
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches} != expected {expect}")
+    if not finite or has_prev != [0.0, 1.0, 1.0, 0.0, 1.0, 1.0]:
+        raise AssertionError(f"{name}: non-finite outputs or wrong scene resets")
+    return launches
+
+
+def frames_per_s(cfg, model, frames, n):
+    """Steady state: 3 warm frames, then CUDA events around ``n`` frames."""
+    run = StreamingRunner(cfg, model)
+    stream = frames * (1 + (n + 3) // len(frames))
+    for f in stream[:3]:
+        run.step(f)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for f in stream[3:3 + n]:
+        run.step(f)
+    end.record()
+    torch.cuda.synchronize()
+    return n / (start.elapsed_time(end) / 1e3)
+
+
+def phase_stream(dev):
+    cfg = bev_tiny_det_map_apollo()
+    cfg32 = f32_config(cfg)
+    torch.cuda.reset_peak_memory_stats()
     n_frames = 6
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, n_frames, seed=1, scene_change_at=(3,))]
     model = build_model(cfg, device=dev, seed=0)
-
-    # the main path: counts set to 0 just before, read just after
-    runner = StreamingRunner(cfg, model)
-    msda_cuda.reset_launch_counts()
-    results = [runner.step(f) for f in frames]
-    torch.cuda.synchronize()
-    launches = {"msda_fwd": msda_cuda.launches_plain,
-                "msda_fwd_masked": msda_cuda.launches_masked}
-    finite = all(bool(torch.isfinite(t.float()).all())
-                 for r in results for t in r["outs"].values())
-    has_prev = [r["has_prev"] for r in results]
-    emit({"phase": "stream", "frames": n_frames, "launches": launches,
-          "per_frame": {k: v / n_frames for k, v in launches.items()},
-          "finite": finite, "has_prev": has_prev,
-          "dets_valid": [int(r["det"].valid.sum()) for r in results]})
     # per frame: TSA in every encoder layer and cross-attention in every det
     # and map decoder layer (15 at the flagship), SCA per encoder layer (3)
     m = cfg.model
-    expect = {"msda_fwd": (m.encoder_layers + m.decoder_layers
-                           + m.map_decoder_layers) * n_frames,
-              "msda_fwd_masked": m.encoder_layers * n_frames}
-    if launches != expect:
-        raise AssertionError(f"launches {launches} != expected {expect}")
-    if not finite or has_prev != [0.0, 1.0, 1.0, 0.0, 1.0, 1.0]:
-        raise AssertionError("non-finite outputs or wrong scene resets")
+    launches = drive("stream", cfg, model, frames, {
+        "msda_fwd": m.encoder_layers + m.decoder_layers + m.map_decoder_layers,
+        "msda_fwd_masked": m.encoder_layers, "msda_fwd_factored": 0,
+        "dcn_fwd": 0})
 
     # one f32 frame with history (frame 1 after frame 0) on the GPU against
     # the CPU plain path, same weights and inputs
@@ -322,24 +626,10 @@ def phase_stream(dev):
     model32.load_state_dict(state)
     cpu32 = build_model(cfg32, device="cpu", seed=0)
     cpu32.load_state_dict(state)
-    stream_state = StreamingState()
-    deltas = []
-    for f in frames[:2]:
-        deltas.append(stream_state.prepare_frame(f["can_bus"], f["scene_token"]))
-        stream_state.update(True)
-
-    def frame_step(mdl, d, f, delta, prev):
-        cb, hp = delta
-        with torch.inference_mode():
-            outs, new_prev = mdl.forward_test_frame(
-                f["img"].to(d)[None], torch.as_tensor(cb, device=d)[None],
-                f["lidar2img"].to(d)[None], prev,
-                torch.full((1,), hp, device=d))
-        return last_layer(outs), new_prev
-
-    Q = cfg.model.bev_h * cfg.model.bev_w
+    deltas = first_deltas(frames)
+    Q = m.bev_h * m.bev_w
     _, prev = frame_step(model32, dev, frames[0], deltas[0],
-                         torch.zeros((1, Q, cfg.model.embed_dims), device=dev))
+                         torch.zeros((1, Q, m.embed_dims), device=dev))
     gpu, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
     t0 = time.perf_counter()
     cpu, _ = frame_step(cpu32, "cpu", frames[1], deltas[1], prev.cpu())
@@ -350,33 +640,85 @@ def phase_stream(dev):
     if deltas[1][1] != 1.0 or max(errs.values()) > STREAM_REL_TOL:
         raise AssertionError(f"GPU f32 frame disagrees with the CPU: {errs}")
 
-    # steady-state frames/s: warm frames, then CUDA events around 20 frames
-    fps = {}
-    for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32)):
-        run = StreamingRunner(c, mdl)
-        stream = frames * 4
-        for f in stream[:3]:
-            run.step(f)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for f in stream[3:23]:
-            run.step(f)
-        end.record()
-        torch.cuda.synchronize()
-        fps[name] = 20 / (start.elapsed_time(end) / 1e3)
+    fps = {name: frames_per_s(c, mdl, frames, 20)
+           for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32))}
     emit({"phase": "stream_fps", "frames_per_s": fps,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32)):
-        profile_frames(name, c, mdl, frames, 1e3 / fps[name])
+        profile_frames("profile", name, c, mdl, frames, 1e3 / fps[name])
     return launches
 
 
-def profile_frames(name, cfg, model, frames, frame_ms):
+@torch.no_grad()
+def perturb_offset_predictors(model, seed):
+    """Seeded N(0, 1/fan_in) noise on the zero-initialized DCN offset convs
+    and deformable-attention offset layers, so that samples land between
+    pixels and cells (with zero kernels every DCN tap samples a whole pixel
+    and every attention offset is a constant)."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.endswith(("conv2_offset.weight", "sampling_offsets.weight")):
+            noise = torch.randn(p.shape, generator=g) / math.sqrt(p[0].numel())
+            p.add_(noise.to(p.device))
+
+
+def phase_stream_base(dev):
+    cfg = bev_base_det_map()
+    cfg32 = f32_config(cfg)
+    m = cfg.model
+    torch.cuda.reset_peak_memory_stats()
+    frames = [_frame_to(f, dev) for f in
+              make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
+    model = build_model(cfg, device=dev, seed=0)
+    perturb_offset_predictors(model, seed=0)
+    n_dcn = sum(n for n, dcn in zip((3, 4, 23, 3), m.backbone_dcn_stages) if dcn)
+    # per frame: TSA per encoder layer and cross-attention per det and map
+    # decoder layer (18), factored SCA per encoder layer (6), DCN in every
+    # block of stages 3-4 (23 + 3)
+    launches = drive("stream_base", cfg, model, frames, {
+        "msda_fwd": m.encoder_layers + m.decoder_layers + m.map_decoder_layers,
+        "msda_fwd_masked": 0, "msda_fwd_factored": m.encoder_layers,
+        "dcn_fwd": n_dcn})
+
+    # one f32 frame with history on the GPU, kernels against the plain
+    # versions of the same frame from the same carried BEV
+    model32 = build_model(cfg32, device=dev, seed=0)
+    model32.load_state_dict(model.state_dict())
+    deltas = first_deltas(frames)
+    _, prev = frame_step(model32, dev, frames[0], deltas[0], torch.zeros(
+        (1, m.bev_h * m.bev_w, m.embed_dims), device=dev))
+    got, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
+    torch.cuda.synchronize()
+    before = read_launch_counts()
+    t0 = time.perf_counter()
+    with ops.plain_versions():
+        want, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    errs = {k: _rel_err(got[k], want[k]) for k in got}
+    emit({"phase": "stream_base_f32_vs_plain", "has_prev": deltas[1][1],
+          "rel_err": errs, "tol": BASE_REL_TOL, "plain_frame_s": plain_s,
+          "plain_launches": {k: v - before[k]
+                             for k, v in read_launch_counts().items()}})
+    if (deltas[1][1] != 1.0 or max(errs.values()) > BASE_REL_TOL
+            or read_launch_counts() != before):
+        raise AssertionError(f"GPU f32 base frame disagrees with plain: {errs}")
+    del got, want, prev
+
+    fps = {name: frames_per_s(c, mdl, frames, 10)
+           for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32))}
+    emit({"phase": "stream_base_fps", "frames_per_s": fps,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32)):
+        profile_frames("profile_base", name, c, mdl, frames, 1e3 / fps[name])
+    return launches
+
+
+def profile_frames(phase, name, cfg, model, frames, frame_ms):
     """torch.profiler over 4 warm frames: device busy time per frame (sum
-    of kernel durations), kernels per frame and the top kernels by device
-    time; idle share against the unprofiled frame time ``frame_ms``."""
+    of kernel durations), kernels and host synchronizations per frame and
+    the top kernels by device time; idle share against the unprofiled
+    frame time ``frame_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     run = StreamingRunner(cfg, model)
@@ -388,10 +730,14 @@ def profile_frames(name, cfg, model, frames, frame_ms):
         for f in frames[2:2 + n]:
             run.step(f)
         torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # host calls that wait for the device (a pageable host-to-device copy
+    # synchronizes the stream): each one lets the device run dry
+    syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                           "cudaMemcpy") for e in events)
     if not kern:
-        emit({"phase": "profile", "dtype": name, "device_time": "not measured"})
+        emit({"phase": phase, "dtype": name, "device_time": "not measured"})
         return
     by_name = {}
     for e in kern:
@@ -400,27 +746,31 @@ def profile_frames(name, cfg, model, frames, frame_ms):
         by_name[k] = (t + e.time_range.elapsed_us(), c + 1)
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "profile", "dtype": name, "frames": n,
+    emit({"phase": phase, "dtype": name, "frames": n,
           "device_busy_ms_per_frame": busy_ms,
           "kernels_per_frame": len(kern) / n,
+          "host_syncs_per_frame": syncs / n,
           "frame_ms_unprofiled": frame_ms,
           "device_idle_share": 1.0 - busy_ms / frame_ms,
           "top": [{"name": k, "ms_per_frame": t / 1e3 / n, "calls_per_frame": c / n}
                   for k, (t, c) in top]})
 
 
-def kernels_line(rows, launches):
-    """One entry per kernel entry point; times are the per-frame sums of its
-    flagship calls in bf16 (the configured dtype)."""
-    calls = {"msda_fwd": {"tsa": 3, "det_decoder": 6, "map_decoder": 6},
-             "msda_fwd_masked": {"sca": 3}}
+def kernels_line(rows, launches_by_path):
+    """One entry per kernel entry point. Times are per-frame sums, in bf16
+    (the configured dtype), of the entry's calls in one frame of the config
+    named by ``frame`` (FRAME_CALLS); ``launches`` sums the main paths'
+    runs, ``launches_by_path`` splits them."""
     out = []
-    for name, mix in calls.items():
+    for name, (frame, mix) in FRAME_CALLS.items():
         sel = [r for r in rows if r["case"] in mix]
         bf = [r for r in sel if r["dtype"] == "bfloat16"]
-        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        by_path = {p: c[name] for p, c in launches_by_path.items()}
+        entry = {"name": name, "route": "cuda",
+                 "source": SOURCES[ENTRY_SOURCE[name]],
                  "replaces": REPLACES[name],
-                 "launches": launches[name],
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
                  "max_abs_err": max(r["max_abs_err"] for r in bf),
                  "max_abs_err_f32": max(r["max_abs_err"] for r in sel
                                         if r["dtype"] == "float32")}
@@ -429,7 +779,11 @@ def kernels_line(rows, launches):
         entry["bound_by"] = "bytes" if all(
             r["bound_by"] == "bytes" for r in bf) else "operations"
         entry["library_ms"] = None
+        entry["frame"] = frame
         entry["per_frame_calls"] = mix
+        if name == "dcn_fwd":
+            entry["conv3x3_cudnn_ms"] = sum(
+                r["conv3x3_cudnn_ms"] * mix[r["case"]] for r in bf)
         out.append(entry)
     return {"kernels": out}
 
@@ -445,12 +799,14 @@ def main() -> int:
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "python": sys.version.split()[0]})
-    t0 = time.perf_counter()
-    msda_cuda.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "source": KERNEL_SOURCE})
+    for src, (seconds, report) in _build.build_many(list(SOURCES)).items():
+        emit({"phase": "build", "source": SOURCES[src], "seconds": seconds,
+              "ptxas": [ln for ln in report.splitlines() if "ptxas info" in ln
+                        and ("registers" in ln or "spill" in ln)]})
     rows = phase_kernels(dev)
-    launches = phase_stream(dev)
+    launches = {"stream": phase_stream(dev)}
+    torch.cuda.empty_cache()
+    launches["stream_base"] = phase_stream_base(dev)
     emit(kernels_line(rows, launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,13 +20,18 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.configs",
     "apollo_vision_net_tpu_torch.data.synthetic",
     "apollo_vision_net_tpu_torch.data.temporal",
+    "apollo_vision_net_tpu_torch.ops",
     "apollo_vision_net_tpu_torch.ops._build",
+    "apollo_vision_net_tpu_torch.ops.dcn",
+    "apollo_vision_net_tpu_torch.ops.dcn_cuda",
     "apollo_vision_net_tpu_torch.ops.grid_sample",
     "apollo_vision_net_tpu_torch.ops.msda",
     "apollo_vision_net_tpu_torch.ops.msda_cuda",
     "apollo_vision_net_tpu_torch.utils.box_coder",
     "apollo_vision_net_tpu_torch.utils.geometry",
     "apollo_vision_net_tpu_torch.models.detector",
+    "apollo_vision_net_tpu_torch.models.fpn",
+    "apollo_vision_net_tpu_torch.models.resnet",
     "apollo_vision_net_tpu_torch.runtime.inference",
 ]
 
@@ -70,6 +75,13 @@ def test_flagship_config_equals_the_jax_one():
     assert t.model.map_patch_size == j.model.map_patch_size
 
 
+def test_base_config_equals_the_jax_one():
+    j = jax_configs.bev_base_det_map()
+    t = port_configs.bev_base_det_map()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.map_patch_size == j.model.map_patch_size
+
+
 def test_data_copies_equal_the_jax_ones():
     """camera_ring_lidar2img, make_batch (inference and det-GT keys) and
     StreamingState behave as the JAX package's originals."""
@@ -108,8 +120,10 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(port_configs.bev_tiny_det_map_apollo())
+    for cfg in (port_configs.bev_tiny_det_map_apollo(),
+                port_configs.bev_base_det_map()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

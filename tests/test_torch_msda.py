@@ -5,9 +5,14 @@ CUDA kernel is held against on the GPU. Here it is held against
 ``ms_deform_attn_xla`` (multi-level, locations outside the grid), the
 Pallas kernels in interpret mode (plain ``_msda_kernel``, and the slab
 kernel with a tile mask: masked tiles are zero) and
-``_materialize_factored``. All f32: the sides differ only in summation
-order, so 1e-5 absolute on O(1) outputs.
+``_materialize_factored``. The factored front end (multi-level SCA) is held
+against the Pallas pt2d kernel in interpret mode, with and without a tile
+mask, the materialized non-pt2d Pallas paths and XLA; TSA over a large
+single-level grid against the window kernel where its window holds every
+sample, and against XLA everywhere. All f32: the sides differ only in
+summation order, so 1e-5 absolute on O(1) outputs.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,11 +21,14 @@ from apollo_vision_net_tpu.ops.msda import ms_deform_attn_xla
 from apollo_vision_net_tpu.ops.msda_pallas import (
     _materialize_factored,
     _msda_pallas_fwd_impl,
+    _msda_pallas_window_impl,
 )
+from apollo_vision_net_tpu_torch import ops
 from apollo_vision_net_tpu_torch.ops import msda_cuda
 from apollo_vision_net_tpu_torch.ops.msda import (
     materialize_factored,
     ms_deform_attn,
+    ms_deform_attn_factored,
     ms_deform_attn_ref,
 )
 
@@ -118,3 +126,122 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     value, shapes, locs, attn = make_inputs(6)
     with pytest.raises(ValueError, match="CUDA"):
         msda_cuda.msda_fwd(torch.from_numpy(value), shapes, *_torch(locs, attn))
+
+
+def make_factored_inputs(seed, B=6, Bs=2, H=3, D=8, Q=300, P=4, Dz=2,
+                         shapes=((14, 10), (7, 5), (4, 3), (2, 2))):
+    """SCA-style operands: per-camera refs (B = Bs·N, camera axis fast),
+    raw-cell offsets and softmaxed weights shared by a sample's cameras."""
+    rng = np.random.default_rng(seed)
+    V = sum(h * w for h, w in shapes)
+    L = len(shapes)
+    value = rng.standard_normal((B, V, H, D)).astype(np.float32)
+    ref = rng.uniform(-0.1, 1.1, (B, Q, Dz, 2)).astype(np.float32)
+    off = rng.uniform(-3.0, 3.0, (Bs, Q, H * L * P * 2)).astype(np.float32)
+    attn = rng.random((Bs, Q, H, L * P)).astype(np.float32)
+    attn = (attn / attn.sum(-1, keepdims=True)).reshape(Bs, Q, H * L * P)
+    ref_flat = np.tile(ref.reshape(B, Q, Dz * 2), (1, 1, P // Dz))
+    return value, shapes, ref_flat, off, attn
+
+
+def factored_plain(value, shapes, ref_flat, off, attn, tile_mask=None):
+    tm = None if tile_mask is None else torch.from_numpy(tile_mask.astype(np.int32))
+    return ms_deform_attn_factored(
+        *_torch(value), shapes, *_torch(ref_flat, off, attn), tile_mask=tm,
+        q_tile=128).numpy()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_factored_matches_pallas_pt2d_interpret(monkeypatch, masked):
+    """The pt2d kernel (kernel 4) on the factored operands, Bs < B, a tail
+    tile; with a tile mask, masked tiles are zero and the rest exact."""
+    monkeypatch.setenv("MSDA_ML_KERNEL", "pt2d")
+    value, shapes, ref_flat, off, attn = make_factored_inputs(17)
+    B = value.shape[0]
+    tile_mask = None
+    if masked:
+        tile_mask = np.ones((B, 3), bool)
+        tile_mask[0, 1] = False
+        tile_mask[3, 2] = False
+    want = np.asarray(_msda_pallas_fwd_impl(
+        value, shapes, None, None, interpret=True, q_tile=128,
+        slab_rows=(6, 4, 3, 2),
+        tile_mask=None if tile_mask is None else jnp.asarray(tile_mask),
+        factored=(jnp.asarray(ref_flat), jnp.asarray(off), jnp.asarray(attn))))
+    got = factored_plain(value, shapes, ref_flat, off, attn, tile_mask)
+    if masked:
+        assert np.all(got[0, 128:256] == 0) and np.all(got[3, 256:] == 0)
+        keep = np.repeat(tile_mask, 128, axis=1)[:, :got.shape[1]]
+        want = want * keep[:, :, None]
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("path", ["chunk", "slab_single_level", "xla"])
+def test_factored_matches_materialized_paths(monkeypatch, path):
+    """The materialized routes: the multi-level chunk kernel (kernel 5, the
+    masked entry's contract at L = 4), the single-level slab kernel, and
+    XLA on ``_materialize_factored``'s operands."""
+    shapes = ((12, 9),) if path == "slab_single_level" else ((14, 10), (7, 5), (4, 3), (2, 2))
+    value, shapes, ref_flat, off, attn = make_factored_inputs(
+        19, B=6, Bs=3, Q=150, shapes=shapes)
+    got = factored_plain(value, shapes, ref_flat, off, attn)
+    factored = (jnp.asarray(ref_flat), jnp.asarray(off), jnp.asarray(attn))
+    if path == "chunk":
+        monkeypatch.setenv("MSDA_ML_KERNEL", "chunk")
+        want = _msda_pallas_fwd_impl(value, shapes, None, None, interpret=True,
+                                     q_tile=64, slab_rows=(6, 4, 3, 2),
+                                     factored=factored)
+    elif path == "slab_single_level":
+        want = _msda_pallas_fwd_impl(value, shapes, None, None, interpret=True,
+                                     q_tile=32, slab_rows=8, factored=factored)
+    else:
+        B, Q, H, L, P = value.shape[0], ref_flat.shape[1], value.shape[2], 4, 4
+        loc, aw = _materialize_factored(*factored, shapes, H, P)
+        want = ms_deform_attn_xla(value, shapes, np.asarray(loc).reshape(
+            B, Q, H, L, P, 2), np.asarray(aw).reshape(B, Q, H, L, P))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=TOL)
+
+
+def test_factored_front_end_on_cpu_counts_no_launch():
+    value, shapes, ref_flat, off, attn = make_factored_inputs(20, Q=40)
+    before = msda_cuda.launches_factored
+    with ops.plain_versions():
+        inside = factored_plain(value, shapes, ref_flat, off, attn)
+    np.testing.assert_array_equal(
+        inside, factored_plain(value, shapes, ref_flat, off, attn))
+    assert msda_cuda.launches_factored == before
+    with pytest.raises(ValueError, match="CUDA"):
+        msda_cuda.msda_fwd_factored(torch.from_numpy(value), shapes,
+                                    *_torch(ref_flat, off, attn))
+
+
+def _tsa_inputs(seed, spread):
+    """TSA over a 40×36 single-level grid (the 200×200 base TSA's kernel at
+    a small size): B = 2 queue slots, tiles of 32 queries sampling around a
+    centre, ``spread`` wide in normalized units."""
+    rng = np.random.default_rng(seed)
+    B, H, D, Q, P = 2, 2, 8, 128, 4
+    h, w = 40, 36
+    value = rng.standard_normal((B, h * w, H, D)).astype(np.float32)
+    nt = Q // 32
+    centers = rng.uniform(0.25, 0.75, (B, nt, 1, 1, 1, 1, 2))
+    locs = centers + rng.uniform(-spread, spread, (B, nt, 32, H, 1, P, 2))
+    locs = np.clip(locs.reshape(B, Q, H, 1, P, 2), 0, 1).astype(np.float32)
+    attn = rng.random((B, Q, H, 1, P)).astype(np.float32)
+    return value, ((h, w),), locs, attn
+
+
+@pytest.mark.parametrize("reference", ["window_kernel", "xla"])
+def test_large_grid_tsa_is_exact(reference):
+    """Where the window kernel's 24×32-cell window holds every sample it
+    agrees with the plain version; the plain version never clamps, so it
+    agrees with XLA on samples spread over the whole grid."""
+    value, shapes, locs, attn = _tsa_inputs(7, 0.1 if reference == "window_kernel" else 0.5)
+    got = ms_deform_attn_ref(*_torch(value), shapes, *_torch(locs, attn)).numpy()
+    if reference == "window_kernel":
+        want = _msda_pallas_window_impl(jnp.asarray(value), shapes,
+                                        jnp.asarray(locs), jnp.asarray(attn),
+                                        interpret=True, q_tile=32)
+    else:
+        want = ms_deform_attn_xla(value, shapes, locs, attn)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2e-5)

@@ -6,7 +6,11 @@ layers, all f32) runs three streaming frames with one scene reset through
 both ``BEVFormer.forward_test_frame`` implementations on the same bridged
 weights (loaded with strict=True) and the same numpy inputs. On the CPU the
 JAX package takes its exact XLA MSDA path and its space-to-depth DLA stem;
-the port takes the plain PyTorch MSDA and the plain-conv stem.
+the port takes the plain PyTorch MSDA and the plain-conv stem. A small copy
+of bev_base_det_map (the same sizes, with a depth-18 Bottleneck ResNet, DCN
+in stages 3-4, a 4-level FPN and 4-level SCA on factored operands) runs the
+same way; there the JAX DCN projects first and samples after, the port
+samples first.
 
 Tolerance 1e-3 max abs on every f32 output: the two sides differ only in
 the order of f32 sums through ~30 layers (observed errors are at most
@@ -20,12 +24,16 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from apollo_vision_net_tpu.configs import bev_base_det_map as jax_base
 from apollo_vision_net_tpu.configs import bev_tiny_det_map_apollo as jax_flagship
 from apollo_vision_net_tpu.data.temporal import StreamingState as JaxState
 from apollo_vision_net_tpu.models.detector import BEVFormer as JaxBEVFormer
 from apollo_vision_net_tpu.parallel.train import build_model as jax_build_model
 from apollo_vision_net_tpu_torch.bridge import state_dict_from_flax
-from apollo_vision_net_tpu_torch.configs import bev_tiny_det_map_apollo
+from apollo_vision_net_tpu_torch.configs import (
+    bev_base_det_map,
+    bev_tiny_det_map_apollo,
+)
 from apollo_vision_net_tpu_torch.data.synthetic import make_stream
 from apollo_vision_net_tpu_torch.models.detector import build_model
 from apollo_vision_net_tpu_torch.runtime.inference import (
@@ -38,12 +46,14 @@ SMALL = dict(bev_h=8, bev_w=8, embed_dims=32, num_cams=2, img_shape=(64, 96),
              feedforward_channels=64, num_query=12, num_map_vec=5,
              map_num_pts=4, queue_length=2, transformer_dtype="float32",
              msda_impl="auto")
+# the base trunk at the size of the ResNet test: two Bottlenecks a stage
+SMALL_BASE = dict(SMALL, backbone_depth=18)
 TOL = 1e-3
 
 
-def small(cfg):
+def small(cfg, sizes=SMALL):
     return dataclasses.replace(cfg, compute_dtype="float32",
-                               model=dataclasses.replace(cfg.model, **SMALL))
+                               model=dataclasses.replace(cfg.model, **sizes))
 
 
 def perturbed_params(params, seed):
@@ -62,7 +72,17 @@ def perturbed_params(params, seed):
 
 
 def test_streaming_frames_match_jax():
-    jcfg, tcfg = small(jax_flagship()), small(bev_tiny_det_map_apollo())
+    stream_against_jax(small(jax_flagship()), small(bev_tiny_det_map_apollo()))
+
+
+def test_base_streaming_frames_match_jax():
+    tcfg = small(bev_base_det_map(), SMALL_BASE)
+    assert tcfg.model.num_feature_levels == 4
+    assert tcfg.model.backbone_dcn_stages == (False, False, True, True)
+    stream_against_jax(small(jax_base(), SMALL_BASE), tcfg)
+
+
+def stream_against_jax(jcfg, tcfg):
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     m = tcfg.model
     frames = make_stream(tcfg, 3, seed=3, scene_change_at=(2,))
