@@ -16,66 +16,191 @@
 //                           rounded to x's dtype
 //   out[b, i, j, o] = sum_{k, c} sample[b, i, j, k, c] * weight[k, c, o]
 // with zero padding outside the image, f32 accumulation and the output in
-// x's dtype.
+// x's dtype. Each sample is summed over its corners in the plain version's
+// order and rounding (corner (0,0), (1,0), (0,1), (1,1); each product and
+// sum rounded to f32), so kernel and plain version round the same samples.
 //
 // Layout: x (B, H, W, C), offset (B, Ho, Wo, 9, 2) f32, mask (B, Ho, Wo, 9)
 // f32, weight (9, C, O) in x's dtype, out (B, Ho, Wo, O), all contiguous.
 //
-// Design: a block computes a tile of 64 output pixels x 64 output channels
-// with 256 threads. It first computes, for its 64 pixels and 9 taps, the
-// four corner indices and modulated bilinear weights into shared memory.
-// Then it walks the 9*C reduction in chunks of 32: the threads gather the
-// chunk's samples (pixel x (tap, channel), neighbouring threads on
-// neighbouring channels, so each corner read is a coalesced row of x) and
-// stage the matching rows of the weight, then multiply. f32: each thread
-// accumulates a 4x4 sub-tile with FMAs on the CUDA cores. bf16: the samples
-// and weights are staged in bf16 and each warp multiplies a 16x32 sub-tile
-// on the tensor cores (WMMA m16n16k16, f32 accumulators).
+// What bounds it. The product is 2*9*C*O operations per output pixel: 10.6
+// GFLOP a call at each of the four R101 shapes, 10.7 us at the H100's dense
+// bf16 tensor rate, 158 us at its f32 CUDA-core rate. Device memory is no
+// limit (a few MB a call). In practice the gather sets the pace: every
+// sample reads four corner rows of x (M x 9 x 4 x C x 2 B = 166 MB a call
+// in bf16 at 30x50x256, from L1 and L2, since x is 4.6 MB), and each output
+// pixel needs all of its 9*C samples before the product can use them.
 //
-// Bound: operations. Each call at the base shapes is 10.6 GFLOP
-// (2*6*1500*2304*256 in stage 3, 2*6*375*4608*512 in stage 4) on a few MB,
-// 10.7 us at the H100's dense bf16 tensor rate; 26 calls a frame. This first
-// version is simple and right; feeding the tensor cores faster (wgmma, TMA
-// for the weight, a larger tile, fewer re-gathers across output tiles) is
-// later work.
+// Design. A block owns BM output pixels and BN output channels, 256
+// threads, and walks the 9*C reduction in chunks of BK channels of one tap
+// (BK = 64 in bf16, 32 in f32), so the tap is fixed per chunk and no
+// element pays a k / C division.
+//   - Corners. At the start the block computes, for its BM pixels and 9
+//     taps, the four corner element offsets and modulated bilinear weights
+//     into shared memory (32 B per pixel and tap); a chunk reads each of
+//     its pixels' entries once.
+//   - Gather, vector variant (C and O multiples of 16 bytes' worth of
+//     elements, 16-byte aligned tensors; the R101 shapes run it): a thread
+//     owns 16 bytes of channels (8 bf16 or 4 f32) of one or two pixels and
+//     reads each of its four corner rows with one 16-byte load; it sums the
+//     modulated corners in f32, rounds to x's dtype and stores 16 bytes to
+//     shared memory (bf16: pixel-major; f32: channel-major for the FMA
+//     loop's 16-byte reads).
+//   - Weights: the chunk's BK rows of BN columns arrive by cp.async
+//     (16 bytes, zero-filled past C and O).
+//   - Overlap: a two-stage ring in shared memory. While chunk k is
+//     multiplied, chunk k+1's weight rows are in flight by cp.async and
+//     its corner loads are in flight in registers; one __syncthreads per
+//     chunk.
+//   - No re-gather per output tile: a block covers all O (BN = 256 with
+//     BM = 64 for O <= 256; BN = 512 with BM = 32 for O <= 512; more O
+//     tiles only beyond 512), so each sample is gathered once. This fills
+//     the card thinly (141 blocks at stage 3, 71 at stage 4 on 132 SMs).
+//     The other option, a thread-block cluster along O sharing one gathered
+//     tile through distributed shared memory, would give more blocks at the
+//     price of a cluster barrier and remote stores each chunk; it moves the
+//     same weight bytes (each pixel tile reads all 9*C*O weights from L2)
+//     and gathers as often, so the simpler full-width tile was chosen. At
+//     64 x 256 in bf16 two blocks share an SM (<= 128 registers; ptxas
+//     spills 32 bytes) and hide each other's chunk latency.
+//   - Product. bf16: mma.sync m16n8k16 (f32 accumulators) on the tensor
+//     cores, operands from shared memory by ldmatrix (B transposed), 8
+//     warps of 32 x 64 each. f32: CUDA-core FMAs, no TF32 (the f32
+//     tolerance of 1e-4 would not survive it at K = 2304-4608), a thread
+//     computing an 8 x 8 sub-tile from 16-byte shared loads.
+//   General variant (any C, O or alignment): the same 64 x 256 tile, scalar
+//   loads for the gather and the weights, and guarded scalar stores.
+// mma.sync rather than wgmma: the product is not what sets the pace (the
+// bf16 kernel runs ~11x its tensor-core bound while a cuDNN 3x3 conv of the
+// same shape, which gathers nothing, runs ~2.5x; see PERF.md), and
+// mma.sync keeps the warp tiles simple.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kTaps = 9;
-constexpr int BM = 64;   // output pixels per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 32;   // reduction chunk
 constexpr int kThreads = 256;
+
+// A pixel's four corners for one tap: element offsets of the corner rows in
+// x (-1 outside the image) and modulated bilinear weights (0 outside).
+struct TapCorners {
+  int4 idx;
+  float4 wt;
+};
+
+template <typename T, int BM_, int BN_>
+struct DcnTile {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int BK = kBf16 ? 64 : 32;       // reduction chunk
+  static constexpr int VEC = 16 / sizeof(T);        // channels per 16 bytes
+  static constexpr int GROUPS = BK / VEC;           // 16-byte units per pixel
+  static constexpr int UPT = BM * GROUPS / kThreads;  // units per thread
+  // bf16: As[BM][BK + 8] (pixel-major), Bs[BK][BN + 8]; f32: As[BK][BM + 4]
+  // (channel-major), Bs[BK][BN + 4]; the padding keeps ldmatrix and the
+  // 16-byte shared loads free of bank conflicts
+  static constexpr int LDA = kBf16 ? BK + 8 : BM + 4;
+  static constexpr int LDB = BN + (kBf16 ? 8 : 4);
+  static constexpr int A_STAGE = kBf16 ? BM * LDA : BK * LDA;
+  static constexpr int B_STAGE = BK * LDB;
+  static constexpr int SMEM = (2 * A_STAGE + 2 * B_STAGE) * (int)sizeof(T) +
+                              kTaps * BM * (int)sizeof(TapCorners);
+  // bf16: warps of 32 x 64 outputs; f32: threads of 8 x 8
+  static constexpr int WARPS_N = BN / 64, WARPS_M = 8 / WARPS_N;
+  static constexpr int MT = 2, NT = 8;
+  static constexpr int TX = BN / 8;
+  // bf16 64 x 256: two blocks an SM (<= 128 registers, 2 x 102 KB shared)
+  // hide each other's chunk latency, faster at stage 3 on the H100; the
+  // other tiles measured no faster or slower so
+  static constexpr int kMinBlocks = kBf16 && BM == 64 ? 2 : 1;
+  static_assert(BM * GROUPS % kThreads == 0, "whole units per thread");
+  static_assert(!kBf16 || WARPS_M * 32 == BM, "bf16 warp grid covers BM");
+  static_assert(kBf16 || (BM / 8) * TX == kThreads, "f32 thread grid");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 acc
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
-// Corner indices (flat pixel of x, or -1 outside the image) and modulated
-// bilinear weights of the block's pixels for every tap.
-struct Corners {
-  int idx[kTaps * 4][BM];
-  float wt[kTaps * 4][BM];
-};
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
 
-__device__ void fill_corners(Corners& cs, const float* __restrict__ offset,
+// Channel e of a 16-byte unit as f32.
+__device__ __forceinline__ float unit_elem(const uint4& v, int e,
+                                           const __nv_bfloat16*) {
+  const uint32_t w = (e >> 1) == 0 ? v.x : (e >> 1) == 1 ? v.y
+                   : (e >> 1) == 2 ? v.z : v.w;
+  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+__device__ __forceinline__ float unit_elem(const uint4& v, int e,
+                                           const float*) {
+  const uint32_t w = e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+  return __uint_as_float(w);
+}
+
+template <int BM>
+__device__ void fill_corners(TapCorners* tab, const float* __restrict__ offset,
                              const float* __restrict__ mask, int m0, int M,
-                             int H, int W, int Ho, int Wo, int stride) {
+                             int H, int W, int C, int Ho, int Wo,
+                             int stride) {
   const int Q = Ho * Wo;
   for (int e = threadIdx.x; e < kTaps * BM; e += kThreads) {
-    const int tap = e / BM, i = e % BM;
+    const int tap = e / BM, i = e - tap * BM;
     const int m = m0 + i;
     int idx[4] = {-1, -1, -1, -1};
     float wt[4] = {0.f, 0.f, 0.f, 0.f};
     if (m < M) {
-      const int b = m / Q, q = m % Q;
-      const int oy = q / Wo, ox = q % Wo;
+      const int b = m / Q, q = m - b * Q;
+      const int oy = q / Wo, ox = q - oy * Wo;
       const float* om = offset + ((int64_t)m * kTaps + tap) * 2;
       const float px = (float)(ox * stride + tap % 3 - 1) + om[0];
       const float py = (float)(oy * stride + tap / 3 - 1) + om[1];
@@ -88,181 +213,347 @@ __device__ void fill_corners(Corners& cs, const float* __restrict__ offset,
         const int cx = j & 1, cy = j >> 1;
         const int xx = x0 + cx, yy = y0 + cy;
         if (xx >= 0 && xx < W && yy >= 0 && yy < H) {
-          idx[j] = (b * H + yy) * W + xx;
-          wt[j] = (cx ? fx : 1.f - fx) * (cy ? fy : 1.f - fy) * mk;
+          idx[j] = ((b * H + yy) * W + xx) * C;
+          wt[j] = __fmul_rn(__fmul_rn(cx ? fx : 1.f - fx, cy ? fy : 1.f - fy),
+                            mk);
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      cs.idx[tap * 4 + j][i] = idx[j];
-      cs.wt[tap * 4 + j][i] = wt[j];
+    tab[e].idx = make_int4(idx[0], idx[1], idx[2], idx[3]);
+    tab[e].wt = make_float4(wt[0], wt[1], wt[2], wt[3]);
+  }
+}
+
+// The chunk's weight rows (tap * C + c0 + kk, kk < BK) x (n0 .. n0 + BN) to
+// a B stage: cp.async of 16 bytes (zero-filled past C and O) in the vector
+// variant, scalar loads and stores in the general one.
+template <typename Tl, bool VEC, typename T>
+__device__ __forceinline__ void load_b(T* bs, const T* __restrict__ weight,
+                                       int tap, int c0, int C, int n0, int O) {
+  constexpr int BK = Tl::BK, BN = Tl::BN, VC = Tl::VEC, LDB = Tl::LDB;
+  if constexpr (VEC) {
+    constexpr int BCH = BN / VC;
+    for (int e = threadIdx.x; e < BK * BCH; e += kThreads) {
+      const int kk = e / BCH, nc = e - kk * BCH;
+      const bool ok = c0 + kk < C && n0 + nc * VC < O;
+      const T* src =
+          ok ? weight + (int64_t)(tap * C + c0 + kk) * O + n0 + nc * VC : weight;
+      cp_async16(bs + kk * LDB + nc * VC, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BK * BN; e += kThreads) {
+      const int kk = e / BN, n = e - kk * BN;
+      const bool ok = c0 + kk < C && n0 + n < O;
+      store_elem(bs + kk * LDB + n,
+                 ok ? to_f32(weight[(int64_t)(tap * C + c0 + kk) * O + n0 + n])
+                    : 0.f);
     }
   }
 }
 
-// The modulated bilinear sample of pixel i at reduction index k = tap*C + c.
-template <typename T>
-__device__ __forceinline__ float gather(const Corners& cs,
-                                        const T* __restrict__ x, int i, int k,
-                                        int C) {
-  const int tap = k / C, c = k - tap * C;
-  float v = 0.f;
+// Vector gather, first half: the 16-byte corner loads of the thread's units
+// (unit u = threadIdx.x + r * kThreads: pixel u / GROUPS, channels
+// c0 + (u % GROUPS) * VEC ...) go in flight into registers.
+template <typename Tl, typename T>
+__device__ __forceinline__ void gather_issue(uint4 (&gv)[Tl::UPT][4],
+                                             float4 (&gw)[Tl::UPT],
+                                             const TapCorners* tab,
+                                             const T* __restrict__ x, int tap,
+                                             int c0, int C) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int id = cs.idx[tap * 4 + j][i];
-    if (id >= 0) v += cs.wt[tap * 4 + j][i] * to_f32(x[(int64_t)id * C + c]);
+  for (int r = 0; r < Tl::UPT; ++r) {
+    const int u = threadIdx.x + r * kThreads, i = u / Tl::GROUPS;
+    const int c = c0 + (u - i * Tl::GROUPS) * Tl::VEC;
+    const TapCorners tc = tab[tap * Tl::BM + i];
+    const int id[4] = {tc.idx.x, tc.idx.y, tc.idx.z, tc.idx.w};
+    gw[r] = tc.wt;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      gv[r][k] = (c < C && id[k] >= 0)
+                     ? __ldg(reinterpret_cast<const uint4*>(x + id[k] + c))
+                     : make_uint4(0, 0, 0, 0);
+    }
   }
-  return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-dcn_fwd_f32_kernel(const float* __restrict__ x,
-                   const float* __restrict__ offset,
-                   const float* __restrict__ mask,
-                   const float* __restrict__ weight, float* __restrict__ out,
-                   int M, int H, int W, int C, int Ho, int Wo, int O,
-                   int stride) {
-  __shared__ Corners cs;
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int ty = tid / 16, tx = tid % 16;
-  const int Kdim = kTaps * C;
-  fill_corners(cs, offset, mask, m0, M, H, W, Ho, Wo, stride);
-  __syncthreads();
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < Kdim; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      const int i = e / BK, kk = e % BK;
-      As[kk][i] = k0 + kk < Kdim ? gather(cs, x, i, k0 + kk, C) : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int kk = e / BN, n = e % BN;
-      const int k = k0 + kk, o = n0 + n;
-      Bs[kk][n] = (k < Kdim && o < O) ? weight[(int64_t)k * O + o] : 0.f;
-    }
-    __syncthreads();
+// The chunk's samples, summed over the corners as the plain version sums
+// them, rounded to T and stored to an A stage: from the registers of
+// gather_issue in the vector variant, by scalar loads in the general one.
+template <typename Tl, bool VEC, typename T>
+__device__ __forceinline__ void gather_store(T* as, const uint4 (&gv)[Tl::UPT][4],
+                                             const float4 (&gw)[Tl::UPT],
+                                             const TapCorners* tab,
+                                             const T* __restrict__ x, int tap,
+                                             int c0, int C) {
+  constexpr int VC = Tl::VEC, LDA = Tl::LDA;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+  for (int r = 0; r < Tl::UPT; ++r) {
+    const int u = threadIdx.x + r * kThreads, i = u / Tl::GROUPS;
+    const int g = u - i * Tl::GROUPS;
+    float s[VC];
+    if constexpr (VEC) {
+      const float w[4] = {gw[r].x, gw[r].y, gw[r].z, gw[r].w};
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int e = 0; e < VC; ++e) {
+        s[e] = 0.f;
 #pragma unroll
-        for (int s = 0; s < 4; ++s) acc[r][s] += av[r] * bv[s];
+        for (int k = 0; k < 4; ++k) {
+          s[e] = __fadd_rn(s[e], __fmul_rn(unit_elem(gv[r][k], e, x), w[k]));
+        }
+      }
+    } else {
+      const TapCorners tc = tab[tap * Tl::BM + i];
+      const int id[4] = {tc.idx.x, tc.idx.y, tc.idx.z, tc.idx.w};
+      const float w[4] = {tc.wt.x, tc.wt.y, tc.wt.z, tc.wt.w};
+#pragma unroll
+      for (int e = 0; e < VC; ++e) {
+        const int c = c0 + g * VC + e;
+        s[e] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (c < C && id[k] >= 0) {
+            s[e] = __fadd_rn(s[e], __fmul_rn(to_f32(x[id[k] + c]), w[k]));
+          }
+        }
       }
     }
-    __syncthreads();
-  }
+    if constexpr (Tl::kBf16) {
+      *reinterpret_cast<uint4*>(as + i * LDA + g * VC) =
+          make_uint4(pack_bf16x2(s[0], s[1]), pack_bf16x2(s[2], s[3]),
+                     pack_bf16x2(s[4], s[5]), pack_bf16x2(s[6], s[7]));
+    } else {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = m0 + ty * 4 + r;
-    if (m >= M) continue;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int o = n0 + tx * 4 + s;
-      if (o < O) out[(int64_t)m * O + o] = acc[r][s];
+      for (int e = 0; e < VC; ++e) store_elem(as + (g * VC + e) * LDA + i, s[e]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-dcn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const float* __restrict__ offset,
-                    const float* __restrict__ mask,
-                    const __nv_bfloat16* __restrict__ weight,
-                    __nv_bfloat16* __restrict__ out, int M, int H, int W,
-                    int C, int Ho, int Wo, int O, int stride) {
-  using namespace nvcuda;
-  constexpr int LA = BK + 8, LB = BN + 8, LC = BN + 4;  // padded strides
-  __shared__ Corners cs;
-  __shared__ __align__(32) __nv_bfloat16 As[BM][LA];  // pixel x k
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK][LB];  // k x out channel
-  __shared__ __align__(32) float Cs[BM][LC];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;  // 16-row x 32-column sub-tile
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int Kdim = kTaps * C;
-  fill_corners(cs, offset, mask, m0, M, H, W, Ho, Wo, stride);
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  for (int k0 = 0; k0 < Kdim; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      const int i = e / BK, kk = e % BK;
-      As[i][kk] = __float2bfloat16(
-          k0 + kk < Kdim ? gather(cs, x, i, k0 + kk, C) : 0.f);
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int kk = e / BN, n = e % BN;
-      const int k = k0 + kk, o = n0 + n;
-      Bs[kk][n] = (k < Kdim && o < O) ? weight[(int64_t)k * O + o]
-                                      : __float2bfloat16(0.f);
-    }
-    __syncthreads();
+// acc += the A stage times the B stage. bf16: warp (wm, wn) owns rows
+// wm * 32 .. + 32 and columns wn * 64 .. + 64 as 2 x 8 m16n8 tiles, acc
+// index (mt * 8 + nt) * 4 + fragment element. f32: thread (tx, ty) owns
+// rows ty * 4 + {0..3} and BM / 2 + ty * 4 + {0..3}, columns likewise with
+// tx and BN / 2, acc index row * 8 + column.
+template <typename Tl, typename T>
+__device__ __forceinline__ void compute(float (&acc)[64], const T* as,
+                                        const T* bs, int n0, int O) {
+  constexpr int BK = Tl::BK, LDA = Tl::LDA, LDB = Tl::LDB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (Tl::kBf16) {
+    const int wm = warp / Tl::WARPS_N, wn = warp - wm * Tl::WARPS_N;
+    if (n0 + wn * 64 >= O) return;  // the warp's columns are all past O
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, &As[wm * 16][ks], LA);
+      uint32_t a[Tl::MT][4];
 #pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> b;
-        wmma::load_matrix_sync(b, &Bs[ks][wn * 32 + f * 16], LB);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
+      for (int mt = 0; mt < Tl::MT; ++mt) {
+        ldmatrix_x4(a[mt], as + (wm * 32 + mt * 16 + (lane & 15)) * LDA + ks +
+                               (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < Tl::NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, bs + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB +
+                                 wn * 64 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < Tl::MT; ++mt) {
+          mma_bf16(&acc[(mt * Tl::NT + 2 * np) * 4], a[mt], b[0], b[1]);
+          mma_bf16(&acc[(mt * Tl::NT + 2 * np + 1) * 4], a[mt], b[2], b[3]);
+        }
       }
     }
+  } else {
+    const int tx = threadIdx.x % Tl::TX, ty = threadIdx.x / Tl::TX;
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * LDA + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + kk * LDA + Tl::BM / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * LDB + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + kk * LDB + Tl::BN / 2 + tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
+      }
+    }
+  }
+}
+
+template <typename T, int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, (DcnTile<T, BM, BN>::kMinBlocks))
+dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
+               const float* __restrict__ mask, const T* __restrict__ weight,
+               T* __restrict__ out, int M, int H, int W, int C, int Ho, int Wo,
+               int O, int stride) {
+  using Tl = DcnTile<T, BM, BN>;
+  constexpr int BK = Tl::BK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + 2 * Tl::A_STAGE;
+  TapCorners* tab = reinterpret_cast<TapCorners*>(Bs + 2 * Tl::B_STAGE);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int cpt = (C + BK - 1) / BK;  // chunks per tap
+  const int n_chunks = kTaps * cpt;
+
+  fill_corners<BM>(tab, offset, mask, m0, M, H, W, C, Ho, Wo, stride);
+  __syncthreads();
+
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  uint4 gv[Tl::UPT][4];  // the vector gather's loads in flight
+  float4 gw[Tl::UPT];
+
+  // two-stage ring in shared memory: chunk j + 1's weights (cp.async) and
+  // corner loads (registers) are in flight while chunk j multiplies (a
+  // third weight stage measured no faster on the H100)
+  load_b<Tl, VEC>(Bs, weight, 0, 0, C, n0, O);
+  cp_async_commit();
+  if constexpr (VEC) gather_issue<Tl>(gv, gw, tab, x, 0, 0, C);
+  gather_store<Tl, VEC>(As, gv, gw, tab, x, 0, 0, C);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int j = 0; j < n_chunks; ++j) {
+    const int cur = j & 1, nxt = cur ^ 1;
+    const bool more = j + 1 < n_chunks;
+    const int tap = (j + 1) / cpt, c0 = (j + 1 - tap * cpt) * BK;
+    if (more) {
+      load_b<Tl, VEC>(Bs + nxt * Tl::B_STAGE, weight, tap, c0, C, n0, O);
+      cp_async_commit();
+      if constexpr (VEC) gather_issue<Tl>(gv, gw, tab, x, tap, c0, C);
+    }
+    compute<Tl>(acc, As + cur * Tl::A_STAGE, Bs + cur * Tl::B_STAGE, n0, O);
+    if (more) {
+      gather_store<Tl, VEC>(As + nxt * Tl::A_STAGE, gv, gw, tab, x, tap, c0, C);
+    }
+    cp_async_wait_all();
     __syncthreads();
   }
+
+  // epilogue: f32 accumulators rounded to T
+  if constexpr (Tl::kBf16) {
+    const int wm = warp / Tl::WARPS_N, wn = warp - wm * Tl::WARPS_N;
 #pragma unroll
-  for (int f = 0; f < 2; ++f) {
-    wmma::store_matrix_sync(&Cs[wm * 16][wn * 32 + f * 16], acc[f], LC,
-                            wmma::mem_row_major);
+    for (int mt = 0; mt < Tl::MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + wm * 32 + mt * 16 + (lane >> 2) + half * 8;
+        if (m >= M) continue;
+#pragma unroll
+        for (int nt = 0; nt < Tl::NT; ++nt) {
+          const int n = n0 + wn * 64 + nt * 8 + (lane & 3) * 2;
+          const int a = (mt * Tl::NT + nt) * 4 + half * 2;
+          T* o = out + (int64_t)m * O + n;
+          if (VEC) {
+            // O is a multiple of 8, so n < O covers the pair
+            if (n < O) {
+              *reinterpret_cast<__nv_bfloat162*>(o) =
+                  __floats2bfloat162_rn(acc[a], acc[a + 1]);
+            }
+          } else {
+            if (n < O) store_elem(o, acc[a]);
+            if (n + 1 < O) store_elem(o + 1, acc[a + 1]);
+          }
+        }
+      }
+    }
+  } else {
+    const int tx = threadIdx.x % Tl::TX, ty = threadIdx.x / Tl::TX;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+      if (m >= M) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int n = n0 + half * (BN / 2) + tx * 4;
+        const int a = i * 8 + half * 4;
+        T* o = out + (int64_t)m * O + n;
+        if (VEC) {
+          // O is a multiple of 4, so n < O covers the four
+          if (n < O) {
+            *reinterpret_cast<float4*>(o) =
+                make_float4(acc[a], acc[a + 1], acc[a + 2], acc[a + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (n + e < O) store_elem(o + e, acc[a + e]);
+          }
+        }
+      }
+    }
   }
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += kThreads) {
-    const int i = e / BN, n = e % BN;
-    const int m = m0 + i, o = n0 + n;
-    if (m < M && o < O) out[(int64_t)m * O + o] = __float2bfloat16(Cs[i][n]);
+}
+
+template <typename T, int BM, int BN, bool VEC>
+int launch(const void* x, const float* offset, const float* mask,
+           const void* weight, void* out, int M, int H, int W, int C, int Ho,
+           int Wo, int O, int stride, cudaStream_t s) {
+  using Tl = DcnTile<T, BM, BN>;
+  auto kernel = dcn_fwd_kernel<T, BM, BN, VEC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + BM - 1) / BM, (O + BN - 1) / BN);
+  kernel<<<grid, kThreads, Tl::SMEM, s>>>(
+      (const T*)x, offset, mask, (const T*)weight, (T*)out, M, H, W, C, Ho, Wo,
+      O, stride);
+  return (int)cudaGetLastError();
+}
+
+// The vector variant when C and O are whole 16-byte units and x, weight and
+// out are 16-byte aligned (tile 64 x 256 for O <= 256, else 32 x 512), the
+// general variant (tile 64 x 256) otherwise. *variant = 1 / 0.
+template <typename T>
+int dispatch(const void* x, const float* offset, const float* mask,
+             const void* weight, void* out, int M, int H, int W, int C,
+             int Ho, int Wo, int O, int stride, cudaStream_t s,
+             int* variant) {
+  constexpr int VC = 16 / sizeof(T);
+  const bool vec = C % VC == 0 && O % VC == 0 &&
+                   (((uintptr_t)x | (uintptr_t)weight | (uintptr_t)out) & 15) == 0;
+  *variant = vec ? 1 : 0;
+  if (!vec) {
+    return launch<T, 64, 256, false>(x, offset, mask, weight, out, M, H, W, C,
+                                     Ho, Wo, O, stride, s);
   }
+  if (O > 256) {
+    return launch<T, 32, 512, true>(x, offset, mask, weight, out, M, H, W, C,
+                                    Ho, Wo, O, stride, s);
+  }
+  return launch<T, 64, 256, true>(x, offset, mask, weight, out, M, H, W, C, Ho,
+                                  Wo, O, stride, s);
 }
 
 }  // namespace
 
 // Returns 0 on success, else a cudaError_t code. dtype 0 = f32, 1 = bf16
-// (x, weight and out share it).
+// (x, weight and out share it). *variant is set to 1 when the vector
+// variant ran, 0 when the general one did.
 extern "C" int dcn_fwd(const void* x, int dtype, const float* offset,
                        const float* mask, const void* weight, void* out, int B,
                        int H, int W, int C, int Ho, int Wo, int O, int stride,
-                       void* stream) {
+                       void* stream, int* variant) {
   if (B < 0 || H < 1 || W < 1 || C < 1 || O < 1 || stride < 1 || Ho < 0 ||
-      Wo < 0 || (int64_t)B * H * W > INT32_MAX ||
+      Wo < 0 || (int64_t)B * H * W * C > INT32_MAX ||
       (int64_t)B * Ho * Wo > INT32_MAX) {
     return (int)cudaErrorInvalidValue;
   }
   const int M = B * Ho * Wo;
   if (M == 0) return 0;
-  const dim3 grid((M + BM - 1) / BM, (O + BN - 1) / BN);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    dcn_fwd_f32_kernel<<<grid, kThreads, 0, s>>>(
-        (const float*)x, offset, mask, (const float*)weight, (float*)out, M,
-        H, W, C, Ho, Wo, O, stride);
-  } else if (dtype == 1) {
-    dcn_fwd_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, offset, mask, (const __nv_bfloat16*)weight,
-        (__nv_bfloat16*)out, M, H, W, C, Ho, Wo, O, stride);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return dispatch<float>(x, offset, mask, weight, out, M, H, W, C, Ho, Wo, O,
+                           stride, s, variant);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    return dispatch<__nv_bfloat16>(x, offset, mask, weight, out, M, H, W, C,
+                                   Ho, Wo, O, stride, s, variant);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -35,27 +35,60 @@
 //   attn (Bs, Q, H, L, P)     weights,
 // with B = Bs * N and the camera axis fast (b = bs * N + n): offsets and
 // weights are shared by the N cameras of a sample. It forms
-//   loc = ref[b, q, p] + off[b / N, q, h, l, p] / (w_l, h_l)
-// in registers, so the (B, Q, H, L, P, 2) locations (491.5 MB f32 at the
-// base SCA shape) are never written or read.
+//   loc = ref[b, q, p] + off[b / N, q, h, l, p] * (1 / w_l, 1 / h_l)
+// in registers (the f32 reciprocal, then a multiply and an add, rounded as
+// the plain materialize_factored rounds them), so the (B, Q, H, L, P, 2)
+// locations (491.5 MB f32 at the base SCA shape) are never written or read.
 //
-// Design: one warp per (batch, query, head), lanes across the D channels (a
-// lane loops over channels when D > 32; lanes >= D idle when D < 32). Each
-// lane reads its channel of the four corners, so a corner read is one
-// coalesced 32-element row when D = 32.
+// Plain and masked entries (msda_fwd_kernel): one warp per (batch, query,
+// head), lanes across the D channels (a lane loops over channels when
+// D > 32; lanes >= D idle when D < 32), samples walked in series.
 //
-// Bound: memory. Each input is read once and the output written once; at the
-// flagship shapes and f32 value that is about 12.2 MB for TSA, 36 MB for SCA
-// before the mask, 3.8 MB for the det decoder and 4.0 MB for the map decoder
-// per call: ~190 MB, 57 us a frame at 3.35 TB/s (3 TSA, 3 SCA, 6 + 6 decoder
-// calls). At the base shape the factored SCA call reads ~286 MB before the
-// mask (value 24.5, ref 15.4, off 81.9, attn 41, out 122.9 MB in f32), and
-// the 200x200 TSA call ~35 MB. The arithmetic, 4 corners x D FMAs per
-// sample, stays under the byte bound at the card's f32 rate. chip_smoke.py
-// computes each call's bound from its inputs. The value re-reads of the
-// gather stay in the 50 MB L2. This first version is simple and right;
-// making it fast (several queries per warp at small D, vectorised bf16
-// loads, loc/attn staged through shared memory) is later work.
+// Factored entry, vector variant (msda_factored_vec_kernel; D a power of
+// two from 4 to 64 in f32, 16 or 32 in bf16; value and out 16-byte
+// aligned; the base SCA runs it):
+//   1. One warp per (batch, query, head); a block of 4 warps takes 8
+//      consecutive queries x 8 heads, so its warps work on neighbouring
+//      queries of one tile (SCA orders queries in 8 x 16 spatial blocks)
+//      and L1 catches their overlapping corner rows.
+//   2. Lane s owns sample s of the (query, head) (L * P = 32 at the base
+//      shape; fewer leave lanes idle, more take several rounds). The warp
+//      loads the offsets, weights and the camera's references with
+//      coalesced loads, and each lane forms its location, four corner cell
+//      offsets and four weights (attn x bilinear, 0 outside the grid) in
+//      registers. The level table (w, h, 1/w, 1/h, first cell) is staged
+//      in shared memory once per block, so nothing is indexed in local
+//      memory (ptxas: 0 bytes stack frame).
+//   3. A corner row of a head is D contiguous values; G = D * sizeof(T) /
+//      16 lanes read it as G 16-byte loads, so one warp load instruction
+//      serves 32 / G corner rows (8 at bf16 D = 32). Each lane takes its
+//      row's offset and weight from the owner lane with __shfl_sync; the
+//      loads of a batch of 4 instructions are all issued before any is
+//      used, with no dependent load between them. Each lane accumulates
+//      its 16 bytes of channels in f32; the 32 / G lane groups are reduced
+//      with __shfl_xor_sync and the row is stored with 16-byte stores.
+//   4. A query of a masked tile writes zeros with 16-byte stores and reads
+//      nothing else.
+// Factored entry, general variant (msda_factored_scalar_kernel; any other
+// D or a misaligned row): the same sampling stage, then for each sample
+// the lanes walk the channels with scalar loads and stores.
+//
+// Bound: memory. Each input is read once and the output written once; at
+// the flagship shapes and f32 value that is about 12.2 MB for TSA, 36 MB
+// for SCA before the mask, 3.8 MB for the det decoder and 4.0 MB for the
+// map decoder per call: ~190 MB, 57 us a frame at 3.35 TB/s (3 TSA, 3 SCA,
+// 6 + 6 decoder calls). At the base shape the factored SCA call reads ~286
+// MB before the mask (value 24.5 MB in bf16, ref 15.4, off 81.9 and attn
+// 41 MB in f32; the output is 122.9 MB in bf16, 245.8 MB in f32), and the
+// 200x200 TSA call ~35 MB. The arithmetic, 4 corners x D FMAs per sample,
+// stays under the byte bound at the card's f32 rate. chip_smoke.py
+// computes each call's bound from its inputs (0.082 ms for the base SCA
+// with its tile mask, bf16).
+// The practical limit of the factored kernel is the gather, not device
+// memory: about 480k active (query, head) pairs x 128 corner rows x 64 B =
+// ~3.9 GB a call at the base shape, served by L1 and L2 (value is 24.5 MB
+// and stays in the 50 MB L2), i.e. ~7.7M warp load instructions of 512 B.
+// The plain entry's kernel is still the first, simple version.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -151,52 +184,283 @@ __global__ void msda_fwd_kernel(const T* __restrict__ value,
   }
 }
 
-template <typename T>
-__global__ void msda_fwd_factored_kernel(
-    const T* __restrict__ value, const float* __restrict__ ref,
-    const float* __restrict__ off, const float* __restrict__ attn,
-    const int* __restrict__ tile_mask, T* __restrict__ out, int B, int N,
-    int V, int H, int D, int Q, int P, int q_tile, int n_tiles,
-    MsdaLevels lv) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp =
-      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (warp >= (int64_t)B * Q * H) return;
-  const int hh = (int)(warp % H);
-  const int64_t bq = warp / H;  // b * Q + q
-  const int q = (int)(bq % Q);
-  const int b = (int)(bq / Q);
-  T* o = out + warp * D;
+// ------------------------------------------------------- factored entry
 
-  if (tile_mask != nullptr && tile_mask[(int64_t)b * n_tiles + q / q_tile] == 0) {
-    for (int c = lane; c < D; c += 32) store_f32(o + c, 0.f);
-    return;
-  }
+#define FULL_MASK 0xffffffffu
 
-  const int L = lv.n;
-  const int64_t sq = (int64_t)(b / N) * Q + q;  // shared (sample, query)
-  const float* rq = ref + bq * P * 2;
-  const float* oq = off + (sq * H + hh) * L * P * 2;
-  const float* aq = attn + (sq * H + hh) * L * P;
-  const int64_t row = (int64_t)H * D;
-  const T* vb = value + (int64_t)b * V * row + (int64_t)hh * D;
+// Warps in flight matter more than loads in flight per warp: with batches of
+// 4 loads and blocks of 4 warps the base shape's instance (bf16, G = 4) takes
+// 64 registers and runs 0.71 ms a call, with batches of 8 and blocks of 8
+// warps 79 registers and 0.79 ms (chip_smoke.py on the H100; f32 0.81
+// against 0.90 ms).
+constexpr int kFactoredWarps = 4;          // warps per block
+constexpr int kFactoredItemsPerWarp = 16;  // (query, head) items per warp
+constexpr int kFactoredItems = kFactoredWarps * kFactoredItemsPerWarp;
+constexpr int kFactoredBatch = 4;          // loads issued before any is used
 
-  for (int c0 = 0; c0 < D; c0 += 32) {
-    const int c = c0 + lane;
-    if (c >= D) break;
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const int h = lv.h[l], w = lv.w[l];
-      const float inv_w = 1.f / (float)w, inv_h = 1.f / (float)h;
-      const T* vl = vb + (int64_t)lv.start[l] * row + c;
-      for (int p = 0; p < P; ++p) {
-        const int i = l * P + p;
-        const float lx = rq[2 * p] + oq[2 * i] * inv_w;
-        const float ly = rq[2 * p + 1] + oq[2 * i + 1] * inv_h;
-        acc = sample_acc(acc, vl, row, h, w, lx, ly, aq[i]);
+// The level table of a factored block, in shared memory.
+struct SharedLevels {
+  float4 whi[MSDA_MAX_LEVELS];  // (w, h, 1 / w, 1 / h)
+  int2 wh[MSDA_MAX_LEVELS];     // (w, h)
+  int start[MSDA_MAX_LEVELS];   // first cell of the level
+};
+
+// Every thread of the block must call it (it ends in __syncthreads). The
+// loop is unrolled, so lv is read at constant indices and stays in the
+// parameter bank.
+__device__ __forceinline__ void stage_levels(SharedLevels& s,
+                                             const MsdaLevels& lv) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
+      if (l < lv.n) {
+        const float w = (float)lv.w[l], h = (float)lv.h[l];
+        s.whi[l] = make_float4(w, h, 1.f / w, 1.f / h);
+        s.wh[l] = make_int2(lv.w[l], lv.h[l]);
+        s.start[l] = lv.start[l];
       }
     }
-    store_f32(o + c, acc);
+  }
+  __syncthreads();
+}
+
+// The four bilinear corners of one sample, (x0, y0), (x0 + 1, y0),
+// (x0, y0 + 1), (x0 + 1, y0 + 1): each corner's element offset in its
+// batch's value block (its cell times row, -1 outside the grid) and its
+// weight attn x bilinear (0 outside the grid).
+struct Corners4 {
+  int idx[4];
+  float wt[4];
+};
+
+__device__ __forceinline__ Corners4 no_corners() {
+  Corners4 c;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    c.idx[k] = -1;
+    c.wt[k] = 0.f;
+  }
+  return c;
+}
+
+__device__ __forceinline__ Corners4 sample_corners(const SharedLevels& s,
+                                                   int l, float rx, float ry,
+                                                   float ox, float oy,
+                                                   float a, int row) {
+  const float4 f = s.whi[l];
+  const int2 wh = s.wh[l];
+  const int start = s.start[l];
+  // loc = ref + off * (1 / w), then px = loc * w - 0.5, each op rounded as
+  // the plain version rounds it (no contraction into an FMA)
+  const float lx = __fadd_rn(rx, __fmul_rn(ox, f.z));
+  const float ly = __fadd_rn(ry, __fmul_rn(oy, f.w));
+  const float px = __fsub_rn(__fmul_rn(lx, f.x), 0.5f);
+  const float py = __fsub_rn(__fmul_rn(ly, f.y), 0.5f);
+  const float fx0 = floorf(px), fy0 = floorf(py);
+  const float fx = px - fx0, fy = py - fy0;
+  const int x0 = (int)fx0, y0 = (int)fy0;
+  Corners4 c;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int cx = k & 1, cy = k >> 1;
+    const int xx = x0 + cx, yy = y0 + cy;
+    const bool in = xx >= 0 && xx < wh.x && yy >= 0 && yy < wh.y;
+    c.idx[k] = in ? (start + yy * wh.x + xx) * row : -1;
+    c.wt[k] = in ? __fmul_rn(__fmul_rn(cx ? fx : 1.f - fx, cy ? fy : 1.f - fy), a)
+                 : 0.f;
+  }
+  return c;
+}
+
+// The (query, head) item of a block's warp (item = (b * Q + q) * H + hh;
+// the entry checks that B * Q * H fits an int, so the divisions are 32-bit).
+struct FactoredItem {
+  int b, q, hh;
+  int bq, sq;  // b * Q + q; (b / N) * Q + q
+};
+
+__device__ __forceinline__ FactoredItem factored_item(int item, int N, int H,
+                                                      int Q) {
+  FactoredItem it;
+  it.bq = item / H;
+  it.hh = item - it.bq * H;
+  it.b = it.bq / Q;
+  it.q = it.bq - it.b * Q;
+  it.sq = (it.b / N) * Q + it.q;
+  return it;
+}
+
+// 16 bytes of value as f32: 8 bf16 or 4 f32 channels.
+__device__ __forceinline__ void fma16(float* acc, uint4 v, float w,
+                                      const __nv_bfloat16*) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc[2 * e] = fmaf(w, __uint_as_float(u[e] << 16), acc[2 * e]);
+    acc[2 * e + 1] = fmaf(w, __uint_as_float(u[e] & 0xffff0000u), acc[2 * e + 1]);
+  }
+}
+__device__ __forceinline__ void fma16(float* acc, uint4 v, float w,
+                                      const float*) {
+  acc[0] = fmaf(w, __uint_as_float(v.x), acc[0]);
+  acc[1] = fmaf(w, __uint_as_float(v.y), acc[1]);
+  acc[2] = fmaf(w, __uint_as_float(v.z), acc[2]);
+  acc[3] = fmaf(w, __uint_as_float(v.w), acc[3]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ uint4 pack16(const float* acc, __nv_bfloat16*) {
+  return make_uint4(pack_bf16x2(acc[0], acc[1]), pack_bf16x2(acc[2], acc[3]),
+                    pack_bf16x2(acc[4], acc[5]), pack_bf16x2(acc[6], acc[7]));
+}
+__device__ __forceinline__ uint4 pack16(const float* acc, float*) {
+  return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
+                    __float_as_uint(acc[2]), __float_as_uint(acc[3]));
+}
+
+// G lanes read one corner row (D = G * 16 / sizeof(T) channels).
+template <typename T, int G>
+// No minimum of blocks in the launch bounds: asked for at least 1 block an
+// SM, ptxas took far more registers and the kernel ran slower; asked for
+// more blocks than its registers allow, it spilled (H100 runs).
+__global__ void __launch_bounds__(kFactoredWarps * 32)
+msda_factored_vec_kernel(const T* __restrict__ value,
+                         const float* __restrict__ ref,
+                         const float* __restrict__ off,
+                         const float* __restrict__ attn,
+                         const int* __restrict__ tile_mask,
+                         T* __restrict__ out, int B, int N, int V, int H,
+                         int Q, int P, int LP, int q_tile, int n_tiles,
+                         MsdaLevels lv) {
+  constexpr int VEC = 16 / sizeof(T);  // channels per 16-byte load
+  constexpr int D = G * VEC;
+  constexpr int ROWS = 32 / G;         // corner rows per load instruction
+  constexpr int STEPS = 4 * G;         // instructions per 32 samples
+  constexpr int BATCH = STEPS < kFactoredBatch ? STEPS : kFactoredBatch;
+  __shared__ SharedLevels sl;
+  stage_levels(sl, lv);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / G, sub = lane % G;
+  const int row = H * D;  // elements between value cells
+  const int total = B * Q * H;
+  // the lane's sample in the first round: level and point
+  const int l_first = lane / P, p_first = lane - l_first * P;
+
+  for (int j = 0; j < kFactoredItemsPerWarp; ++j) {
+    const int item = blockIdx.x * kFactoredItems + j * kFactoredWarps + warp;
+    if (item >= total) return;
+    const FactoredItem it = factored_item(item, N, H, Q);
+    T* o = out + (int64_t)item * D + sub * VEC;
+    if (tile_mask != nullptr &&
+        __ldg(tile_mask + (int64_t)it.b * n_tiles + it.q / q_tile) == 0) {
+      if (grp == 0) *reinterpret_cast<uint4*>(o) = make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    const float* oq = off + ((int64_t)it.sq * H + it.hh) * LP * 2;
+    const float* aq = attn + ((int64_t)it.sq * H + it.hh) * LP;
+    const float* rq = ref + (int64_t)it.bq * P * 2;
+    const T* vb = value + (int64_t)it.b * V * row + it.hh * D + sub * VEC;
+
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int r0 = 0; r0 < LP; r0 += 32) {
+      const int i = r0 + lane;
+      Corners4 c = no_corners();
+      if (i < LP) {
+        int l = l_first, p = p_first;
+        if (r0 > 0) {
+          l = i / P;
+          p = i - l * P;
+        }
+        c = sample_corners(sl, l, __ldg(rq + 2 * p), __ldg(rq + 2 * p + 1),
+                           __ldg(oq + 2 * i), __ldg(oq + 2 * i + 1),
+                           __ldg(aq + i), row);
+      }
+#pragma unroll
+      for (int s0 = 0; s0 < STEPS; s0 += BATCH) {
+        uint4 v[BATCH];
+        float w[BATCH];
+#pragma unroll
+        for (int t = 0; t < BATCH; ++t) {
+          const int step = s0 + t;
+          const int k = step / G;                    // corner
+          const int src = (step % G) * ROWS + grp;   // owner lane
+          const int id = __shfl_sync(FULL_MASK, c.idx[k], src);
+          w[t] = __shfl_sync(FULL_MASK, c.wt[k], src);
+          v[t] = id >= 0 ? __ldg(reinterpret_cast<const uint4*>(vb + id))
+                         : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int t = 0; t < BATCH; ++t) fma16(acc, v[t], w[t], vb);
+      }
+    }
+#pragma unroll
+    for (int m = G; m < 32; m <<= 1) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(FULL_MASK, acc[e], m);
+    }
+    if (grp == 0) *reinterpret_cast<uint4*>(o) = pack16(acc, o);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFactoredWarps * 32)
+msda_factored_scalar_kernel(const T* __restrict__ value,
+                            const float* __restrict__ ref,
+                            const float* __restrict__ off,
+                            const float* __restrict__ attn,
+                            const int* __restrict__ tile_mask,
+                            T* __restrict__ out, int B, int N, int V, int H,
+                            int D, int Q, int P, int LP, int q_tile,
+                            int n_tiles, MsdaLevels lv) {
+  __shared__ SharedLevels sl;
+  stage_levels(sl, lv);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = H * D;
+  const int total = B * Q * H;
+  for (int j = 0; j < kFactoredItemsPerWarp; ++j) {
+    const int item = blockIdx.x * kFactoredItems + j * kFactoredWarps + warp;
+    if (item >= total) return;
+    const FactoredItem it = factored_item(item, N, H, Q);
+    T* o = out + (int64_t)item * D;
+    if (tile_mask != nullptr &&
+        __ldg(tile_mask + (int64_t)it.b * n_tiles + it.q / q_tile) == 0) {
+      for (int ch = lane; ch < D; ch += 32) store_f32(o + ch, 0.f);
+      continue;
+    }
+    const float* oq = off + ((int64_t)it.sq * H + it.hh) * LP * 2;
+    const float* aq = attn + ((int64_t)it.sq * H + it.hh) * LP;
+    const float* rq = ref + (int64_t)it.bq * P * 2;
+    const T* vb = value + (int64_t)it.b * V * row + it.hh * D;
+    for (int c0 = 0; c0 < D; c0 += 32) {
+      const int ch = c0 + lane;
+      float acc = 0.f;
+      for (int r0 = 0; r0 < LP; r0 += 32) {
+        const int i = r0 + lane;
+        Corners4 c = no_corners();
+        if (i < LP) {
+          const int l = i / P, p = i - l * P;
+          c = sample_corners(sl, l, rq[2 * p], rq[2 * p + 1], oq[2 * i],
+                             oq[2 * i + 1], aq[i], row);
+        }
+        const int ns = min(32, LP - r0);
+        for (int s = 0; s < ns; ++s) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int id = __shfl_sync(FULL_MASK, c.idx[k], s);
+            const float w = __shfl_sync(FULL_MASK, c.wt[k], s);
+            if (ch < D && id >= 0) acc = fmaf(w, load_f32(vb + id + ch), acc);
+          }
+        }
+      }
+      if (ch < D) store_f32(o + ch, acc);
+    }
   }
 }
 
@@ -247,33 +511,97 @@ extern "C" int msda_fwd(const void* value, int dtype, const float* loc,
   return (int)cudaGetLastError();
 }
 
+// Launches the vector variant with G lanes a row; returns false where there
+// is none. In bf16 ptxas compiles G = 1 (D = 8) and G >= 8 (D >= 64) with
+// spills at the register count it picks for this block, so those widths go
+// to the general variant (no configuration has them; all run D = 32).
+template <typename T, int G>
+static bool launch_factored_vec(unsigned grid, cudaStream_t s,
+                                const void* value, const float* ref,
+                                const float* off, const float* attn,
+                                const int* tile_mask, void* out, int B, int N,
+                                int V, int H, int Q, int P, int LP,
+                                int q_tile, int n_tiles,
+                                const MsdaLevels& lv) {
+  if constexpr (sizeof(T) == 2 && (G == 1 || G >= 8)) {
+    return false;
+  } else {
+    msda_factored_vec_kernel<T, G><<<grid, kFactoredWarps * 32, 0, s>>>(
+        (const T*)value, ref, off, attn, tile_mask, (T*)out, B, N, V, H, Q,
+        P, LP, q_tile, n_tiles, lv);
+    return true;
+  }
+}
+
+// Launches the vector variant when D fills G = D * sizeof(T) / 16 lanes
+// (G a power of two up to 16 in f32, 2 or 4 in bf16) and value and out are
+// 16-byte aligned, else the general variant. Returns 1 for the vector
+// variant, 0 for the general.
+template <typename T>
+static int launch_factored(unsigned grid, cudaStream_t s, const void* value,
+                           const float* ref, const float* off,
+                           const float* attn, const int* tile_mask, void* out,
+                           int B, int N, int V, int H, int D, int Q, int P,
+                           int LP, int q_tile, int n_tiles,
+                           const MsdaLevels& lv) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool aligned =
+      (((uintptr_t)value | (uintptr_t)out) & 15) == 0 && D % VEC == 0;
+  switch (aligned ? D / VEC : 0) {
+#define MSDA_VEC_CASE(G_)                                                   \
+  case G_:                                                                  \
+    if (launch_factored_vec<T, G_>(grid, s, value, ref, off, attn,          \
+                                   tile_mask, out, B, N, V, H, Q, P, LP,    \
+                                   q_tile, n_tiles, lv)) {                  \
+      return 1;                                                             \
+    }                                                                       \
+    break;
+    MSDA_VEC_CASE(1)
+    MSDA_VEC_CASE(2)
+    MSDA_VEC_CASE(4)
+    MSDA_VEC_CASE(8)
+    MSDA_VEC_CASE(16)
+#undef MSDA_VEC_CASE
+    default:
+      break;
+  }
+  msda_factored_scalar_kernel<T><<<grid, kFactoredWarps * 32, 0, s>>>(
+      (const T*)value, ref, off, attn, tile_mask, (T*)out, B, N, V, H, D, Q,
+      P, LP, q_tile, n_tiles, lv);
+  return 0;
+}
+
 // The factored entry: ref (B, Q, P, 2), off (B / N, Q, H, L, P, 2), attn
-// (B / N, Q, H, L, P); otherwise as msda_fwd.
+// (B / N, Q, H, L, P); otherwise as msda_fwd. *variant is set to 1 when the
+// vector variant ran, 0 when the general one did.
 extern "C" int msda_fwd_factored(const void* value, int dtype,
                                  const float* ref, const float* off,
                                  const float* attn, const int* tile_mask,
                                  void* out, int B, int N, int V, int H, int D,
                                  int Q, int L, int P, const int* shapes,
-                                 int q_tile, void* stream) {
+                                 int q_tile, void* stream, int* variant) {
   MsdaLevels lv;
-  if (q_tile < 1 || D < 1 || N < 1 || B % N != 0) {
+  if (q_tile < 1 || D < 1 || P < 1 || N < 1 || B % N != 0 ||
+      (int64_t)V * H * D > INT32_MAX ||
+      (int64_t)B * Q * H > INT32_MAX - kFactoredItems) {
     return (int)cudaErrorInvalidValue;
   }
   const int err = fill_levels(&lv, L, shapes, V);
   if (err != 0) return err;
-  const int64_t warps = (int64_t)B * Q * H;
-  if (warps == 0) return 0;
+  const int64_t items = (int64_t)B * Q * H;
+  if (items == 0) return 0;
+  const unsigned grid = (unsigned)((items + kFactoredItems - 1) / kFactoredItems);
   const int n_tiles = (Q + q_tile - 1) / q_tile;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    msda_fwd_factored_kernel<float><<<n_blocks(warps), kThreads, 0, s>>>(
-        (const float*)value, ref, off, attn, tile_mask, (float*)out, B, N, V,
-        H, D, Q, P, q_tile, n_tiles, lv);
+    *variant = launch_factored<float>(grid, s, value, ref, off, attn,
+                                      tile_mask, out, B, N, V, H, D, Q, P,
+                                      L * P, q_tile, n_tiles, lv);
   } else if (dtype == 1) {
-    msda_fwd_factored_kernel<__nv_bfloat16>
-        <<<n_blocks(warps), kThreads, 0, s>>>(
-            (const __nv_bfloat16*)value, ref, off, attn, tile_mask,
-            (__nv_bfloat16*)out, B, N, V, H, D, Q, P, q_tile, n_tiles, lv);
+    *variant = launch_factored<__nv_bfloat16>(grid, s, value, ref, off, attn,
+                                              tile_mask, out, B, N, V, H, D,
+                                              Q, P, L * P, q_tile, n_tiles,
+                                              lv);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -4,10 +4,10 @@ Each source under ``apollo_vision_net_tpu_torch/csrc/`` is compiled on first
 use into ``apollo_vision_net_tpu_torch/build/`` as a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). The library
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. ``build_many`` starts one
-nvcc per source, all at once, and returns each build's seconds and the
-compiler's resource report (``-Xptxas -v``: registers, shared memory,
-spills per kernel).
+rebuilt and a stale library is never loaded. ``build_many`` compiles the
+sources afresh, one nvcc per source, all at once, and returns each build's
+seconds and the compiler's resource report (``-Xptxas -v``: registers,
+shared memory, stack frame and spills per kernel).
 """
 from __future__ import annotations
 
@@ -46,9 +46,9 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def _start(source: str):
+def _start(source: str, force: bool = False):
     out = library_path(source)
-    if out.exists():
+    if out.exists() and not force:
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -81,19 +81,19 @@ def build(source: str) -> Path:
 
 
 def build_many(sources: Sequence[str]) -> Dict[str, Tuple[float, str]]:
-    """Compile the sources in parallel (one nvcc each, started together).
-    Returns {source: (seconds from the common start, ptxas report)}; a
-    library already built reports 0 seconds and no report."""
+    """Compile the sources afresh and in parallel (one nvcc each, started
+    together), even where a library for their text exists, so that every
+    call has the compiler's report. Returns {source: (seconds from the
+    common start, ptxas report)}."""
     t0 = time.perf_counter()
-    started = {s: _start(s) for s in sources}
-    done = {s: 0.0 for s, (_, _, proc) in started.items() if proc is None}
+    started = {s: _start(s, force=True) for s in sources}
+    done = {}
     while len(done) < len(started):
         for s, (_, _, proc) in started.items():
             if s not in done and proc.poll() is not None:
                 done[s] = time.perf_counter() - t0
         time.sleep(0.05)
-    return {s: (done[s], _finish(s, *started[s]) if started[s][2] else "")
-            for s in sources}
+    return {s: (done[s], _finish(s, *started[s])) for s in sources}
 
 
 def load(source: str) -> ctypes.CDLL:

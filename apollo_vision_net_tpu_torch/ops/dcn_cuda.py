@@ -6,7 +6,12 @@ on the current CUDA stream. Its plain counterpart is
 ``_dcn_kernel`` of the JAX package (ops/dcn_pallas.py).
 
 ``launches`` grows by one per kernel launch, so a run can show that its main
-path went through the kernel.
+path went through the kernel; ``launches_by_variant`` splits it by the
+kernel variant that ran: ``vector`` (16-byte gathers and cp.async weight
+rows, C and O whole 16-byte units, aligned tensors) or ``general`` (scalar
+loads, any C and O).
+
+``ARGTYPES`` is the C signature of the entry point as ctypes sees it.
 """
 from __future__ import annotations
 
@@ -14,18 +19,28 @@ import ctypes
 
 import torch
 
-from apollo_vision_net_tpu_torch.ops.msda_cuda import _check
+from apollo_vision_net_tpu_torch.ops.msda_cuda import VARIANTS, _check
 
 SOURCE = "dcn_fwd.cu"
 
 launches = 0
+launches_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = {
+    # x, dtype, offset, mask, weight, out, B, H, W, C, Ho, Wo, O, stride,
+    # stream, variant
+    "dcn_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                _P],
+}
 
 
 def reset_launch_counts() -> None:
     global launches
     launches = 0
+    launches_by_variant.update(dict.fromkeys(VARIANTS.values(), 0))
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,8 +48,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load(SOURCE)
     if lib.dcn_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcn_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.dcn_fwd.argtypes = ARGTYPES["dcn_fwd"]
         lib.dcn_fwd.restype = ctypes.c_int
     return lib
 
@@ -64,10 +78,13 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     lib = _lib()
     out = torch.empty((B, Ho, Wo, O), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    variant = (ctypes.c_int * 1)(-1)
     err = lib.dcn_fwd(x.data_ptr(), _DTYPES[x.dtype], offset.data_ptr(),
                       mask.data_ptr(), weight.data_ptr(), out.data_ptr(),
-                      B, H, W, C, Ho, Wo, O, int(stride), stream)
+                      B, H, W, C, Ho, Wo, O, int(stride), stream, variant)
     if err != 0:
         raise RuntimeError(f"dcn_fwd kernel launch failed: CUDA error {err}")
     launches += 1
+    if variant[0] in VARIANTS:  # an empty call launches nothing
+        launches_by_variant[VARIANTS[variant[0]]] += 1
     return out

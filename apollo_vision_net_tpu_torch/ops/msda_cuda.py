@@ -12,7 +12,13 @@ Launch counts: ``launches_plain`` (no tile mask: TSA, det and map decoder
 cross-attention), ``launches_masked`` (single-level SCA with its
 per-(camera, tile) mask) and ``launches_factored`` (multi-level SCA on
 factored operands) each grow by one per kernel launch, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. ``launches_factored_by_variant``
+splits the factored launches by the kernel variant that ran: ``vector``
+(16-byte gathers, D * element size a power-of-two multiple of 16 bytes,
+aligned rows) or ``general`` (scalar channels, any D).
+
+``ARGTYPES`` are the C signatures of the entry points as ctypes sees them:
+``c_void_p`` for every pointer and the stream, ``c_int`` for every int.
 """
 from __future__ import annotations
 
@@ -26,8 +32,23 @@ SOURCE = "msda_fwd.cu"
 launches_plain = 0
 launches_masked = 0
 launches_factored = 0
+# the C entry reports the variant it launched: 1 vector, 0 general
+VARIANTS = {1: "vector", 0: "general"}
+launches_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = {
+    # value, dtype, loc, attn, tile_mask, out, B, V, H, D, Q, L, P, shapes,
+    # q_tile, stream
+    "msda_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                 _P],
+    # value, dtype, ref, off, attn, tile_mask, out, B, N, V, H, D, Q, L, P,
+    # shapes, q_tile, stream, variant
+    "msda_fwd_factored": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P, _I, _P, _P],
+}
 
 
 def reset_launch_counts() -> None:
@@ -35,6 +56,7 @@ def reset_launch_counts() -> None:
     launches_plain = 0
     launches_masked = 0
     launches_factored = 0
+    launches_factored_by_variant.update(dict.fromkeys(VARIANTS.values(), 0))
 
 
 def _lib() -> ctypes.CDLL:
@@ -42,12 +64,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load(SOURCE)
     if lib.msda_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.msda_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p, i, p]
-        lib.msda_fwd.restype = ctypes.c_int
-        lib.msda_fwd_factored.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
-                                          i, i, i, p, i, p]
-        lib.msda_fwd_factored.restype = ctypes.c_int
+        for name, argtypes in ARGTYPES.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -150,12 +169,16 @@ def msda_fwd_factored(
     out = torch.empty((B, Q, H * D), dtype=value.dtype, device=dev)
     shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    variant = (ctypes.c_int * 1)(-1)
     err = lib.msda_fwd_factored(
         value.data_ptr(), _DTYPES[value.dtype], ref_flat.data_ptr(),
         off_flat.data_ptr(), attn_flat.data_ptr(),
         tile_mask.data_ptr() if tile_mask is not None else None,
-        out.data_ptr(), B, B // Bs, V, H, D, Q, L, P, shapes, q_tile, stream)
+        out.data_ptr(), B, B // Bs, V, H, D, Q, L, P, shapes, q_tile, stream,
+        variant)
     if err != 0:
         raise RuntimeError(f"msda_fwd_factored kernel launch failed: CUDA error {err}")
     launches_factored += 1
+    if variant[0] in VARIANTS:  # an empty call launches nothing
+        launches_factored_by_variant[VARIANTS[variant[0]]] += 1
     return out

@@ -6,7 +6,10 @@ one NVIDIA GPU, nvcc (PATH or /usr/local/cuda/bin) and this checkout.
 Phases, each printing JSON lines:
   env          card name and power limit (nvidia-smi), torch and CUDA versions.
   build        builds the kernels of csrc/ in parallel (one nvcc each) and
-               prints each source's seconds and the compiler's resource report.
+               prints each source's seconds and, per kernel, the compiler's
+               registers, shared memory, stack frame and spills; fails if
+               the vector variant of the factored MSDA kernel has a stack
+               frame or spills.
   kernels      every CUDA kernel against its plain PyTorch version, in f32 and
                bf16: max abs error and tolerance, device time per call (CUDA
                graph replay), the plain version's time, an eager call's time
@@ -18,7 +21,10 @@ Phases, each printing JSON lines:
                materialized operands through the masked entry; the four DCN
                shapes of R101 stages 3-4 (random ~2 px offsets, sigmoid masks;
                cuDNN's time for a plain 3x3 conv of the same shape beside them
-               as a yardstick); small edge shapes of both kernels.
+               as a yardstick); small edge shapes of both kernels that reach
+               the ragged edges of their tiles and both variants (vector and
+               general) of the factored MSDA and DCN kernels. Each row names
+               the variant that ran.
   stream       the flagship bev_tiny_det_map_apollo at full width (6 cams at
                480x800, 50x50 BEV, 3 encoder + 6 det + 6 map decoder layers,
                random weights from a seed) through the streaming runner: frames
@@ -28,7 +34,8 @@ Phases, each printing JSON lines:
                a profile of each.
   stream_base  bev_base_det_map at full width (R101 with DCN in stages 3-4, a
                4-level FPN, 200x200 BEV, 6 encoder + 6 det + 6 map decoder
-               layers) the same way, with exact launch counts per frame; its
+               layers) the same way, with exact launch counts per frame (the
+               factored MSDA and DCN calls all on their vector variants); its
                f32 frame with history is held against the same frame run
                under ``ops.plain_versions()`` on the GPU. Its random weights
                come from seed 0, and the zero-initialized offset predictors
@@ -42,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -176,11 +184,71 @@ def reset_launch_counts() -> None:
     dcn_cuda.reset_launch_counts()
 
 
+def variant_counts() -> dict:
+    """Launches by kernel variant of the two entries that have variants."""
+    out = {}
+    for name, counts in (("msda_fwd_factored", msda_cuda.launches_factored_by_variant),
+                         ("dcn_fwd", dcn_cuda.launches_by_variant)):
+        out.update({f"{name}.{v}": n for v, n in counts.items()})
+    return out
+
+
 def read_launch_counts() -> dict:
     return {"msda_fwd": msda_cuda.launches_plain,
             "msda_fwd_masked": msda_cuda.launches_masked,
             "msda_fwd_factored": msda_cuda.launches_factored,
-            "dcn_fwd": dcn_cuda.launches}
+            "dcn_fwd": dcn_cuda.launches, **variant_counts()}
+
+
+def kernel_name(mangled: str) -> str:
+    """The ``..._kernel`` identifier inside an Itanium-mangled name (its
+    length-prefixed parts read in order), else the mangled name."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if m:
+            n, j = int(m.group()), i + len(m.group())
+            ident = mangled[j:j + n]
+            if ident.endswith("_kernel"):
+                return ident
+            i = j + n if ident.isidentifier() else j
+        else:
+            i += 1
+    return mangled
+
+
+def ptxas_kernels(report: str) -> list:
+    """Per function of an ``nvcc -Xptxas -v`` report: registers, static
+    shared memory, stack frame and spill bytes."""
+    out, cur = [], None
+    for ln in report.splitlines():
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            cur = {"kernel": kernel_name(m.group(1)), "mangled": m.group(1)}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def check_vector_factored(kernels: list) -> None:
+    """The vector variant of the factored MSDA kernel keeps everything in
+    registers and shared memory: no stack frame, no spills."""
+    vec = [k for k in kernels if k["kernel"] == "msda_factored_vec_kernel"]
+    bad = [k for k in vec if k.get("stack_bytes", 1) or k.get("spill_stores", 1)
+           or k.get("spill_loads", 1)]
+    if not vec or bad:
+        raise AssertionError(f"vector factored MSDA kernel: stack frame or "
+                             f"spills (or no report): {bad or vec}")
 
 
 # ---------------------------------------------------------------- kernels
@@ -384,27 +452,76 @@ def msda_edge_cases(dev):
         out.append(dict(name=f"edge_D{D}_masked", kind="msda", value=value,
                         shapes=shapes, loc=loc, attn=attn, tile_mask=tm,
                         q_tile=32))
-    Bs, N, H, D, Q, P = 2, 3, 4, 24, 150, 4
-    shapes = ((9, 11), (5, 6), (3, 3))
+    out.append(factored_case("edge_factored", g, dev, Bs=2, N=3, H=4, D=24,
+                             Q=150, P=4, shapes=((9, 11), (5, 6), (3, 3)),
+                             q_tile=64))
+    return out
+
+
+def factored_case(name, g, dev, *, Bs, N, H, D, Q, P, shapes, q_tile,
+                  variant=None, misaligned=False):
+    """A factored MSDA call with references spread past the grid
+    ([-0.2, 1.2]), offsets of ~3 cells and a random tile mask with a tail
+    tile. ``variant`` {dtype: "vector" | "general"} is the variant the
+    kernel must take; ``misaligned`` shifts value by one element off its
+    16-byte alignment."""
     L, V = len(shapes), sum(h * w for h, w in shapes)
-    tm = (torch.rand((Bs * N, 3), generator=g, device=dev) > 0.3).to(torch.int32)
-    out.append(dict(
-        name="edge_factored", kind="factored",
+    n_tiles = (Q + q_tile - 1) // q_tile
+    return dict(
+        name=name, kind="factored", variant=variant, misaligned=misaligned,
         value=torch.randn((Bs * N, V, H, D), generator=g, device=dev),
         shapes=shapes,
         ref_flat=torch.rand((Bs * N, Q, P * 2), generator=g, device=dev) * 1.4 - 0.2,
         off=torch.randn((Bs, Q, H * L * P * 2), generator=g, device=dev) * 3.0,
         attn=_softmax_attn(g, dev, (Bs, Q, H * L * P), L * P),
-        tile_mask=tm, q_tile=64))
-    return out
+        tile_mask=(torch.rand((Bs * N, n_tiles), generator=g, device=dev)
+                   > 0.3).to(torch.int32),
+        q_tile=q_tile)
 
 
-def dcn_case(name, g, dev, *, B, H, W, C, O, stride, off_std):
+def factored_edge_cases(dev):
+    """The ragged edges of the factored kernel's tiling: L = 1..4 with odd
+    level sizes, L·P below, at and above one warp (P = 4, 5, 6, 8, 12),
+    D = 4, 16, 32, 40 and 64 (vector and general variants), two samples of
+    3 cameras, tail tiles, samples outside the grid, and a misaligned value
+    row."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    vec, gen = "vector", "general"
+    return [
+        factored_case("edge_factored_L1_P6_D64", g, dev, Bs=1, N=2, H=2, D=64,
+                      Q=45, P=6, shapes=((7, 9),), q_tile=16,
+                      variant={"float32": vec, "bfloat16": gen}),
+        factored_case("edge_factored_L2_P5_D16", g, dev, Bs=1, N=3, H=4, D=16,
+                      Q=61, P=5, shapes=((6, 10), (3, 5)), q_tile=32,
+                      variant={"float32": vec, "bfloat16": vec}),
+        factored_case("edge_factored_L2_P4_D4", g, dev, Bs=2, N=3, H=3, D=4,
+                      Q=70, P=4, shapes=((5, 7), (3, 3)), q_tile=32,
+                      variant={"float32": vec, "bfloat16": gen}),
+        factored_case("edge_factored_L4_P8_D32", g, dev, Bs=1, N=6, H=8, D=32,
+                      Q=200, P=8, shapes=((9, 13), (5, 7), (3, 4), (1, 1)),
+                      q_tile=128, variant={"float32": vec, "bfloat16": vec}),
+        factored_case("edge_factored_L3_P12_D32", g, dev, Bs=2, N=3, H=2, D=32,
+                      Q=33, P=12, shapes=((11, 5), (6, 3), (3, 2)), q_tile=8,
+                      variant={"float32": vec, "bfloat16": vec}),
+        factored_case("edge_factored_L4_P6_D40", g, dev, Bs=1, N=3, H=3, D=40,
+                      Q=50, P=6, shapes=((9, 7), (5, 4), (3, 2), (2, 1)),
+                      q_tile=16, variant={"float32": gen, "bfloat16": gen}),
+        factored_case("edge_factored_misaligned", g, dev, Bs=1, N=2, H=4, D=32,
+                      Q=40, P=8, shapes=((6, 8), (3, 4)), q_tile=16,
+                      variant={"float32": gen, "bfloat16": gen},
+                      misaligned=True),
+    ]
+
+
+def dcn_case(name, g, dev, *, B, H, W, C, O, stride, off_std, variant=None,
+             misaligned=False):
     """One DCN call: x ~ N(0, 1), offsets ~ N(0, off_std) pixels, sigmoid
-    masks, weights ~ N(0, 1 / (9 C)) so that outputs stay of order 1."""
+    masks, weights ~ N(0, 1 / (9 C)) so that outputs stay of order 1.
+    ``variant`` and ``misaligned`` as in ``factored_case`` (on x)."""
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     return dict(
-        name=name, kind="dcn", stride=stride,
+        name=name, kind="dcn", stride=stride, variant=variant,
+        misaligned=misaligned,
         x=torch.randn((B, H, W, C), generator=g, device=dev),
         offset=torch.randn((B, Ho, Wo, 9, 2), generator=g, device=dev) * off_std,
         mask=torch.sigmoid(torch.randn((B, Ho, Wo, 9), generator=g, device=dev)),
@@ -412,18 +529,33 @@ def dcn_case(name, g, dev, *, B, H, W, C, O, stride, off_std):
 
 
 def dcn_cases(dev):
-    """The four DCN shapes of R101 stages 3-4 on six 480x800 cameras, then
-    edge shapes: odd sizes at stride 2, offsets far beyond the image, C and
-    O that are not multiples of the kernel's 32 x 64 tiles."""
+    """The four DCN shapes of R101 stages 3-4 on six 480x800 cameras (the
+    vector variant), then edge shapes: odd sizes at stride 2, offsets far
+    beyond the image, pixel counts that are not multiples of the pixel tile,
+    C that is neither a multiple of 8 nor of the chunk (20, 33, 24), O that
+    is not a multiple of the output tile (37, 70, 72, 520: past one 512-wide
+    tile), and a misaligned x."""
     g = torch.Generator(device=dev).manual_seed(3)
+    vec = {"float32": "vector", "bfloat16": "vector"}
+    gen = {"float32": "general", "bfloat16": "general"}
     return [
-        dcn_case("dcn_s3_stride2", g, dev, B=6, H=60, W=100, C=256, O=256, stride=2, off_std=2.0),
-        dcn_case("dcn_s3", g, dev, B=6, H=30, W=50, C=256, O=256, stride=1, off_std=2.0),
-        dcn_case("dcn_s4_stride2", g, dev, B=6, H=30, W=50, C=512, O=512, stride=2, off_std=2.0),
-        dcn_case("dcn_s4", g, dev, B=6, H=15, W=25, C=512, O=512, stride=1, off_std=2.0),
-        dcn_case("edge_dcn_odd_stride2", g, dev, B=1, H=7, W=9, C=20, O=37, stride=2, off_std=4.0),
-        dcn_case("edge_dcn_far", g, dev, B=2, H=5, W=6, C=33, O=70, stride=1, off_std=8.0),
+        dcn_case("dcn_s3_stride2", g, dev, B=6, H=60, W=100, C=256, O=256, stride=2, off_std=2.0, variant=vec),
+        dcn_case("dcn_s3", g, dev, B=6, H=30, W=50, C=256, O=256, stride=1, off_std=2.0, variant=vec),
+        dcn_case("dcn_s4_stride2", g, dev, B=6, H=30, W=50, C=512, O=512, stride=2, off_std=2.0, variant=vec),
+        dcn_case("dcn_s4", g, dev, B=6, H=15, W=25, C=512, O=512, stride=1, off_std=2.0, variant=vec),
+        dcn_case("edge_dcn_odd_stride2", g, dev, B=1, H=7, W=9, C=20, O=37, stride=2, off_std=4.0, variant=gen),
+        dcn_case("edge_dcn_far", g, dev, B=2, H=5, W=6, C=33, O=70, stride=1, off_std=8.0, variant=gen),
+        dcn_case("edge_dcn_vec_tail", g, dev, B=1, H=9, W=11, C=64, O=72, stride=1, off_std=3.0, variant=vec),
+        dcn_case("edge_dcn_vec_wide", g, dev, B=1, H=7, W=9, C=24, O=520, stride=2, off_std=3.0, variant=vec),
+        dcn_case("edge_dcn_misaligned", g, dev, B=1, H=6, W=5, C=32, O=64, stride=1, off_std=2.0, variant=gen, misaligned=True),
     ]
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
 
 
 def bind(case, dtype):
@@ -432,14 +564,15 @@ def bind(case, dtype):
     constants to the device, which a CUDA graph cannot capture, so their
     ``plain_ms`` are eager calls timed with CUDA events."""
     kind = case["kind"]
+    shift = misaligned if case.get("misaligned") else (lambda t: t)
     if kind == "dcn":
-        x = case["x"].to(dtype).contiguous()
+        x = shift(case["x"].to(dtype).contiguous())
         w = case["weight"].to(dtype).contiguous()
         args = (x, case["offset"], case["mask"], w, case["stride"])
         kernel = lambda: dcn_cuda.dcn_fwd(*args)          # noqa: E731
         plain = lambda: modulated_deform_conv_ref(*args)  # noqa: E731
         return kernel, plain, lambda out: dcn_bound(x, case["offset"], w, out)
-    value = case["value"].to(dtype).contiguous()
+    value = shift(case["value"].to(dtype).contiguous())
     kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
     if kind == "factored":
         args = (value, case["shapes"], case["ref_flat"], case["off"], case["attn"])
@@ -474,20 +607,27 @@ def conv3x3_ms(case, dtype):
 def phase_kernels(dev):
     rows, outs = [], {}
     cases = (flagship_cases(dev) + base_msda_cases(dev) + msda_edge_cases(dev)
-             + dcn_cases(dev))
+             + factored_edge_cases(dev) + dcn_cases(dev))
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
             kernel, plain, bound = bind(case, dtype)
+            before = variant_counts()
             got = kernel()
             torch.cuda.synchronize()
+            ran = [k.split(".")[1] for k, v in variant_counts().items()
+                   if v > before[k]]
             want = plain()
             err = float((got.float() - want.float()).abs().max())
             finite = bool(torch.isfinite(got).all())
             row = dict(case=case["name"], dtype=dname, max_abs_err=err,
                        tol=TOL[dname], finite=finite,
                        max_abs_out=float(want.float().abs().max()))
+            if ran:
+                row["variant"] = ran[0]
             ok = finite and err <= TOL[dname]
+            if case.get("variant") and ran != [case["variant"][dname]]:
+                ok = False  # the case exists to reach this variant
             if "same_as" in case:
                 # the materialized route against the factored kernel
                 other = outs[(case["same_as"], dname)]
@@ -617,7 +757,7 @@ def phase_stream(dev):
     launches = drive("stream", cfg, model, frames, {
         "msda_fwd": m.encoder_layers + m.decoder_layers + m.map_decoder_layers,
         "msda_fwd_masked": m.encoder_layers, "msda_fwd_factored": 0,
-        "dcn_fwd": 0})
+        "dcn_fwd": 0, **dict.fromkeys(variant_counts(), 0)})
 
     # one f32 frame with history (frame 1 after frame 0) on the GPU against
     # the CPU plain path, same weights and inputs
@@ -674,11 +814,15 @@ def phase_stream_base(dev):
     n_dcn = sum(n for n, dcn in zip((3, 4, 23, 3), m.backbone_dcn_stages) if dcn)
     # per frame: TSA per encoder layer and cross-attention per det and map
     # decoder layer (18), factored SCA per encoder layer (6), DCN in every
-    # block of stages 3-4 (23 + 3)
+    # block of stages 3-4 (23 + 3); the factored and DCN calls all on their
+    # vector variants
     launches = drive("stream_base", cfg, model, frames, {
         "msda_fwd": m.encoder_layers + m.decoder_layers + m.map_decoder_layers,
         "msda_fwd_masked": 0, "msda_fwd_factored": m.encoder_layers,
-        "dcn_fwd": n_dcn})
+        "dcn_fwd": n_dcn,
+        "msda_fwd_factored.vector": m.encoder_layers,
+        "msda_fwd_factored.general": 0,
+        "dcn_fwd.vector": n_dcn, "dcn_fwd.general": 0})
 
     # one f32 frame with history on the GPU, kernels against the plain
     # versions of the same frame from the same carried BEV
@@ -766,6 +910,8 @@ def kernels_line(rows, launches_by_path):
         sel = [r for r in rows if r["case"] in mix]
         bf = [r for r in sel if r["dtype"] == "bfloat16"]
         by_path = {p: c[name] for p, c in launches_by_path.items()}
+        by_variant = {k.split(".")[1]: sum(c[k] for c in launches_by_path.values())
+                      for k in variant_counts() if k.startswith(name + ".")}
         entry = {"name": name, "route": "cuda",
                  "source": SOURCES[ENTRY_SOURCE[name]],
                  "replaces": REPLACES[name],
@@ -781,6 +927,8 @@ def kernels_line(rows, launches_by_path):
         entry["library_ms"] = None
         entry["frame"] = frame
         entry["per_frame_calls"] = mix
+        if by_variant:
+            entry["launches_by_variant"] = by_variant
         if name == "dcn_fwd":
             entry["conv3x3_cudnn_ms"] = sum(
                 r["conv3x3_cudnn_ms"] * mix[r["case"]] for r in bf)
@@ -799,10 +947,13 @@ def main() -> int:
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "python": sys.version.split()[0]})
+    ptxas = []
     for src, (seconds, report) in _build.build_many(list(SOURCES)).items():
+        kernels = ptxas_kernels(report)
+        ptxas += kernels
         emit({"phase": "build", "source": SOURCES[src], "seconds": seconds,
-              "ptxas": [ln for ln in report.splitlines() if "ptxas info" in ln
-                        and ("registers" in ln or "spill" in ln)]})
+              "ptxas": kernels})
+    check_vector_factored(ptxas)
     rows = phase_kernels(dev)
     launches = {"stream": phase_stream(dev)}
     torch.cuda.empty_cache()

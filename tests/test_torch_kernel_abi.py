@@ -1,0 +1,78 @@
+"""The C entry points of csrc/*.cu against the ctypes signatures their
+wrappers declare. ctypes converts each argument by the declared type, so a
+pointer declared as an int would be cut to 32 bits on the card: every
+pointer and the stream must be ``c_void_p``, every int ``c_int``, and the
+counts must agree. Needs no GPU and no nvcc."""
+import ctypes
+import re
+from pathlib import Path
+
+import pytest
+
+from apollo_vision_net_tpu_torch.ops import dcn_cuda, msda_cuda
+
+CSRC = Path(__file__).resolve().parent.parent / "apollo_vision_net_tpu_torch" / "csrc"
+WRAPPERS = {"msda_fwd.cu": msda_cuda, "dcn_fwd.cu": dcn_cuda}
+ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
+
+
+def c_entries(source):
+    """{name: [param, ...]} of the extern "C" functions of one source."""
+    text = (CSRC / source).read_text()
+    return {name: [" ".join(p.split()) for p in params.split(",")]
+            for name, params in ENTRY.findall(text)}
+
+
+def test_every_entry_point_has_a_wrapper_signature():
+    for source, module in WRAPPERS.items():
+        assert set(c_entries(source)) == set(module.ARGTYPES), source
+    assert {p.name for p in CSRC.glob("*.cu")} == set(WRAPPERS)
+
+
+@pytest.mark.parametrize("source,name", [
+    ("msda_fwd.cu", "msda_fwd"),
+    ("msda_fwd.cu", "msda_fwd_factored"),
+    ("dcn_fwd.cu", "dcn_fwd"),
+])
+def test_wrapper_argtypes_match_the_c_parameters(source, name):
+    params = c_entries(source)[name]
+    argtypes = WRAPPERS[source].ARGTYPES[name]
+    assert len(argtypes) == len(params), (params, argtypes)
+    for param, argtype in zip(params, argtypes):
+        if "*" in param:
+            assert argtype is ctypes.c_void_p, param
+        else:
+            assert re.fullmatch(r"int \w+", param), param
+            assert argtype is ctypes.c_int, param
+
+
+def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
+    """chip_smoke's build phase fails when the vector factored MSDA kernel
+    has a stack frame or spills; it reads them per kernel from the report,
+    anonymous-namespace kernels included."""
+    import chip_smoke
+
+    report = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_Z24msda_factored_vec_kernelI13__nv_bfloat16Li4EEvPKT_' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_Z24msda_factored_vec_kernelI13__nv_bfloat16Li4EEvPKT_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 79 registers, used 1 barriers, 224 bytes smem",
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_114dcn_fwd_kernelIfLi64ELi256ELb1EEEvPKT_",
+        "    8 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+    ])
+    vec, dcn = chip_smoke.ptxas_kernels(report)
+    assert (vec["kernel"], vec["registers"], vec["smem_bytes"],
+            vec["stack_bytes"], vec["spill_stores"]) == (
+        "msda_factored_vec_kernel", 79, 224, 0, 0)
+    assert (dcn["kernel"], dcn["stack_bytes"], dcn["spill_loads"]) == (
+        "dcn_fwd_kernel", 8, 32)
+    chip_smoke.check_vector_factored([vec, dcn])
+    for bad in (dict(vec, stack_bytes=8), dict(vec, spill_loads=4)):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_vector_factored([bad, dcn])
+    with pytest.raises(AssertionError):  # no report of the kernel at all
+        chip_smoke.check_vector_factored([dcn])
