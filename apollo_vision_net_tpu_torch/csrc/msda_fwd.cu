@@ -40,9 +40,46 @@
 // the plain materialize_factored rounds them), so the (B, Q, H, L, P, 2)
 // locations (491.5 MB f32 at the base SCA shape) are never written or read.
 //
-// Plain and masked entries (msda_fwd_kernel): one warp per (batch, query,
-// head), lanes across the D channels (a lane loops over channels when
-// D > 32; lanes >= D idle when D < 32), samples walked in series.
+// Every kernel forms a sample's corners the same way: px = loc * w - 0.5 and
+// py = loc * h - 0.5, each product and difference rounded as the plain
+// version rounds them (no contraction into an FMA), the four corner cells
+// and their weights attn x bilinear (0 outside the grid) in registers, from
+// a level table (w, h, 1/w, 1/h, first cell) staged in shared memory once
+// per block, so nothing is indexed in local memory (ptxas: 0 bytes stack
+// frame).
+//
+// Plain and masked entries (msda_fwd), vector variant (msda_vec_kernel;
+// G = D * sizeof(T) / 16 in {1, 2, 4, 8, 16}; value and out 16-byte
+// aligned, loc 8-byte aligned; every call of the flagship and base frames
+// runs it):
+//   1. One warp per (batch, query), all heads. A block of 4 warps takes 4
+//      consecutive queries, and consecutive blocks their neighbours, so L1
+//      catches overlapping corner rows (TSA queries are row-major on the
+//      BEV, the flagship SCA's in 8 x 4 spatial blocks). One query a warp
+//      ran the decoders and the flagship SCA faster than two, and the base
+//      TSA as fast (H100 runs).
+//   2. A corner row of a head is D contiguous values, read by G lanes as G
+//      16-byte loads; the warp's 32 / G lane groups take 32 / G heads at
+//      once (8 at bf16 D = 32: the whole query; 4 at f32 D = 32, in two
+//      passes).
+//   3. Lane `sub` of a group owns sample r0 + sub of the group's head, in
+//      rounds of G samples over the head's L * P (one round at TSA and the
+//      decoders in bf16, two at the flagship SCA). It loads its location
+//      (8 bytes) and weight and forms its four corners in registers.
+//   4. The group walks the round's samples one at a time: each lane takes a
+//      sample's corner offsets and weights from the owner lane in its own
+//      group with __shfl_sync, issues the sample's four 16-byte corner loads
+//      before it uses any, and accumulates its 16 bytes of channels in f32.
+//      No reduction across lanes: the group holds the head's D channels, and
+//      the query's H * D output row (512 B at bf16 D = 32, H = 8) leaves as
+//      one run of 16-byte stores. Every instance takes at most 64 registers
+//      (at least 8 blocks an SM) and no stack frame.
+//   5. A query of a masked tile writes its row of zeros with 16-byte stores
+//      and reads nothing else.
+// Plain and masked entries, general variant (msda_scalar_kernel; any other
+// D or a misaligned row): one warp per (batch, query, head), lane s forms
+// the corners of sample s, then the lanes walk the channels with scalar
+// loads, taking each sample's corners by __shfl_sync.
 //
 // Factored entry, vector variant (msda_factored_vec_kernel; D a power of
 // two from 4 to 64 in f32, 16 or 32 in bf16; value and out 16-byte
@@ -55,10 +92,7 @@
 //      shape; fewer leave lanes idle, more take several rounds). The warp
 //      loads the offsets, weights and the camera's references with
 //      coalesced loads, and each lane forms its location, four corner cell
-//      offsets and four weights (attn x bilinear, 0 outside the grid) in
-//      registers. The level table (w, h, 1/w, 1/h, first cell) is staged
-//      in shared memory once per block, so nothing is indexed in local
-//      memory (ptxas: 0 bytes stack frame).
+//      offsets and four weights in registers.
 //   3. A corner row of a head is D contiguous values; G = D * sizeof(T) /
 //      16 lanes read it as G 16-byte loads, so one warp load instruction
 //      serves 32 / G corner rows (8 at bf16 D = 32). Each lane takes its
@@ -80,21 +114,25 @@
 // 6 + 6 decoder calls). At the base shape the factored SCA call reads ~286
 // MB before the mask (value 24.5 MB in bf16, ref 15.4, off 81.9 and attn
 // 41 MB in f32; the output is 122.9 MB in bf16, 245.8 MB in f32), and the
-// 200x200 TSA call ~35 MB. The arithmetic, 4 corners x D FMAs per sample,
-// stays under the byte bound at the card's f32 rate. chip_smoke.py
-// computes each call's bound from its inputs (0.082 ms for the base SCA
-// with its tile mask, bf16).
-// The practical limit of the factored kernel is the gather, not device
-// memory: about 480k active (query, head) pairs x 128 corner rows x 64 B =
-// ~3.9 GB a call at the base shape, served by L1 and L2 (value is 24.5 MB
-// and stays in the 50 MB L2), i.e. ~7.7M warp load instructions of 512 B.
-// The plain entry's kernel is still the first, simple version.
+// 200x200 TSA call ~112 MB in bf16 (value 41 MB, loc 20.5, attn 10.2,
+// out 41). The arithmetic, 4 corners x D FMAs per sample, stays under the
+// byte bound at the card's f32 rate. chip_smoke.py computes each call's
+// bound from its inputs (0.082 ms for the base SCA with its tile mask,
+// 0.034 ms for the base TSA, bf16).
+// The practical limit of both vector kernels is the gather, not device
+// memory. The factored kernel reads about 480k active (query, head) pairs x
+// 128 corner rows x 64 B = ~3.9 GB a call at the base shape; the base TSA
+// reads 80k queries x 8 heads x 16 corner rows x 64 B = ~655 MB a call in
+// bf16, 1.28M warp load instructions of 512 B. Both are served by L1 and
+// L2: the base SCA's value is 24.5 MB, the two TSA slots' 41 MB, and the
+// L2 holds 50 MB.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #define MSDA_MAX_LEVELS 8
+#define FULL_MASK 0xffffffffu
 
 struct MsdaLevels {
   int n;
@@ -112,82 +150,6 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// acc += a * bilinear sample of one channel of a (h, w) level at normalized
-// location (lx, ly); vl points at that channel of the level's first cell and
-// row is the stride between cells. Corners outside the grid are zero.
-template <typename T>
-__device__ __forceinline__ float sample_acc(float acc, const T* vl, int64_t row,
-                                            int h, int w, float lx, float ly,
-                                            float a) {
-  const float px = lx * (float)w - 0.5f;
-  const float py = ly * (float)h - 0.5f;
-  const float fx0 = floorf(px), fy0 = floorf(py);
-  const float fx = px - fx0, fy = py - fy0;
-  const int x0 = (int)fx0, y0 = (int)fy0;
-  const bool x0_in = x0 >= 0 && x0 < w, x1_in = x0 + 1 >= 0 && x0 + 1 < w;
-  const bool y0_in = y0 >= 0 && y0 < h, y1_in = y0 + 1 >= 0 && y0 + 1 < h;
-  if (y0_in) {
-    const T* vr = vl + (int64_t)y0 * w * row;
-    if (x0_in) acc += (1.f - fx) * (1.f - fy) * a * load_f32(vr + (int64_t)x0 * row);
-    if (x1_in) acc += fx * (1.f - fy) * a * load_f32(vr + (int64_t)(x0 + 1) * row);
-  }
-  if (y1_in) {
-    const T* vr = vl + (int64_t)(y0 + 1) * w * row;
-    if (x0_in) acc += (1.f - fx) * fy * a * load_f32(vr + (int64_t)x0 * row);
-    if (x1_in) acc += fx * fy * a * load_f32(vr + (int64_t)(x0 + 1) * row);
-  }
-  return acc;
-}
-
-template <typename T>
-__global__ void msda_fwd_kernel(const T* __restrict__ value,
-                                const float* __restrict__ loc,
-                                const float* __restrict__ attn,
-                                const int* __restrict__ tile_mask,
-                                T* __restrict__ out, int B, int V, int H,
-                                int D, int Q, int P, int q_tile, int n_tiles,
-                                MsdaLevels lv) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp =
-      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (warp >= (int64_t)B * Q * H) return;
-  const int hh = (int)(warp % H);
-  const int64_t bq = warp / H;  // b * Q + q
-  const int q = (int)(bq % Q);
-  const int b = (int)(bq / Q);
-  T* o = out + warp * D;  // ((b * Q + q) * H + hh) * D
-
-  if (tile_mask != nullptr && tile_mask[(int64_t)b * n_tiles + q / q_tile] == 0) {
-    for (int c = lane; c < D; c += 32) store_f32(o + c, 0.f);
-    return;
-  }
-
-  const int L = lv.n;
-  const float* lq = loc + warp * L * P * 2;
-  const float* aq = attn + warp * L * P;
-  const int64_t row = (int64_t)H * D;  // stride between value cells
-  const T* vb = value + (int64_t)b * V * row + (int64_t)hh * D;
-
-  for (int c0 = 0; c0 < D; c0 += 32) {
-    const int c = c0 + lane;
-    if (c >= D) break;
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const T* vl = vb + (int64_t)lv.start[l] * row + c;
-      for (int p = 0; p < P; ++p) {
-        const int i = l * P + p;
-        acc = sample_acc(acc, vl, row, lv.h[l], lv.w[l], lq[2 * i],
-                         lq[2 * i + 1], aq[i]);
-      }
-    }
-    store_f32(o + c, acc);
-  }
-}
-
-// ------------------------------------------------------- factored entry
-
-#define FULL_MASK 0xffffffffu
-
 // Warps in flight matter more than loads in flight per warp: with batches of
 // 4 loads and blocks of 4 warps the base shape's instance (bf16, G = 4) takes
 // 64 registers and runs 0.71 ms a call, with batches of 8 and blocks of 8
@@ -198,7 +160,7 @@ constexpr int kFactoredItemsPerWarp = 16;  // (query, head) items per warp
 constexpr int kFactoredItems = kFactoredWarps * kFactoredItemsPerWarp;
 constexpr int kFactoredBatch = 4;          // loads issued before any is used
 
-// The level table of a factored block, in shared memory.
+// The level table of a block, in shared memory.
 struct SharedLevels {
   float4 whi[MSDA_MAX_LEVELS];  // (w, h, 1 / w, 1 / h)
   int2 wh[MSDA_MAX_LEVELS];     // (w, h)
@@ -243,17 +205,15 @@ __device__ __forceinline__ Corners4 no_corners() {
   return c;
 }
 
-__device__ __forceinline__ Corners4 sample_corners(const SharedLevels& s,
-                                                   int l, float rx, float ry,
-                                                   float ox, float oy,
-                                                   float a, int row) {
+// The corners of a sample of level l at normalized location (lx, ly).
+__device__ __forceinline__ Corners4 corners_at(const SharedLevels& s, int l,
+                                               float lx, float ly, float a,
+                                               int row) {
   const float4 f = s.whi[l];
   const int2 wh = s.wh[l];
   const int start = s.start[l];
-  // loc = ref + off * (1 / w), then px = loc * w - 0.5, each op rounded as
-  // the plain version rounds it (no contraction into an FMA)
-  const float lx = __fadd_rn(rx, __fmul_rn(ox, f.z));
-  const float ly = __fadd_rn(ry, __fmul_rn(oy, f.w));
+  // px = loc * w - 0.5, each op rounded as the plain version rounds it (no
+  // contraction into an FMA)
   const float px = __fsub_rn(__fmul_rn(lx, f.x), 0.5f);
   const float py = __fsub_rn(__fmul_rn(ly, f.y), 0.5f);
   const float fx0 = floorf(px), fy0 = floorf(py);
@@ -270,6 +230,17 @@ __device__ __forceinline__ Corners4 sample_corners(const SharedLevels& s,
                  : 0.f;
   }
   return c;
+}
+
+// The corners of a factored sample: loc = ref + off * (1 / w), each op
+// rounded as the plain materialize_factored rounds it.
+__device__ __forceinline__ Corners4 sample_corners(const SharedLevels& s,
+                                                   int l, float rx, float ry,
+                                                   float ox, float oy,
+                                                   float a, int row) {
+  const float4 f = s.whi[l];
+  return corners_at(s, l, __fadd_rn(rx, __fmul_rn(ox, f.z)),
+                    __fadd_rn(ry, __fmul_rn(oy, f.w)), a, row);
 }
 
 // The (query, head) item of a block's warp (item = (b * Q + q) * H + hh;
@@ -320,6 +291,8 @@ __device__ __forceinline__ uint4 pack16(const float* acc, float*) {
   return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
                     __float_as_uint(acc[2]), __float_as_uint(acc[3]));
 }
+
+// ------------------------------------------------------- factored entry
 
 // G lanes read one corner row (D = G * 16 / sizeof(T) channels).
 template <typename T, int G>
@@ -464,6 +437,138 @@ msda_factored_scalar_kernel(const T* __restrict__ value,
   }
 }
 
+// ------------------------------------------------ plain and masked entries
+
+constexpr int kMsdaWarps = 4;  // warps per block, one (batch, query) each
+// At least 8 blocks an SM, so at most 64 registers: every instance then
+// builds without spills, where ptxas left to itself gave f32 G = 2 48
+// registers and a spill, at a base TSA time a few percent lower (H100
+// runs). The general variant takes the same bound, which removed its
+// 8-byte stack frame.
+constexpr int kMsdaMinBlocks = 8;
+
+// G lanes read one corner row of a head (D = G * 16 / sizeof(T) channels);
+// 32 / G heads are in flight.
+template <typename T, int G>
+__global__ void __launch_bounds__(kMsdaWarps * 32, kMsdaMinBlocks)
+msda_vec_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                const float* __restrict__ attn,
+                const int* __restrict__ tile_mask, T* __restrict__ out, int B,
+                int V, int H, int Q, int P, int LP, int q_tile, int n_tiles,
+                MsdaLevels lv) {
+  constexpr int VEC = 16 / sizeof(T);  // channels per 16-byte load
+  constexpr int D = G * VEC;
+  constexpr int GROUPS = 32 / G;       // heads in flight
+  __shared__ SharedLevels sl;
+  stage_levels(sl, lv);
+
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / G, sub = lane % G;
+  const int row = H * D;  // elements between value cells, and of an output row
+  const int bq = blockIdx.x * kMsdaWarps + (threadIdx.x >> 5);  // b * Q + q
+  if (bq >= B * Q) return;
+  const int b = bq / Q;
+  T* o = out + (int64_t)bq * row;
+  if (tile_mask != nullptr &&
+      __ldg(tile_mask + (int64_t)b * n_tiles + (bq - b * Q) / q_tile) == 0) {
+    for (int c = lane * VEC; c < row; c += 32 * VEC) {
+      *reinterpret_cast<uint4*>(o + c) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const T* vb = value + (int64_t)b * V * row + sub * VEC;
+  for (int h0 = 0; h0 < H; h0 += GROUPS) {
+    const int hh = h0 + grp;
+    const bool on = hh < H;  // the group has a head in this pass
+    const int64_t s0 = ((int64_t)bq * H + hh) * LP;  // the head's first sample
+    const T* vh = vb + hh * D;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int r0 = 0; r0 < LP; r0 += G) {
+      const int i = r0 + sub;  // the lane's sample (level i / P)
+      Corners4 c = no_corners();
+      if (on && i < LP) {
+        const float2 xy = __ldg(reinterpret_cast<const float2*>(loc) + s0 + i);
+        c = corners_at(sl, i / P, xy.x, xy.y, __ldg(attn + s0 + i), row);
+      }
+      // Sample r0 + t lives in lane grp * G + t. Not unrolled: unrolled,
+      // ptxas hoists all 4 * G corner loads and spills at G >= 8 even with
+      // 128 registers (at G = 4 it ran the base TSA a few percent faster,
+      // spilling).
+#pragma unroll 1
+      for (int t = 0; t < G; ++t) {
+        const int src = grp * G + t;
+        uint4 v[4];
+        float w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int id = __shfl_sync(FULL_MASK, c.idx[k], src);
+          w[k] = __shfl_sync(FULL_MASK, c.wt[k], src);
+          v[k] = id >= 0 ? __ldg(reinterpret_cast<const uint4*>(vh + id))
+                         : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) fma16(acc, v[k], w[k], vh);
+      }
+    }
+    if (on) *reinterpret_cast<uint4*>(o + hh * D + sub * VEC) = pack16(acc, o);
+  }
+}
+
+// One warp per (batch, query, head) item, tiled as the factored general
+// variant.
+template <typename T>
+__global__ void __launch_bounds__(kFactoredWarps * 32, kMsdaMinBlocks)
+msda_scalar_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                   const float* __restrict__ attn,
+                   const int* __restrict__ tile_mask, T* __restrict__ out,
+                   int B, int V, int H, int D, int Q, int P, int LP,
+                   int q_tile, int n_tiles, MsdaLevels lv) {
+  __shared__ SharedLevels sl;
+  stage_levels(sl, lv);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = H * D;
+  const int total = B * Q * H;
+  for (int j = 0; j < kFactoredItemsPerWarp; ++j) {
+    const int item = blockIdx.x * kFactoredItems + j * kFactoredWarps + warp;
+    if (item >= total) return;
+    const int bq = item / H, hh = item - bq * H;
+    const int b = bq / Q;
+    T* o = out + (int64_t)item * D;
+    if (tile_mask != nullptr &&
+        __ldg(tile_mask + (int64_t)b * n_tiles + (bq - b * Q) / q_tile) == 0) {
+      for (int ch = lane; ch < D; ch += 32) store_f32(o + ch, 0.f);
+      continue;
+    }
+    const float* lq = loc + (int64_t)item * LP * 2;
+    const float* aq = attn + (int64_t)item * LP;
+    const T* vb = value + (int64_t)b * V * row + hh * D;
+    for (int c0 = 0; c0 < D; c0 += 32) {
+      const int ch = c0 + lane;
+      float acc = 0.f;
+      for (int r0 = 0; r0 < LP; r0 += 32) {
+        const int i = r0 + lane;
+        Corners4 c = no_corners();
+        if (i < LP) c = corners_at(sl, i / P, lq[2 * i], lq[2 * i + 1], aq[i], row);
+        const int ns = min(32, LP - r0);
+        for (int s = 0; s < ns; ++s) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int id = __shfl_sync(FULL_MASK, c.idx[k], s);
+            const float w = __shfl_sync(FULL_MASK, c.wt[k], s);
+            if (ch < D && id >= 0) acc = fmaf(w, load_f32(vb + id + ch), acc);
+          }
+        }
+      }
+      if (ch < D) store_f32(o + ch, acc);
+    }
+  }
+}
+
+// ------------------------------------------------------------- host side
+
 static int fill_levels(MsdaLevels* lv, int L, const int* shapes, int V) {
   if (L < 1 || L > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
   lv->n = L;
@@ -477,34 +582,69 @@ static int fill_levels(MsdaLevels* lv, int L, const int* shapes, int V) {
   return start == V ? 0 : (int)cudaErrorInvalidValue;
 }
 
-static const int kThreads = 256;
-
-static unsigned n_blocks(int64_t warps) {
-  return (unsigned)((warps * 32 + kThreads - 1) / kThreads);
+// Launches the vector variant when D fills G = D * sizeof(T) / 16 lanes (G
+// a power of two up to 16), value and out are 16-byte aligned and loc
+// 8-byte aligned, else the general variant. Returns 1 for the vector
+// variant, 0 for the general.
+template <typename T>
+static int launch_msda(cudaStream_t s, const void* value, const float* loc,
+                       const float* attn, const int* tile_mask, void* out,
+                       int B, int V, int H, int D, int Q, int P, int LP,
+                       int q_tile, int n_tiles, const MsdaLevels& lv) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool aligned = (((uintptr_t)value | (uintptr_t)out) & 15) == 0 &&
+                       ((uintptr_t)loc & 7) == 0 && D % VEC == 0;
+  const unsigned grid = (unsigned)(((int64_t)B * Q + kMsdaWarps - 1) / kMsdaWarps);
+  switch (aligned ? D / VEC : 0) {
+#define MSDA_VEC_CASE(G_)                                                    \
+  case G_:                                                                   \
+    msda_vec_kernel<T, G_><<<grid, kMsdaWarps * 32, 0, s>>>(                 \
+        (const T*)value, loc, attn, tile_mask, (T*)out, B, V, H, Q, P, LP,   \
+        q_tile, n_tiles, lv);                                                \
+    return 1;
+    MSDA_VEC_CASE(1)
+    MSDA_VEC_CASE(2)
+    MSDA_VEC_CASE(4)
+    MSDA_VEC_CASE(8)
+    MSDA_VEC_CASE(16)
+#undef MSDA_VEC_CASE
+    default:
+      break;
+  }
+  const unsigned items =
+      (unsigned)(((int64_t)B * Q * H + kFactoredItems - 1) / kFactoredItems);
+  msda_scalar_kernel<T><<<items, kFactoredWarps * 32, 0, s>>>(
+      (const T*)value, loc, attn, tile_mask, (T*)out, B, V, H, D, Q, P, LP,
+      q_tile, n_tiles, lv);
+  return 0;
 }
 
 // Returns 0 on success, else a cudaError_t code. shapes points to 2 * L host
 // ints (h0, w0, h1, w1, ...); tile_mask may be null; dtype 0 = f32, 1 = bf16.
+// *variant is set to 1 when the vector variant ran, 0 when the general one
+// did.
 extern "C" int msda_fwd(const void* value, int dtype, const float* loc,
                         const float* attn, const int* tile_mask, void* out,
                         int B, int V, int H, int D, int Q, int L, int P,
-                        const int* shapes, int q_tile, void* stream) {
+                        const int* shapes, int q_tile, void* stream,
+                        int* variant) {
   MsdaLevels lv;
-  if (q_tile < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  if (q_tile < 1 || D < 1 || P < 1 || (int64_t)V * H * D > INT32_MAX ||
+      (int64_t)B * Q * H > INT32_MAX - kFactoredItems) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int err = fill_levels(&lv, L, shapes, V);
   if (err != 0) return err;
-  const int64_t warps = (int64_t)B * Q * H;
-  if (warps == 0) return 0;
+  if ((int64_t)B * Q * H == 0) return 0;
   const int n_tiles = (Q + q_tile - 1) / q_tile;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    msda_fwd_kernel<float><<<n_blocks(warps), kThreads, 0, s>>>(
-        (const float*)value, loc, attn, tile_mask, (float*)out, B, V, H, D, Q,
-        P, q_tile, n_tiles, lv);
+    *variant = launch_msda<float>(s, value, loc, attn, tile_mask, out, B, V,
+                                  H, D, Q, P, L * P, q_tile, n_tiles, lv);
   } else if (dtype == 1) {
-    msda_fwd_kernel<__nv_bfloat16><<<n_blocks(warps), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)value, loc, attn, tile_mask,
-        (__nv_bfloat16*)out, B, V, H, D, Q, P, q_tile, n_tiles, lv);
+    *variant = launch_msda<__nv_bfloat16>(s, value, loc, attn, tile_mask, out,
+                                          B, V, H, D, Q, P, L * P, q_tile,
+                                          n_tiles, lv);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -12,10 +12,11 @@ Launch counts: ``launches_plain`` (no tile mask: TSA, det and map decoder
 cross-attention), ``launches_masked`` (single-level SCA with its
 per-(camera, tile) mask) and ``launches_factored`` (multi-level SCA on
 factored operands) each grow by one per kernel launch, so a run can show
-that its main path went through the kernels. ``launches_factored_by_variant``
-splits the factored launches by the kernel variant that ran: ``vector``
-(16-byte gathers, D * element size a power-of-two multiple of 16 bytes,
-aligned rows) or ``general`` (scalar channels, any D).
+that its main path went through the kernels. ``launches_plain_by_variant``,
+``launches_masked_by_variant`` and ``launches_factored_by_variant`` split
+them by the kernel variant that ran: ``vector`` (16-byte gathers, D *
+element size a power-of-two multiple of 16 bytes, aligned rows) or
+``general`` (scalar channels, any D).
 
 ``ARGTYPES`` are the C signatures of the entry points as ctypes sees them:
 ``c_void_p`` for every pointer and the stream, ``c_int`` for every int.
@@ -34,6 +35,8 @@ launches_masked = 0
 launches_factored = 0
 # the C entry reports the variant it launched: 1 vector, 0 general
 VARIANTS = {1: "vector", 0: "general"}
+launches_plain_by_variant = dict.fromkeys(VARIANTS.values(), 0)
+launches_masked_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 launches_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,9 +44,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
     # value, dtype, loc, attn, tile_mask, out, B, V, H, D, Q, L, P, shapes,
-    # q_tile, stream
+    # q_tile, stream, variant
     "msda_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                 _P],
+                 _P, _P],
     # value, dtype, ref, off, attn, tile_mask, out, B, N, V, H, D, Q, L, P,
     # shapes, q_tile, stream, variant
     "msda_fwd_factored": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -56,7 +59,9 @@ def reset_launch_counts() -> None:
     launches_plain = 0
     launches_masked = 0
     launches_factored = 0
-    launches_factored_by_variant.update(dict.fromkeys(VARIANTS.values(), 0))
+    for counts in (launches_plain_by_variant, launches_masked_by_variant,
+                   launches_factored_by_variant):
+        counts.update(dict.fromkeys(VARIANTS.values(), 0))
 
 
 def _lib() -> ctypes.CDLL:
@@ -115,17 +120,22 @@ def msda_fwd(
     out = torch.empty((B, Q, H * D), dtype=value.dtype, device=dev)
     shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    variant = (ctypes.c_int * 1)(-1)
     err = lib.msda_fwd(
         value.data_ptr(), _DTYPES[value.dtype], sampling_locations.data_ptr(),
         attention_weights.data_ptr(),
         tile_mask.data_ptr() if tile_mask is not None else None,
-        out.data_ptr(), B, V, H, D, Q, L, P, shapes, q_tile, stream)
+        out.data_ptr(), B, V, H, D, Q, L, P, shapes, q_tile, stream, variant)
     if err != 0:
         raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {err}")
     if tile_mask is None:
         launches_plain += 1
+        by_variant = launches_plain_by_variant
     else:
         launches_masked += 1
+        by_variant = launches_masked_by_variant
+    if variant[0] in VARIANTS:  # an empty call launches nothing
+        by_variant[VARIANTS[variant[0]]] += 1
     return out
 
 

@@ -8,8 +8,8 @@ Phases, each printing JSON lines:
   build        builds the kernels of csrc/ in parallel (one nvcc each) and
                prints each source's seconds and, per kernel, the compiler's
                registers, shared memory, stack frame and spills; fails if
-               the vector variant of the factored MSDA kernel has a stack
-               frame or spills.
+               any instance of a vector MSDA kernel (plain/masked or
+               factored) has a stack frame or spills.
   kernels      every CUDA kernel against its plain PyTorch version, in f32 and
                bf16: max abs error and tolerance, device time per call (CUDA
                graph replay), the plain version's time, an eager call's time
@@ -18,24 +18,27 @@ Phases, each printing JSON lines:
                decoders); the base config's TSA over 200x200, det and map
                decoders over the 200x200 BEV, SCA over 4 levels on factored
                operands (tile mask at q_tile 128) and the same SCA on
-               materialized operands through the masked entry; the four DCN
-               shapes of R101 stages 3-4 (random ~2 px offsets, sigmoid masks;
-               cuDNN's time for a plain 3x3 conv of the same shape beside them
-               as a yardstick); small edge shapes of both kernels that reach
-               the ragged edges of their tiles and both variants (vector and
-               general) of the factored MSDA and DCN kernels. Each row names
-               the variant that ran.
+               materialized operands through the masked entry (F.grid_sample's
+               time on the base TSA's value and grid beside it as a
+               yardstick); the four DCN shapes of R101 stages 3-4 (random ~2
+               px offsets, sigmoid masks; cuDNN's time for a plain 3x3 conv
+               of the same shape beside them as a yardstick); small edge
+               shapes of both kernels that reach the ragged edges of their
+               tiles and both variants (vector and general) of every MSDA
+               entry and the DCN kernel. Each row names the variant that
+               ran, and an edge case fails off the variant it targets.
   stream       the flagship bev_tiny_det_map_apollo at full width (6 cams at
                480x800, 50x50 BEV, 3 encoder + 6 det + 6 map decoder layers,
                random weights from a seed) through the streaming runner: frames
-               with can_bus deltas and one scene change, launch counts per
-               frame, finite outputs, one f32 frame held against the CPU plain
+               with can_bus deltas and one scene change, exact launch counts
+               per frame (every MSDA call on its vector variant), finite
+               outputs, one f32 frame held against the CPU plain
                path, steady-state frames/s as configured (bf16) and in f32, and
                a profile of each.
   stream_base  bev_base_det_map at full width (R101 with DCN in stages 3-4, a
                4-level FPN, 200x200 BEV, 6 encoder + 6 det + 6 map decoder
                layers) the same way, with exact launch counts per frame (the
-               factored MSDA and DCN calls all on their vector variants); its
+               MSDA and DCN calls all on their vector variants); its
                f32 frame with history is held against the same frame run
                under ``ops.plain_versions()`` on the GPU. Its random weights
                come from seed 0, and the zero-initialized offset predictors
@@ -126,6 +129,8 @@ FRAME_CALLS = {
 }
 ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
                 "msda_fwd_factored": "msda_fwd.cu", "dcn_fwd": "dcn_fwd.cu"}
+# kernels whose every instance must build without a stack frame or spills
+VECTOR_KERNELS = ("msda_vec_kernel", "msda_factored_vec_kernel")
 
 
 def emit(obj) -> None:
@@ -185,9 +190,11 @@ def reset_launch_counts() -> None:
 
 
 def variant_counts() -> dict:
-    """Launches by kernel variant of the two entries that have variants."""
+    """Launches by kernel variant of every entry."""
     out = {}
-    for name, counts in (("msda_fwd_factored", msda_cuda.launches_factored_by_variant),
+    for name, counts in (("msda_fwd", msda_cuda.launches_plain_by_variant),
+                         ("msda_fwd_masked", msda_cuda.launches_masked_by_variant),
+                         ("msda_fwd_factored", msda_cuda.launches_factored_by_variant),
                          ("dcn_fwd", dcn_cuda.launches_by_variant)):
         out.update({f"{name}.{v}": n for v, n in counts.items()})
     return out
@@ -240,15 +247,16 @@ def ptxas_kernels(report: str) -> list:
     return out
 
 
-def check_vector_factored(kernels: list) -> None:
-    """The vector variant of the factored MSDA kernel keeps everything in
-    registers and shared memory: no stack frame, no spills."""
-    vec = [k for k in kernels if k["kernel"] == "msda_factored_vec_kernel"]
-    bad = [k for k in vec if k.get("stack_bytes", 1) or k.get("spill_stores", 1)
-           or k.get("spill_loads", 1)]
-    if not vec or bad:
-        raise AssertionError(f"vector factored MSDA kernel: stack frame or "
-                             f"spills (or no report): {bad or vec}")
+def check_vector_kernels(kernels: list) -> None:
+    """The vector variants of the MSDA kernels keep everything in registers
+    and shared memory: no instance built has a stack frame or spills."""
+    for name in VECTOR_KERNELS:
+        vec = [k for k in kernels if k["kernel"] == name]
+        bad = [k for k in vec if k.get("stack_bytes", 1)
+               or k.get("spill_stores", 1) or k.get("spill_loads", 1)]
+        if not vec or bad:
+            raise AssertionError(f"{name}: stack frame or spills (or no "
+                                 f"report): {bad or vec}")
 
 
 # ---------------------------------------------------------------- kernels
@@ -259,13 +267,42 @@ def tile_sizes(Q: int, q_tile: int, n_tiles: int, device) -> torch.Tensor:
     return per_tile
 
 
-def msda_bound(value, Q, L, P, tile_mask, q_tile, shared_batch=None):
-    """Least time for an MSDA call: each input read once (locations and
-    weights of active tiles only), the output written once; 4 corners x D
-    FMAs per sample. ``shared_batch`` = Bs for the factored entry: per-camera
-    refs, and offsets/weights read once per sample for the queries that any
-    of its cameras needs."""
+def touched_value_bytes(value, shapes, loc, tile_mask, q_tile):
+    """Bytes of the value rows that an MSDA call needs: each distinct
+    (batch, cell, head) row of D values under an in-grid corner of a sample
+    of an active tile, read once. A decoder call touches a fraction of its
+    value; TSA nearly all of it."""
+    B, V, H, _ = value.shape
+    _, Q, _, _, P, _ = loc.shape
+    dev = loc.device
+    keep = torch.ones((B, Q), dtype=torch.bool, device=dev)
+    if tile_mask is not None:
+        keep = tile_mask.to(torch.bool).repeat_interleave(q_tile, 1)[:, :Q]
+    bh = (torch.arange(B, device=dev)[:, None, None, None] * V * H
+          + torch.arange(H, device=dev)[None, None, :, None])  # (B, 1, H, 1)
+    keys, start = [], 0
+    for lvl, (h, w) in enumerate(shapes):
+        x0 = torch.floor(loc[:, :, :, lvl, :, 0] * w - 0.5).long()
+        y0 = torch.floor(loc[:, :, :, lvl, :, 1] * h - 0.5).long()
+        for cx, cy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            xx, yy = x0 + cx, y0 + cy
+            ok = ((xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+                  & keep[:, :, None, None])
+            keys.append(torch.unique((bh + (start + yy * w + xx) * H)[ok]))
+        start += h * w
+    rows = torch.unique(torch.cat(keys)).numel()
+    return rows * value.shape[3] * value.element_size()
+
+
+def msda_bound(value, shapes, loc, tile_mask, q_tile, shared_batch=None):
+    """Least time for an MSDA call: the value rows its samples touch read
+    once (``touched_value_bytes``), locations and weights of active tiles
+    read once, the output written once; 4 corners x D FMAs per sample.
+    ``shared_batch`` = Bs for the factored entry (``loc`` materialized):
+    per-camera refs, and offsets/weights read once per sample for the
+    queries that any of its cameras needs."""
     B, V, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
     elem = value.element_size()
     active_q = B * Q
     if tile_mask is not None:
@@ -280,7 +317,8 @@ def msda_bound(value, Q, L, P, tile_mask, q_tile, shared_batch=None):
             any_cam = tile_mask.reshape(Bs, B // Bs, -1).any(1).to(torch.int64)
             union_q = int((any_cam * sizes).sum())
         operand_bytes = active_q * P * 2 * 4 + union_q * H * L * P * (2 + 1) * 4
-    nbytes = value.numel() * elem + operand_bytes + B * Q * H * D * elem
+    nbytes = (touched_value_bytes(value, shapes, loc, tile_mask, q_tile)
+              + operand_bytes + B * Q * H * D * elem)
     ops_ = active_q * H * L * P * (4 * 2 * D)
     return _bound(nbytes, ops_ / F32_FLOP_PER_S)
 
@@ -431,31 +469,59 @@ def base_msda_cases(dev):
     return cases
 
 
+def msda_edge_pair(name, g, dev, *, B, H, D, Q, P, shapes, q_tile, variant,
+                   misaligned=False):
+    """One plain and one masked MSDA call on the same inputs: locations
+    spread past the grid ([-0.2, 1.2]), random weights, a random tile mask
+    with a tail tile when q_tile does not divide Q. ``variant`` and
+    ``misaligned`` as in ``factored_case``."""
+    L, V = len(shapes), sum(h * w for h, w in shapes)
+    value = torch.randn((B, V, H, D), generator=g, device=dev)
+    loc = torch.rand((B, Q, H, L, P, 2), generator=g, device=dev) * 1.4 - 0.2
+    attn = torch.rand((B, Q, H, L, P), generator=g, device=dev)
+    n_tiles = (Q + q_tile - 1) // q_tile
+    tm = (torch.rand((B, n_tiles), generator=g, device=dev) > 0.4).to(torch.int32)
+    common = dict(kind="msda", value=value, shapes=shapes, loc=loc, attn=attn,
+                  q_tile=q_tile, variant=variant, misaligned=misaligned)
+    return [dict(name=name, tile_mask=None, **common),
+            dict(name=name + "_masked", tile_mask=tm, **common)]
+
+
 def msda_edge_cases(dev):
-    """Small shapes the main paths do not reach: D < 32 and D > 32, two
-    levels, Q not a multiple of the tile, locations outside the grid; the
-    factored entry with N = 3 cameras and a tail tile."""
+    """Small shapes of the plain and masked entries that the main paths do
+    not reach, each on the variant it targets: H·L·P below, at and above
+    one warp (12, 32, 64, 96, 256), D = 4, 16, 32, 40 and 64, L = 1-4, Q
+    off the tile, locations outside the grid and a misaligned value row;
+    then the factored entry with N = 3 cameras and a tail tile."""
     g = torch.Generator(device=dev).manual_seed(1)
-    out = []
-    for (B, H, D, Q, P, shapes) in ((2, 4, 4, 37, 5, ((6, 9), (3, 5))),
-                                    (1, 2, 40, 70, 3, ((7, 5),))):
-        V = sum(h * w for h, w in shapes)
-        L = len(shapes)
-        value = torch.randn((B, V, H, D), generator=g, device=dev)
-        loc = torch.rand((B, Q, H, L, P, 2), generator=g, device=dev) * 1.4 - 0.2
-        attn = torch.rand((B, Q, H, L, P), generator=g, device=dev)
-        n_tiles = (Q + 31) // 32
-        tm = (torch.rand((B, n_tiles), generator=g, device=dev) > 0.4).to(torch.int32)
-        out.append(dict(name=f"edge_D{D}", kind="msda", value=value,
-                        shapes=shapes, loc=loc, attn=attn, tile_mask=None,
-                        q_tile=32))
-        out.append(dict(name=f"edge_D{D}_masked", kind="msda", value=value,
-                        shapes=shapes, loc=loc, attn=attn, tile_mask=tm,
-                        q_tile=32))
-    out.append(factored_case("edge_factored", g, dev, Bs=2, N=3, H=4, D=24,
-                             Q=150, P=4, shapes=((9, 11), (5, 6), (3, 3)),
-                             q_tile=64))
-    return out
+    vec = {"float32": "vector", "bfloat16": "vector"}
+    gen = {"float32": "general", "bfloat16": "general"}
+    return [
+        *msda_edge_pair("edge_D4", g, dev, B=2, H=4, D=4, Q=37, P=5,
+                        shapes=((6, 9), (3, 5)), q_tile=32,
+                        variant={"float32": "vector", "bfloat16": "general"}),
+        *msda_edge_pair("edge_D40", g, dev, B=1, H=2, D=40, Q=70, P=3,
+                        shapes=((7, 5),), q_tile=32, variant=gen),
+        *msda_edge_pair("edge_msda_HLP12_D16", g, dev, B=2, H=2, D=16, Q=45,
+                        P=3, shapes=((6, 9), (3, 5)), q_tile=16, variant=vec),
+        *msda_edge_pair("edge_msda_HLP32_D32", g, dev, B=2, H=8, D=32, Q=70,
+                        P=4, shapes=((9, 11),), q_tile=32, variant=vec),
+        *msda_edge_pair("edge_msda_HLP64_D32", g, dev, B=3, H=8, D=32, Q=100,
+                        P=8, shapes=((5, 8),), q_tile=32, variant=vec),
+        *msda_edge_pair("edge_msda_L3_HLP96_D64", g, dev, B=1, H=4, D=64, Q=50,
+                        P=8, shapes=((7, 9), (4, 5), (2, 3)), q_tile=16,
+                        variant=vec),
+        *msda_edge_pair("edge_msda_L4_HLP256_D32", g, dev, B=2, H=8, D=32,
+                        Q=200, P=8, shapes=((9, 13), (5, 7), (3, 4), (1, 1)),
+                        q_tile=128, variant=vec),
+        *msda_edge_pair("edge_msda_L2_D40", g, dev, B=2, H=3, D=40, Q=33, P=4,
+                        shapes=((6, 7), (3, 4)), q_tile=8, variant=gen),
+        *msda_edge_pair("edge_msda_misaligned", g, dev, B=1, H=4, D=32, Q=40,
+                        P=4, shapes=((6, 8), (3, 4)), q_tile=16, variant=gen,
+                        misaligned=True),
+        factored_case("edge_factored", g, dev, Bs=2, N=3, H=4, D=24, Q=150,
+                      P=4, shapes=((9, 11), (5, 6), (3, 3)), q_tile=64),
+    ]
 
 
 def factored_case(name, g, dev, *, Bs, N, H, D, Q, P, shapes, q_tile,
@@ -582,15 +648,35 @@ def bind(case, dtype):
             with ops.plain_versions():
                 return ms_deform_attn_factored(*args, **kw)
 
-        return (lambda: msda_cuda.msda_fwd_factored(*args, **kw), plain,
-                lambda out: msda_bound(value, Q, len(case["shapes"]), P,
-                                       kw["tile_mask"], kw["q_tile"],
-                                       shared_batch=case["attn"].shape[0]))
+        def bound(out):
+            H, L = value.shape[2], len(case["shapes"])
+            loc, _ = materialize_factored(*args[2:], case["shapes"], H, P)
+            return msda_bound(value, case["shapes"],
+                              loc.reshape(value.shape[0], Q, H, L, P, 2),
+                              kw["tile_mask"], kw["q_tile"],
+                              shared_batch=case["attn"].shape[0])
+
+        return (lambda: msda_cuda.msda_fwd_factored(*args, **kw), plain, bound)
     args = (value, case["shapes"], case["loc"], case["attn"])
-    _, Q, _, L, P, _ = case["loc"].shape
     return (lambda: msda_cuda.msda_fwd(*args, **kw),
             lambda: ms_deform_attn_ref(*args, **kw),
-            lambda out: msda_bound(value, Q, L, P, kw["tile_mask"], kw["q_tile"]))
+            lambda out: msda_bound(value, case["shapes"], case["loc"],
+                                   kw["tile_mask"], kw["q_tile"]))
+
+
+def grid_sample_ms(case, dtype):
+    """CUDA-graph time of F.grid_sample (bilinear, zeros, align_corners=False)
+    on a single-level case's value viewed as (B·H, D, h, w) at its
+    (B·H, Q, P, 2) grid: a yardstick that samples but neither weights nor
+    sums, and not the same function."""
+    (h, w), = case["shapes"]
+    B, _, H, D = case["value"].shape
+    _, Q, _, _, P, _ = case["loc"].shape
+    x = case["value"].to(dtype).permute(0, 2, 3, 1).reshape(B * H, D, h, w)
+    grid = (case["loc"][:, :, :, 0] * 2 - 1).transpose(1, 2).reshape(B * H, Q, P, 2)
+    grid = grid.to(dtype)
+    return graph_time_ms(lambda: F.grid_sample(
+        x, grid, mode="bilinear", padding_mode="zeros", align_corners=False))
 
 
 def conv3x3_ms(case, dtype):
@@ -648,6 +734,8 @@ def phase_kernels(dev):
                     row["tiles"] = int(case["tile_mask"].numel())
                 if case["kind"] == "dcn":
                     row["conv3x3_cudnn_ms"] = conv3x3_ms(case, dtype)
+                if case["name"] == "tsa_base":
+                    row["grid_sample_ms"] = grid_sample_ms(case, dtype)
                 if case["name"] == "sca_base_factored":
                     outs[(case["name"], dname)] = got
             rows.append(row)
@@ -752,12 +840,15 @@ def phase_stream(dev):
               make_stream(cfg, n_frames, seed=1, scene_change_at=(3,))]
     model = build_model(cfg, device=dev, seed=0)
     # per frame: TSA in every encoder layer and cross-attention in every det
-    # and map decoder layer (15 at the flagship), SCA per encoder layer (3)
+    # and map decoder layer (15 at the flagship), SCA per encoder layer (3),
+    # all on the vector variants
     m = cfg.model
+    n_plain = m.encoder_layers + m.decoder_layers + m.map_decoder_layers
     launches = drive("stream", cfg, model, frames, {
-        "msda_fwd": m.encoder_layers + m.decoder_layers + m.map_decoder_layers,
-        "msda_fwd_masked": m.encoder_layers, "msda_fwd_factored": 0,
-        "dcn_fwd": 0, **dict.fromkeys(variant_counts(), 0)})
+        **dict.fromkeys(read_launch_counts(), 0),
+        "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
+        "msda_fwd_masked": m.encoder_layers,
+        "msda_fwd_masked.vector": m.encoder_layers})
 
     # one f32 frame with history (frame 1 after frame 0) on the GPU against
     # the CPU plain path, same weights and inputs
@@ -814,15 +905,14 @@ def phase_stream_base(dev):
     n_dcn = sum(n for n, dcn in zip((3, 4, 23, 3), m.backbone_dcn_stages) if dcn)
     # per frame: TSA per encoder layer and cross-attention per det and map
     # decoder layer (18), factored SCA per encoder layer (6), DCN in every
-    # block of stages 3-4 (23 + 3); the factored and DCN calls all on their
-    # vector variants
+    # block of stages 3-4 (23 + 3); all on their vector variants
+    n_plain = m.encoder_layers + m.decoder_layers + m.map_decoder_layers
     launches = drive("stream_base", cfg, model, frames, {
-        "msda_fwd": m.encoder_layers + m.decoder_layers + m.map_decoder_layers,
-        "msda_fwd_masked": 0, "msda_fwd_factored": m.encoder_layers,
-        "dcn_fwd": n_dcn,
+        **dict.fromkeys(read_launch_counts(), 0),
+        "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
+        "msda_fwd_factored": m.encoder_layers,
         "msda_fwd_factored.vector": m.encoder_layers,
-        "msda_fwd_factored.general": 0,
-        "dcn_fwd.vector": n_dcn, "dcn_fwd.general": 0})
+        "dcn_fwd": n_dcn, "dcn_fwd.vector": n_dcn})
 
     # one f32 frame with history on the GPU, kernels against the plain
     # versions of the same frame from the same carried BEV
@@ -953,7 +1043,7 @@ def main() -> int:
         ptxas += kernels
         emit({"phase": "build", "source": SOURCES[src], "seconds": seconds,
               "ptxas": kernels})
-    check_vector_factored(ptxas)
+    check_vector_kernels(ptxas)
     rows = phase_kernels(dev)
     launches = {"stream": phase_stream(dev)}
     torch.cuda.empty_cache()

@@ -47,8 +47,9 @@ def test_wrapper_argtypes_match_the_c_parameters(source, name):
 
 
 def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
-    """chip_smoke's build phase fails when the vector factored MSDA kernel
-    has a stack frame or spills; it reads them per kernel from the report,
+    """chip_smoke's build phase fails when any instance of a vector MSDA
+    kernel (plain/masked or factored) has a stack frame or spills, or is
+    missing from the report; it reads them per kernel from the report,
     anonymous-namespace kernels included."""
     import chip_smoke
 
@@ -60,19 +61,32 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 79 registers, used 1 barriers, 224 bytes smem",
         "ptxas info    : Function properties for "
+        "_Z15msda_vec_kernelIfLi8EEvPKT_PKfS4_PKiPS0_iiiiiiii10MsdaLevels",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 1 barriers, 224 bytes smem",
+        "ptxas info    : Function properties for "
         "_ZN12_GLOBAL__N_114dcn_fwd_kernelIfLi64ELi256ELb1EEEvPKT_",
         "    8 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
     ])
-    vec, dcn = chip_smoke.ptxas_kernels(report)
-    assert (vec["kernel"], vec["registers"], vec["smem_bytes"],
-            vec["stack_bytes"], vec["spill_stores"]) == (
+    fac, vec, dcn = chip_smoke.ptxas_kernels(report)
+    assert (fac["kernel"], fac["registers"], fac["smem_bytes"],
+            fac["stack_bytes"], fac["spill_stores"]) == (
         "msda_factored_vec_kernel", 79, 224, 0, 0)
+    assert (vec["kernel"], vec["registers"], vec["stack_bytes"],
+            vec["spill_loads"]) == ("msda_vec_kernel", 56, 0, 0)
     assert (dcn["kernel"], dcn["stack_bytes"], dcn["spill_loads"]) == (
         "dcn_fwd_kernel", 8, 32)
-    chip_smoke.check_vector_factored([vec, dcn])
-    for bad in (dict(vec, stack_bytes=8), dict(vec, spill_loads=4)):
+    assert set(chip_smoke.VECTOR_KERNELS) == {fac["kernel"], vec["kernel"]}
+    chip_smoke.check_vector_kernels([fac, vec, dcn])
+    for bad in (dict(fac, stack_bytes=8), dict(fac, spill_loads=4),
+                dict(vec, stack_bytes=16), dict(vec, spill_stores=4)):
+        others = [k for k in (fac, vec) if k["kernel"] != bad["kernel"]]
+        with pytest.raises(AssertionError, match=bad["kernel"]):
+            chip_smoke.check_vector_kernels([bad, *others, dcn])
+        # one spilling instance fails even beside a clean one of its kernel
+        with pytest.raises(AssertionError, match=bad["kernel"]):
+            chip_smoke.check_vector_kernels([fac, vec, bad, dcn])
+    for present in ([vec, dcn], [fac, dcn]):  # a kernel missing from the report
         with pytest.raises(AssertionError):
-            chip_smoke.check_vector_factored([bad, dcn])
-    with pytest.raises(AssertionError):  # no report of the kernel at all
-        chip_smoke.check_vector_factored([dcn])
+            chip_smoke.check_vector_kernels(present)

@@ -3,8 +3,9 @@
 The plain version ``ms_deform_attn_ref`` is what the CPU runs and what the
 CUDA kernel is held against on the GPU. Here it is held against
 ``ms_deform_attn_xla`` (multi-level, locations outside the grid), the
-Pallas kernels in interpret mode (plain ``_msda_kernel``, and the slab
-kernel with a tile mask: masked tiles are zero) and
+Pallas kernels in interpret mode (plain ``_msda_kernel``, and with a tile
+mask the slab kernel and ``_msda_kernel_masked``, over one and two levels:
+masked tiles are zero) and
 ``_materialize_factored``. The factored front end (multi-level SCA) is held
 against the Pallas pt2d kernel in interpret mode, with and without a tile
 mask, the materialized non-pt2d Pallas paths and XLA; TSA over a large
@@ -80,15 +81,21 @@ def test_ref_matches_pallas_plain_kernel_interpret():
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
-def test_tile_mask_matches_pallas_slab_interpret():
+@pytest.mark.parametrize("slab_rows,shapes", [
+    (6, ((12, 10),)),            # _msda_kernel_slab with a tile mask
+    (None, ((12, 10),)),         # _msda_kernel_masked
+    (None, ((12, 10), (5, 6))),  # _msda_kernel_masked over two levels
+])
+def test_tile_mask_matches_pallas_slab_interpret(slab_rows, shapes):
     """The masked entry's contract: tiles of q_tile queries whose mask is 0
-    are zero, the others exact — as the Pallas slab kernel computes them."""
+    are zero, the others exact — as the Pallas slab kernel (kernel 2) and
+    the masked kernel without a slab (kernel 3) compute them."""
     value, shapes, locs, attn = make_inputs(3, B=2, H=2, D=8, Q=80, P=4,
-                                            shapes=((12, 10),))
+                                            shapes=shapes)
     tile_mask = np.array([[1, 0, 1], [0, 1, 1]], np.int32)  # ceil(80/32) = 3
     want = np.asarray(_msda_pallas_fwd_impl(
-        value, shapes, locs, attn, interpret=True, slab_rows=6, q_tile=32,
-        tile_mask=tile_mask))
+        value, shapes, locs, attn, interpret=True, slab_rows=slab_rows,
+        q_tile=32, tile_mask=tile_mask))
     got = ms_deform_attn_ref(*_torch(value), shapes, *_torch(locs, attn),
                              tile_mask=torch.from_numpy(tile_mask),
                              q_tile=32).numpy()
