@@ -154,6 +154,23 @@ def bev_tiny_det_map_apollo() -> ExperimentConfig:
     )
 
 
+def bev_smoke_det_map() -> ExperimentConfig:
+    """CI-sized det+map (the JAX package's overfit-check config): ResNet-50
+    stage 4 + FPN, 8x8 BEV, embed_dims 32, 2 cams at 64x96, queue 2."""
+    return ExperimentConfig(
+        name="bev_smoke_det_map",
+        model=ModelConfig(
+            bev_h=8, bev_w=8, num_query=12, embed_dims=32,
+            encoder_layers=1, decoder_layers=2, feedforward_channels=64,
+            num_cams=2, img_shape=(64, 96), queue_length=2,
+            with_map=True, num_map_vec=5, map_num_pts=4,
+            map_decoder_layers=2,
+        ),
+        data=DataConfig(max_gt_boxes=8),
+        optim=OptimConfig(warmup_iters=2, total_steps=100),
+    )
+
+
 def bev_base_det_map() -> ExperimentConfig:
     """Base-scale det+map: the flagship's det and MapTR v1 heads on
     BEVFormer-base's trunk (R101 with DCN in stages 3-4, a 4-level FPN over

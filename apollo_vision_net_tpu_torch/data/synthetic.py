@@ -2,9 +2,11 @@
 
 ``camera_ring_lidar2img`` and ``make_batch`` are copies of the JAX package's
 data/synthetic.py (a ring of forward-facing pinhole cameras, ego motion
-along +x), limited to the fields inference and the detection GT use; the
-map and occupancy GT come with the training slice. ``make_stream`` lays the
-same kind of data out as a stream of frames for the streaming runner.
+along +x), limited to the fields inference, the detection GT and the map GT
+use (occupancy GT comes with the occupancy slice). ``paint_gt`` paints
+class-coded cues of the GT into the images, so that a small set is
+learnable for an overfit check. ``make_stream`` lays the same kind of data
+out as a stream of frames for the streaming runner.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Dict, List
 import numpy as np
 
 from apollo_vision_net_tpu_torch.configs import ExperimentConfig
+from apollo_vision_net_tpu_torch.data.vector_map import pack_map_gt
 
 
 def camera_ring_lidar2img(num_cams: int, img_h: int, img_w: int,
@@ -40,11 +43,37 @@ def camera_ring_lidar2img(num_cams: int, img_h: int, img_w: int,
     return np.stack(mats).astype(np.float32)
 
 
+def _paint_points(img, lidar2img, pts3d, labels, value=4.0, radius=2):
+    """Paint class-coded square cues at the camera projections of 3D
+    points, so that a synthetic set is learnable. img: (N, H, W, 3),
+    modified in place."""
+    N, H, W, _ = img.shape
+    ones = np.ones((len(pts3d), 1), np.float32)
+    hom = np.concatenate([pts3d, ones], axis=1)
+    for n in range(N):
+        cam = hom @ lidar2img[n].T
+        d = cam[:, 2]
+        front = d > 0.5
+        u = cam[:, 0] / np.maximum(d, 0.5)
+        v = cam[:, 1] / np.maximum(d, 0.5)
+        for i in np.where(front)[0]:
+            x, y = int(round(u[i])), int(round(v[i]))
+            if 0 <= x < W and 0 <= y < H:
+                c = int(labels[i]) % 3
+                ys = slice(max(y - radius, 0), min(y + radius + 1, H))
+                xs = slice(max(x - radius, 0), min(x + radius + 1, W))
+                img[n, ys, xs, c] = value
+    return img
+
+
 def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
-               dtype=np.float32) -> Dict[str, np.ndarray]:
+               dtype=np.float32, paint_gt: bool = False
+               ) -> Dict[str, np.ndarray]:
     """A (B, T = queue_length) batch of images, can_bus deltas, camera
-    matrices, has_prev flags and padded detection GT; the same arrays as the
-    JAX package's make_batch for these keys and seed."""
+    matrices, has_prev flags, padded detection GT and, with a map head,
+    padded map GT; the same arrays as the JAX package's make_batch for these
+    keys and seed. ``paint_gt`` paints the GT boxes' centres and the map
+    vectors' points into every frame."""
     m, d = cfg.model, cfg.data
     rng = np.random.default_rng(seed)
     B, T, N = batch_size, m.queue_length, m.num_cams
@@ -82,7 +111,14 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
         gt_labels[b, :k] = rng.integers(0, m.num_classes, k)
         gt_mask[b, :k] = True
 
-    return dict(
+    if paint_gt:
+        for b in range(B):
+            k = int(n_real[b])
+            for t in range(T):
+                _paint_points(img[b, t], lidar2img[b, t],
+                              gt_boxes[b, :k, :3], gt_labels[b, :k])
+
+    batch = dict(
         img=img,
         can_bus=can_bus,
         lidar2img=lidar2img,
@@ -91,6 +127,39 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
         gt_labels=gt_labels,
         gt_mask=gt_mask,
     )
+    if m.with_map:
+        # Hungarian matching needs GT rows <= query columns
+        max_vec = min(d.max_gt_boxes, m.num_map_vec)
+        packed = []
+        vec_count = 0  # labels cycle across the batch: every class appears
+        for b in range(B):
+            n_vec = int(rng.integers(1, 5))
+            vecs, labels = [], []
+            for _ in range(n_vec):
+                pts = np.cumsum(rng.uniform(-2, 2, (m.map_num_pts, 2)),
+                                axis=0).astype(np.float32)
+                pts -= pts.mean(0)
+                vecs.append(pts)
+                labels.append(vec_count % m.map_num_classes)
+                vec_count += 1
+            if paint_gt:
+                pts2 = np.concatenate(vecs, axis=0)
+                pts3 = np.concatenate(
+                    [pts2, np.zeros((len(pts2), 1), np.float32)], axis=1)
+                labs = np.repeat(labels, [len(v) for v in vecs])
+                for t in range(T):
+                    # negative value: map cues apart from box cues
+                    _paint_points(img[b, t], lidar2img[b, t], pts3, labs,
+                                  value=-4.0, radius=1)
+            packed.append(pack_map_gt(
+                vecs, labels, max_vec=max_vec, fixed_num=m.map_num_pts,
+                pattern=m.map_shift_pattern,
+                patch_size=m.map_patch_size, seed=seed + b))
+        batch["map_shift_pts"] = np.stack([p["shift_pts"] for p in packed])
+        batch["map_labels"] = np.stack([p["labels"] for p in packed])
+        batch["map_mask"] = np.stack([p["mask"] for p in packed])
+        batch["map_order_mask"] = np.stack([p["order_mask"] for p in packed])
+    return batch
 
 
 def make_stream(cfg: ExperimentConfig, num_frames: int, seed: int = 0,

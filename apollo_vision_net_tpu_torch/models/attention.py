@@ -6,6 +6,11 @@ deformable sampler goes through ``ops.msda.ms_deform_attn`` (or, for SCA
 over several levels, ``ops.msda.ms_deform_attn_factored``): a CUDA kernel
 on the GPU, its plain version on the CPU. Softmax logits, sampling locations
 and the MSDA accumulator stay f32 whatever the activation ``dtype``.
+
+Every module applies dropout (rate ``dropout``, 0.1 as configured) where
+the JAX package does, in training mode only (``module.train()``; flax's
+``deterministic=False``): on each attention's projected output, on the
+decoder self-attention's probabilities and in the FFN.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from apollo_vision_net_tpu_torch.models.layers import Dense
+from apollo_vision_net_tpu_torch.models.layers import Dense, Dropout, dropout_mask
 from apollo_vision_net_tpu_torch.ops.msda import (
     materialize_factored,
     ms_deform_attn,
@@ -55,7 +60,7 @@ class TemporalSelfAttention(nn.Module):
                  num_levels: int = 1, num_points: int = 4,
                  num_bev_queue: int = 2,
                  attn_logits_clamp: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         assert num_bev_queue == 2
         C, H, L, P, NQ = embed_dims, num_heads, num_levels, num_points, num_bev_queue
@@ -67,6 +72,7 @@ class TemporalSelfAttention(nn.Module):
         self.sampling_offsets = Dense(2 * C, NQ * H * L * P * 2, dtype=dtype)
         self.attention_weights = Dense(2 * C, NQ * H * L * P, dtype=dtype)
         self.output_proj = Dense(C, C, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, query, value, *, query_pos, reference_points,
                 spatial_shapes: Shapes):
@@ -97,7 +103,7 @@ class TemporalSelfAttention(nn.Module):
         out = ms_deform_attn(v.contiguous(), spatial_shapes, locations.contiguous(),
                              attn.contiguous())
         out = out.reshape(B, NQ, Q, C).mean(dim=1)
-        return self.output_proj(out) + identity
+        return self.dropout(self.output_proj(out)) + identity
 
 
 class MSDeformableAttention3D(nn.Module):
@@ -164,7 +170,7 @@ class SpatialCrossAttention(nn.Module):
     def __init__(self, embed_dims: int = 256, num_cams: int = 6,
                  num_heads: int = 8, num_levels: int = 1, num_points: int = 8,
                  bev_hw: Optional[Tuple[int, int]] = None,
-                 q_tile: Optional[int] = None,
+                 q_tile: Optional[int] = None, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_cams = num_cams
@@ -174,6 +180,7 @@ class SpatialCrossAttention(nn.Module):
         self.deformable_attention = MSDeformableAttention3D(
             embed_dims, num_heads, num_levels, num_points, dtype=dtype)
         self.output_proj = Dense(embed_dims, embed_dims, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, query, value, *, query_pos, reference_points_cam,
                 bev_mask, spatial_shapes: Shapes):
@@ -214,7 +221,7 @@ class SpatialCrossAttention(nn.Module):
         out = out / count[..., None]
         if inv_perm is not None:
             out = out[:, inv_perm]
-        return self.output_proj(out) + identity
+        return self.dropout(self.output_proj(out)) + identity
 
 
 class CustomMSDeformableAttention(nn.Module):
@@ -223,7 +230,7 @@ class CustomMSDeformableAttention(nn.Module):
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         C, H, L, P = embed_dims, num_heads, num_levels, num_points
         self.num_heads, self.num_levels, self.num_points = H, L, P
@@ -232,6 +239,7 @@ class CustomMSDeformableAttention(nn.Module):
         self.sampling_offsets = Dense(C, H * L * P * 2, dtype=dtype)
         self.attention_weights = Dense(C, H * L * P, dtype=dtype)
         self.output_proj = Dense(C, C, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, query, value, *, query_pos, reference_points,
                 spatial_shapes: Shapes):
@@ -253,7 +261,7 @@ class CustomMSDeformableAttention(nn.Module):
                      + offsets / _normalizer(spatial_shapes, offsets.device)[:, None, :])
         out = ms_deform_attn(v.contiguous(), spatial_shapes, locations.contiguous(),
                              attn.contiguous())
-        return self.output_proj(out) + identity
+        return self.dropout(self.output_proj(out)) + identity
 
 
 class _MHAProjections(nn.Module):
@@ -271,14 +279,18 @@ class _MHAProjections(nn.Module):
 class MultiheadAttention(nn.Module):
     """Decoder self-attention with residual, computed as flax does: keys
     from query + pos, values from the query without pos, the query scaled by
-    1/sqrt(D) before the product; softmax in f32."""
+    1/sqrt(D) before the product; softmax in f32. In training mode the
+    probabilities take flax's broadcast dropout (one (Lq, Lk) mask shared by
+    the batch and the heads) and the output a dropout of its own."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.rate = dropout
         self.attn = _MHAProjections(embed_dims, dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, query, *, query_pos=None):
         dt = self.dtype
@@ -293,21 +305,28 @@ class MultiheadAttention(nn.Module):
         vh = self.attn.value(query).reshape(B, Lq, H, D)
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
         w = torch.softmax(logits.float(), dim=-1).to(dt)
+        if self.training and self.rate > 0.0:
+            keep_prob = 1.0 - self.rate
+            keep = dropout_mask((Lq, Lq), keep_prob, w.device)
+            w = w * (keep.to(dt) / keep_prob)
         out = torch.einsum("bhqk,bkhd->bqhd", w, vh).reshape(B, Lq, C)
-        return self.attn.out(out) + identity
+        return self.dropout(self.attn.out(out)) + identity
 
 
 class FFN(nn.Module):
-    """mmcv FFN: Dense -> ReLU -> Dense + residual (dropout is inference
-    identity)."""
+    """mmcv FFN: Dense -> ReLU -> Dropout -> Dense -> Dropout + residual
+    (the dropouts act in training mode only)."""
 
     def __init__(self, embed_dims: int = 256, feedforward_channels: int = 512,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.Dense_0 = Dense(embed_dims, feedforward_channels, dtype=dtype)
         self.Dense_1 = Dense(feedforward_channels, embed_dims, dtype=dtype)
+        self.Dropout_0 = Dropout(dropout)
+        self.Dropout_1 = Dropout(dropout)
 
     def forward(self, x):
         x = x.to(self.dtype)
-        return self.Dense_1(F.relu(self.Dense_0(x))) + x
+        y = self.Dropout_0(F.relu(self.Dense_0(x)))
+        return self.Dropout_1(self.Dense_1(y)) + x

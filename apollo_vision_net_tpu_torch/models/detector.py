@@ -1,8 +1,12 @@
-"""BEVFormer detector: image features and the streaming inference step.
+"""BEVFormer detector: image features, the training queue and the streaming
+inference step.
 
 Counterpart of the JAX package's models/detector.py (reference
-bevformer/detectors/bevformer.py): backbone + neck over the folded cameras,
-then the head; ``forward_test_frame`` is the stateful streaming step.
+bevformer/detectors/bevformer.py): backbone + neck over the folded cameras
+(grid mask on the images in training mode), then the head. ``forward`` is
+the training forward over a (B, T, ...) queue: a no-grad replay of the T-1
+history frames in eval mode builds the BEV that the supervised last frame
+starts from. ``forward_test_frame`` is the stateful streaming step.
 ``build_model`` builds a det or det+map model from a config, with DLA-34 +
 SECONDFPNV2 (the flagship) or ResNet (optionally with DCN stages) + FPN
 (the base configs), with random weights made from a seed.
@@ -25,9 +29,13 @@ from apollo_vision_net_tpu_torch.models.heads.det_head import (
     BEVFormerHead,
 )
 from apollo_vision_net_tpu_torch.models.heads.map_head import BEVFormerDetMapHead
-from apollo_vision_net_tpu_torch.models.layers import FrozenBatchNorm
+from apollo_vision_net_tpu_torch.models.layers import (
+    FrozenBatchNorm,
+    current_generator,
+)
 from apollo_vision_net_tpu_torch.models.resnet import CHANNELS, ResNet
 from apollo_vision_net_tpu_torch.models.second_fpn import SECONDFPNV2
+from apollo_vision_net_tpu_torch.utils.grid_mask import grid_mask
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,22 +43,72 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class BEVFormer(nn.Module):
     def __init__(self, head: nn.Module, img_backbone: nn.Module,
                  img_neck: nn.Module, *,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_grid_mask: bool = True):
         super().__init__()
         self.img_backbone = img_backbone
         self.img_neck = img_neck
         self.head = head
         self.compute_dtype = compute_dtype
+        self.use_grid_mask = use_grid_mask
 
     def extract_img_feat(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """(B, N, H, W, 3) -> [(B, N, h, w, C)] per level, in f32 (the conv
-        trunk runs in compute_dtype)."""
+        trunk runs in compute_dtype). In training mode the grid mask draws
+        one stripe pattern for the batch from the current generator."""
         B, N, H, W, C = img.shape
-        x = img.reshape(B * N, H, W, C).permute(0, 3, 1, 2).to(self.compute_dtype)
+        x = img.reshape(B * N, H, W, C)
+        if self.use_grid_mask and self.training:
+            x = grid_mask(x, current_generator())
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         feats = self.img_neck(self.img_backbone(x))
         return tuple(
             f.permute(0, 2, 3, 1).reshape((B, N) + f.shape[2:] + f.shape[1:2]).float()
             for f in feats)
+
+    def _zero_bev(self, img: torch.Tensor) -> torch.Tensor:
+        h = self.head
+        return torch.zeros((img.shape[0], h.bev_h * h.bev_w, h.embed_dims),
+                           dtype=torch.float32, device=img.device)
+
+    @torch.no_grad()
+    def obtain_history_bev(self, imgs_queue, can_bus_queue, lidar2img_queue,
+                           has_prev_queue) -> torch.Tensor:
+        """No-grad replay of the T-1 history frames in eval mode (no dropout,
+        no grid mask), each with its own has_prev flag: imgs (B, T-1, N, H,
+        W, 3), can_bus (B, T-1, 18), lidar2img (B, T-1, N, 4, 4), has_prev
+        (B, T-1) -> the last BEV (B, Q, C), detached (reference
+        obtain_history_bev)."""
+        was_training = self.training
+        self.eval()
+        try:
+            prev_bev = self._zero_bev(imgs_queue)
+            for t in range(imgs_queue.shape[1]):
+                feats = self.extract_img_feat(imgs_queue[:, t])
+                prev_bev = self.head(
+                    feats, can_bus=can_bus_queue[:, t],
+                    lidar2img=lidar2img_queue[:, t], prev_bev=prev_bev,
+                    has_prev=has_prev_queue[:, t], only_bev=True)
+        finally:
+            self.train(was_training)
+        return prev_bev.detach()
+
+    def forward(self, img, can_bus, lidar2img, has_prev):
+        """Training forward over a queue: img (B, T, N, H, W, 3), can_bus
+        (B, T, 18), lidar2img (B, T, N, 4, 4), has_prev (B, T) -> the head's
+        outputs for the last frame, which starts from the replayed history
+        BEV (reference forward_train)."""
+        T = img.shape[1]
+        if T > 1:
+            prev_bev = self.obtain_history_bev(
+                img[:, :-1], can_bus[:, :-1], lidar2img[:, :-1],
+                has_prev[:, :-1])
+        else:
+            prev_bev = self._zero_bev(img)
+        feats = self.extract_img_feat(img[:, -1])
+        return self.head(feats, can_bus=can_bus[:, -1],
+                         lidar2img=lidar2img[:, -1], prev_bev=prev_bev,
+                         has_prev=has_prev[:, -1])
 
     def forward_test_frame(self, img, can_bus, lidar2img, prev_bev, has_prev):
         """Streaming inference step: img (B, N, H, W, 3), can_bus (B, 18)
@@ -184,13 +242,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:
     """The config's model on ``device`` (default: the GPU; raises without
-    one unless ``device="cpu"``), in eval mode, with random weights from
-    ``seed``. Load bridged weights with ``load_state_dict`` afterwards."""
+    one unless ``device="cpu"``), in eval mode (``.train()`` for training),
+    with random weights from ``seed``. Load bridged weights with
+    ``load_state_dict`` afterwards."""
     dev = resolve_device(device)
     _check_supported(cfg)
     with torch.device("meta"):
         model = BEVFormer(build_head(cfg), *build_trunk(cfg),
-                          compute_dtype=_DTYPES[cfg.compute_dtype])
+                          compute_dtype=_DTYPES[cfg.compute_dtype],
+                          use_grid_mask=cfg.model.use_grid_mask)
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

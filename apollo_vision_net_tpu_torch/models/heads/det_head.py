@@ -96,15 +96,24 @@ class BEVFormerHead(nn.Module):
             ref_3d, self.pc_range, lidar2img, self.img_shape)
         return ref_2d, ref_cam.transpose(0, 1), bev_mask.transpose(0, 1)
 
-    def forward(self, mlvl_feats, *, can_bus, lidar2img, prev_bev, has_prev):
+    def forward(self, mlvl_feats, *, can_bus, lidar2img, prev_bev, has_prev,
+                only_bev: bool = False):
         """mlvl_feats [(B, N, H, W, C)]; can_bus (B, 18); lidar2img
-        (B, N, 4, 4); prev_bev (B, bev_h*bev_w, C); has_prev (B,)."""
+        (B, N, 4, 4); prev_bev (B, bev_h*bev_w, C); has_prev (B,). With
+        ``only_bev`` returns the BEV features (B, bev_h*bev_w, C) alone (the
+        history replay of a training queue)."""
         grid_length = (self.real_hw[0] / self.bev_h, self.real_hw[1] / self.bev_w)
         bev_pos = self.positional_encoding(self.bev_h, self.bev_w)
         ref_2d, ref_cam, bev_mask = self._geometry(lidar2img)
-        # Group-DETR: inference uses only the first query group
+        if only_bev:
+            return self.transformer.get_bev_features(
+                mlvl_feats, self.bev_embedding, bev_h=self.bev_h,
+                bev_w=self.bev_w, grid_length=grid_length, bev_pos=bev_pos,
+                prev_bev=prev_bev, has_prev=has_prev, can_bus=can_bus,
+                ref_2d=ref_2d, reference_points_cam=ref_cam, bev_mask=bev_mask)
+        # Group-DETR: inference uses only the first query group, training all
         query_embedding = self.query_embedding
-        if self.group_detr > 1:
+        if self.group_detr > 1 and not self.training:
             query_embedding = query_embedding[: self.num_query // self.group_detr]
         bev_embed, hs, init_ref, inter_refs, inter_regs = self.transformer(
             mlvl_feats, self.bev_embedding, query_embedding,

@@ -58,7 +58,12 @@ class BEVFormerDetMapHead(BEVFormerHead):
             all_cls.append(self.map_cls_branches[lvl](feat_vec))
         return torch.stack(all_cls), torch.stack(all_pts)
 
-    def forward(self, mlvl_feats, *, can_bus, lidar2img, prev_bev, has_prev):
+    def forward(self, mlvl_feats, *, can_bus, lidar2img, prev_bev, has_prev,
+                only_bev: bool = False):
+        if only_bev:
+            return super().forward(mlvl_feats, can_bus=can_bus,
+                                   lidar2img=lidar2img, prev_bev=prev_bev,
+                                   has_prev=has_prev, only_bev=True)
         outs = super().forward(mlvl_feats, can_bus=can_bus, lidar2img=lidar2img,
                                prev_bev=prev_bev, has_prev=has_prev)
         map_cls, map_pts = self._map_branch(outs["bev_embed"])

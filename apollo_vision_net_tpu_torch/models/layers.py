@@ -5,9 +5,15 @@ as flax's ``dtype`` argument: ``None`` promotes the input with the f32
 parameters (so a bf16 input runs in f32), a dtype casts input and
 parameters to it. Norms take their statistics in f32 and use flax's
 epsilon of 1e-6 (FrozenBatchNorm keeps the JAX package's 1e-5).
+
+``Dropout`` is flax's ``nn.Dropout`` in training mode (``module.train()``)
+and the identity in eval mode; its draws come from the generator that
+``use_generator`` installs (torch's default generator otherwise).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -17,6 +23,49 @@ import torch.nn.functional as F
 
 def _compute_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
     return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
+
+
+_GENERATOR: contextvars.ContextVar = contextvars.ContextVar("generator",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def use_generator(generator: Optional[torch.Generator]):
+    """Inside, every random draw of the model (dropout, grid mask) comes
+    from ``generator``, which must live on the activations' device."""
+    token = _GENERATOR.set(generator)
+    try:
+        yield
+    finally:
+        _GENERATOR.reset(token)
+
+
+def current_generator() -> Optional[torch.Generator]:
+    return _GENERATOR.get()
+
+
+def dropout_mask(shape, keep_prob: float, device) -> torch.Tensor:
+    """Bernoulli(keep_prob) draws of ``shape`` as a bool mask."""
+    u = torch.rand(shape, generator=current_generator(), device=device)
+    return u < keep_prob
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode, where(keep, x / keep_prob, 0)
+    with keep ~ Bernoulli(1 - rate) per element; the identity in eval
+    mode."""
+
+    def __init__(self, rate: float = 0.1):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = dropout_mask(x.shape, keep_prob, x.device)
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                             device=x.device))
 
 
 class Dense(nn.Linear):
@@ -61,14 +110,19 @@ class GroupNorm(nn.GroupNorm):
 class FrozenBatchNorm(nn.Module):
     """BN with fixed statistics on NCHW (JAX models/resnet.py:25-42):
     y = x * scale / sqrt(var + 1e-5) + (bias - mean * scale / sqrt(var + 1e-5)),
-    the affine folded in f32 and applied in the input's dtype."""
+    the affine folded in f32 and applied in the input's dtype.
+
+    The four tensors are parameters, as in the JAX package, where they are
+    flax params: a train step computes their gradients, which enter the
+    global gradient norm of the clip, and the optimizer leaves them out of
+    every group (parallel/optim.py), so they never change."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.register_buffer("weight", torch.ones(channels))
-        self.register_buffer("bias", torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.running_mean = nn.Parameter(torch.zeros(channels))
+        self.running_var = nn.Parameter(torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = self.weight * torch.rsqrt(self.running_var + 1e-5)

@@ -3,8 +3,8 @@
 Each source under ``apollo_vision_net_tpu_torch/csrc/`` is compiled on first
 use into ``apollo_vision_net_tpu_torch/build/`` as a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). The library
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. ``build_many`` compiles the
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and a stale library is never loaded. ``build_many`` compiles the
 sources afresh, one nvcc per source, all at once, and returns each build's
 seconds and the compiler's resource report (``-Xptxas -v``: registers,
 shared memory, stack frame and spills per kernel).
@@ -41,8 +41,10 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC_DIR / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers (*.cuh) are part of every source's text
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

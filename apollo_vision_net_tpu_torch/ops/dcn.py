@@ -13,13 +13,15 @@ contracted with the weight in f32 and the result rounded to x's dtype (the
 JAX package's ``_dcn_xla_ref`` order: sample first, then project).
 
 ``modulated_deform_conv`` runs the plain version for CPU tensors and the
-CUDA kernel (ops/dcn_cuda.py) for CUDA tensors.
+CUDA kernel (ops/dcn_cuda.py) for CUDA tensors. The kernel has no backward
+yet: on CUDA tensors that require a gradient the front end raises rather
+than return a tensor cut from the graph.
 """
 from __future__ import annotations
 
 import torch
 
-from apollo_vision_net_tpu_torch.ops import use_plain
+from apollo_vision_net_tpu_torch.ops import needs_grad, use_plain
 
 # (dx, dy) of tap k = ky * 3 + kx
 _TAPS = torch.tensor([[kx - 1.0, ky - 1.0] for ky in range(3) for kx in range(3)])
@@ -68,6 +70,10 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                          f"weight {tuple(weight.shape)}")
     if use_plain(x):
         return modulated_deform_conv_ref(x, offset, mask, weight, stride)
+    if needs_grad(x, offset, mask, weight):
+        raise NotImplementedError(
+            "modulated_deform_conv: the CUDA kernel dcn_fwd has no backward "
+            "yet; its inputs require a gradient")
     from apollo_vision_net_tpu_torch.ops import dcn_cuda
 
     return dcn_cuda.dcn_fwd(x, offset, mask, weight, stride)

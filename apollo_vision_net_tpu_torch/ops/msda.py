@@ -12,9 +12,13 @@ Shapes (batch-first, the JAX package's layout):
   returns:             (B, Q, H * D) in value's dtype
 
 ``ms_deform_attn`` runs the plain version for CPU tensors and the CUDA
-kernel (ops/msda_cuda.py) for CUDA tensors. ``ms_deform_attn_factored``
-does the same for multi-level SCA on factored operands: per-camera
-reference points, offsets and weights shared by the cameras of a sample.
+kernel (ops/msda_cuda.py) for CUDA tensors, through ``MSDAFunction``, whose
+backward is the hand-written CUDA backward (``msda_cuda.msda_bwd``); the
+plain version's backward is autograd through it. ``ms_deform_attn_factored``
+does the same for multi-level SCA on factored operands (per-camera
+reference points, offsets and weights shared by the cameras of a sample),
+whose kernel has no backward yet: on CUDA tensors that require a gradient
+it raises rather than cut the graph.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from apollo_vision_net_tpu_torch.ops import use_plain
+from apollo_vision_net_tpu_torch.ops import needs_grad, use_plain
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -112,6 +116,37 @@ def materialize_factored(
     return loc, attn.reshape(B, Q, H * L * P)
 
 
+class MSDAFunction(torch.autograd.Function):
+    """The CUDA MSDA forward (``msda_cuda.msda_fwd``) with its CUDA backward
+    (``msda_cuda.msda_bwd``): gradients of value, locations and weights,
+    those of a masked tile's queries zero."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights,
+                spatial_shapes, tile_mask, q_tile):
+        from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+        ctx.spatial_shapes = tuple(tuple(int(s) for s in hw)
+                                   for hw in spatial_shapes)
+        ctx.q_tile = q_tile
+        ctx.save_for_backward(value, sampling_locations, attention_weights,
+                              tile_mask)
+        return msda_cuda.msda_fwd(value, spatial_shapes, sampling_locations,
+                                  attention_weights, tile_mask=tile_mask,
+                                  q_tile=q_tile)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+        value, loc, attn, tile_mask = ctx.saved_tensors
+        g_value, g_loc, g_attn = msda_cuda.msda_bwd(
+            value, ctx.spatial_shapes, loc, attn,
+            grad_out.to(value.dtype).contiguous(), tile_mask=tile_mask,
+            q_tile=ctx.q_tile)
+        return g_value, g_loc, g_attn, None, None, None
+
+
 def ms_deform_attn(
     value: torch.Tensor,
     spatial_shapes: Shapes,
@@ -122,16 +157,14 @@ def ms_deform_attn(
     q_tile: int = 32,
 ) -> torch.Tensor:
     """MSDA front end: the plain version for CPU tensors, the hand-written
-    CUDA kernel for CUDA tensors (which raises on inputs it does not take)."""
+    CUDA kernel for CUDA tensors (which raises on inputs it does not take),
+    with the hand-written CUDA backward where a gradient is needed."""
     if use_plain(value):
         return ms_deform_attn_ref(
             value, spatial_shapes, sampling_locations, attention_weights,
             tile_mask=tile_mask, q_tile=q_tile)
-    from apollo_vision_net_tpu_torch.ops import msda_cuda
-
-    return msda_cuda.msda_fwd(
-        value, spatial_shapes, sampling_locations, attention_weights,
-        tile_mask=tile_mask, q_tile=q_tile)
+    return MSDAFunction.apply(value, sampling_locations, attention_weights,
+                              spatial_shapes, tile_mask, q_tile)
 
 
 def ms_deform_attn_factored(
@@ -148,7 +181,9 @@ def ms_deform_attn_factored(
     (B, V, H, D), ref_flat (B, Q, P·2), off_flat (Bs, Q, H·L·P·2) raw-cell
     offsets, attn_flat (Bs, Q, H·L·P) -> (B, Q, H·D). The plain version
     materializes the locations and runs ``ms_deform_attn_ref``; on CUDA
-    tensors the kernel forms them in registers and never materializes."""
+    tensors the kernel forms them in registers and never materializes. The
+    kernel has no backward yet: on CUDA tensors that require a gradient it
+    raises (training a multi-level SCA config on the card waits for it)."""
     if use_plain(value):
         B, V, H, D = value.shape
         Q, P, L = ref_flat.shape[1], ref_flat.shape[2] // 2, len(spatial_shapes)
@@ -157,6 +192,10 @@ def ms_deform_attn_factored(
         return ms_deform_attn_ref(
             value, spatial_shapes, loc.reshape(B, Q, H, L, P, 2),
             attn.reshape(B, Q, H, L, P), tile_mask=tile_mask, q_tile=q_tile)
+    if needs_grad(value, ref_flat, off_flat, attn_flat):
+        raise NotImplementedError(
+            "ms_deform_attn_factored: the CUDA kernel msda_fwd_factored has "
+            "no backward yet; its inputs require a gradient")
     from apollo_vision_net_tpu_torch.ops import msda_cuda
 
     return msda_cuda.msda_fwd_factored(

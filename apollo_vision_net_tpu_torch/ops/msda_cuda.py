@@ -1,12 +1,17 @@
-"""Wrappers of the hand-written CUDA MSDA forwards (csrc/msda_fwd.cu).
+"""Wrappers of the hand-written CUDA MSDA kernels: the forwards
+(csrc/msda_fwd.cu) and the backward of the plain and masked entry
+(csrc/msda_bwd.cu).
 
-``msda_fwd`` and ``msda_fwd_factored`` check their inputs, allocate the
-output and launch a kernel on the current CUDA stream. Their plain
+``msda_fwd``, ``msda_fwd_factored`` and ``msda_bwd`` check their inputs,
+allocate the outputs and launch kernels on the current CUDA stream. Their plain
 counterparts are ``ops.msda.ms_deform_attn_ref`` and the materialization of
 the factored operands followed by it. ``msda_fwd`` replaces the Pallas
 kernels ``_msda_kernel``, ``_msda_kernel_slab``, ``_msda_kernel_masked``,
 ``_msda_kernel_window`` and ``_msda_kernel_ml_chunk`` of the JAX package;
-``msda_fwd_factored`` replaces ``_msda_kernel_pt2d``.
+``msda_fwd_factored`` replaces ``_msda_kernel_pt2d``. ``msda_bwd`` is the
+gradient of ``msda_fwd``, whose plain counterpart is autograd through
+``ms_deform_attn_ref`` (the JAX package's backward is the XLA VJP of its
+plain version, not a Pallas kernel).
 
 Launch counts: ``launches_plain`` (no tile mask: TSA, det and map decoder
 cross-attention), ``launches_masked`` (single-level SCA with its
@@ -16,7 +21,11 @@ that its main path went through the kernels. ``launches_plain_by_variant``,
 ``launches_masked_by_variant`` and ``launches_factored_by_variant`` split
 them by the kernel variant that ran: ``vector`` (16-byte gathers, D *
 element size a power-of-two multiple of 16 bytes, aligned rows) or
-``general`` (scalar channels, any D).
+``general`` (scalar channels, any D). ``launches_bwd_plain`` and
+``launches_bwd_masked`` count the backward's launches without and with a
+tile mask, and ``launches_bwd_plain_by_variant`` /
+``launches_bwd_masked_by_variant`` split them by ``BWD_VARIANTS``:
+``lane_per_channel`` (D <= 32) or ``chunked``.
 
 ``ARGTYPES`` are the C signatures of the entry points as ctypes sees them:
 ``c_void_p`` for every pointer and the stream, ``c_int`` for every int.
@@ -29,15 +38,21 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 SOURCE = "msda_fwd.cu"
+BWD_SOURCE = "msda_bwd.cu"
 
 launches_plain = 0
 launches_masked = 0
 launches_factored = 0
+launches_bwd_plain = 0
+launches_bwd_masked = 0
 # the C entry reports the variant it launched: 1 vector, 0 general
 VARIANTS = {1: "vector", 0: "general"}
 launches_plain_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 launches_masked_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 launches_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
+BWD_VARIANTS = {1: "lane_per_channel", 0: "chunked"}
+launches_bwd_plain_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
+launches_bwd_masked_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -51,26 +66,40 @@ ARGTYPES = {
     # shapes, q_tile, stream, variant
     "msda_fwd_factored": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P, _I, _P, _P],
+    # value, dtype, loc, attn, tile_mask, grad_out, grad_value_f32,
+    # grad_value, grad_loc, grad_attn, B, V, H, D, Q, L, P, shapes, q_tile,
+    # stream, variant
+    "msda_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _I, _I, _P, _I, _P, _P],
 }
+# the source of each entry point
+ENTRY_SOURCE = {"msda_fwd": SOURCE, "msda_fwd_factored": SOURCE,
+                "msda_bwd": BWD_SOURCE}
 
 
 def reset_launch_counts() -> None:
     global launches_plain, launches_masked, launches_factored
+    global launches_bwd_plain, launches_bwd_masked
     launches_plain = 0
     launches_masked = 0
     launches_factored = 0
+    launches_bwd_plain = 0
+    launches_bwd_masked = 0
     for counts in (launches_plain_by_variant, launches_masked_by_variant,
                    launches_factored_by_variant):
         counts.update(dict.fromkeys(VARIANTS.values(), 0))
+    for counts in (launches_bwd_plain_by_variant, launches_bwd_masked_by_variant):
+        counts.update(dict.fromkeys(BWD_VARIANTS.values(), 0))
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(source: str = SOURCE) -> ctypes.CDLL:
     from apollo_vision_net_tpu_torch.ops import _build
 
-    lib = _build.load(SOURCE)
-    if lib.msda_fwd.argtypes is None:
-        for name, argtypes in ARGTYPES.items():
-            getattr(lib, name).argtypes = argtypes
+    lib = _build.load(source)
+    names = [n for n, s in ENTRY_SOURCE.items() if s == source]
+    if getattr(lib, names[0]).argtypes is None:
+        for name in names:
+            getattr(lib, name).argtypes = ARGTYPES[name]
             getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -192,3 +221,65 @@ def msda_fwd_factored(
     if variant[0] in VARIANTS:  # an empty call launches nothing
         launches_factored_by_variant[VARIANTS[variant[0]]] += 1
     return out
+
+
+def msda_bwd(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    tile_mask: Optional[torch.Tensor] = None,
+    q_tile: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``msda_fwd`` at (value, loc, attn) for ``grad_out``
+    (B, Q, H * D) in value's dtype -> (grad_value (B, V, H, D) in value's
+    dtype, grad_loc (B, Q, H, L, P, 2) f32, grad_attn (B, Q, H, L, P) f32).
+    grad_value is accumulated in an f32 scratch and cast once."""
+    global launches_bwd_plain, launches_bwd_masked
+    if value.device.type != "cuda":
+        raise ValueError(f"msda_bwd launches on CUDA tensors, got {value.device}")
+    if value.dim() != 4 or sampling_locations.dim() != 6:
+        raise ValueError("value must be (B, V, H, D), locations (B, Q, H, L, P, 2)")
+    B, V, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    if len(spatial_shapes) != L or sum(h * w for h, w in spatial_shapes) != V:
+        raise ValueError(f"spatial_shapes {spatial_shapes} do not match V={V}, L={L}")
+    dev = value.device
+    _check("value", value, (B, V, H, D), (torch.float32, torch.bfloat16), dev)
+    _check("sampling_locations", sampling_locations, (B, Q, H, L, P, 2),
+           (torch.float32,), dev)
+    _check("attention_weights", attention_weights, (B, Q, H, L, P),
+           (torch.float32,), dev)
+    _check("grad_out", grad_out, (B, Q, H * D), (value.dtype,), dev)
+    if tile_mask is not None:
+        _check("tile_mask", tile_mask, (B, (Q + q_tile - 1) // q_tile),
+               (torch.int32,), dev)
+    lib = _lib(BWD_SOURCE)
+    grad_value_f32 = torch.empty((B, V, H, D), dtype=torch.float32, device=dev)
+    grad_value = (grad_value_f32 if value.dtype == torch.float32
+                  else torch.empty_like(value))
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attn = torch.empty_like(attention_weights)
+    shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    variant = (ctypes.c_int * 1)(-1)
+    err = lib.msda_bwd(
+        value.data_ptr(), _DTYPES[value.dtype], sampling_locations.data_ptr(),
+        attention_weights.data_ptr(),
+        tile_mask.data_ptr() if tile_mask is not None else None,
+        grad_out.data_ptr(), grad_value_f32.data_ptr(), grad_value.data_ptr(),
+        grad_loc.data_ptr(), grad_attn.data_ptr(), B, V, H, D, Q, L, P,
+        shapes, q_tile, stream, variant)
+    if err != 0:
+        raise RuntimeError(f"msda_bwd kernel launch failed: CUDA error {err}")
+    if tile_mask is None:
+        launches_bwd_plain += 1
+        by_variant = launches_bwd_plain_by_variant
+    else:
+        launches_bwd_masked += 1
+        by_variant = launches_bwd_masked_by_variant
+    if variant[0] in BWD_VARIANTS:  # an empty call launches nothing
+        by_variant[BWD_VARIANTS[variant[0]]] += 1
+    return grad_value, grad_loc, grad_attn

@@ -1,0 +1,106 @@
+"""The training step: loss over a queue batch, backward, clip, AdamW.
+
+Counterpart of the JAX package's parallel/train.py (``loss_fn`` and
+``train_step``, :157-229) on one device: the model's training forward over
+the (B, T, ...) queue (no-grad history replay, then the supervised last
+frame with dropout and grid mask drawn from ``generator``), the det loss
+plus, with a map head, the MapTR v1 map loss. ``loss_total`` is their sum,
+returned with every term.
+
+Matching takes one host synchronization a step: ``match`` computes every
+decoder layer's cost matrices of both heads on the device, copies them (and
+the GT masks) to the host in one transfer and solves them there with scipy.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from apollo_vision_net_tpu_torch.configs import ExperimentConfig
+from apollo_vision_net_tpu_torch.losses import det_loss as det_lib
+from apollo_vision_net_tpu_torch.losses import map_loss as map_lib
+from apollo_vision_net_tpu_torch.models.layers import use_generator
+from apollo_vision_net_tpu_torch.parallel.optim import Optimizer
+
+Indices = Tuple[np.ndarray, Optional[np.ndarray]]
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """make_batch's arrays as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def ground_truth(batch: Dict[str, torch.Tensor]):
+    gt = det_lib.DetGT(batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
+    mgt = None
+    if "map_shift_pts" in batch:
+        mgt = map_lib.MapGT(batch["map_shift_pts"], batch["map_labels"],
+                            batch["map_mask"], batch["map_order_mask"])
+    return gt, mgt
+
+
+@torch.no_grad()
+def match(outs: Dict[str, torch.Tensor], gt: det_lib.DetGT,
+          mgt: Optional[map_lib.MapGT], cfg: ExperimentConfig) -> Indices:
+    """Hungarian matching of every decoder layer of both heads with one
+    device-to-host copy: (det indices (M, 4), map indices (M, 5) or None),
+    as det_loss.solve and map_loss.solve give them."""
+    parts = [det_lib.match_costs(outs["all_cls_scores"], outs["all_bbox_preds"],
+                                 gt), gt.mask]
+    if mgt is not None:
+        parts += [*map_lib.match_costs(outs["map_all_cls_scores"],
+                                       outs["map_all_pts_preds"], mgt,
+                                       pc_range=cfg.model.pc_range), mgt.mask]
+    # one flat f32 transfer: masks and order indices are exact in f32
+    flat = torch.cat([p.reshape(-1).float() for p in parts]).cpu().numpy()
+    host, start = [], 0
+    for p in parts:
+        host.append(flat[start:start + p.numel()].reshape(p.shape))
+        start += p.numel()
+    det_idx = det_lib.solve(host[0], host[1].astype(bool))
+    map_idx = None
+    if mgt is not None:
+        map_idx = map_lib.solve(host[2], host[3].astype(np.int64),
+                                host[4].astype(bool))
+    return det_idx, map_idx
+
+
+def loss_fn(model, batch: Dict[str, torch.Tensor], cfg: ExperimentConfig,
+            indices: Optional[Indices] = None):
+    """-> (loss_total, {term: value}, indices). The model's mode decides
+    dropout and grid mask. ``indices`` (from ``match``) fixes the
+    assignment, so that two runs can be held against each other at the
+    same one; by default the step matches its own outputs."""
+    m = cfg.model
+    outs = model(batch["img"], batch["can_bus"], batch["lidar2img"],
+                 batch["has_prev"])
+    gt, mgt = ground_truth(batch)
+    if indices is None:
+        indices = match(outs, gt, mgt, cfg)
+    losses = det_lib.det_loss(outs["all_cls_scores"], outs["all_bbox_preds"],
+                              gt, indices[0], num_classes=m.num_classes)
+    if m.with_map:
+        map_losses = map_lib.map_loss(
+            outs["map_all_cls_scores"], outs["map_all_pts_preds"], mgt,
+            indices[1], pc_range=m.pc_range, num_classes=m.map_num_classes)
+        total = losses.pop("loss_total") + map_losses.pop("loss_map_total")
+        losses.update(map_losses)
+        losses["loss_total"] = total
+    return losses["loss_total"], losses, indices
+
+
+def train_step(model, optimizer: Optimizer, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator], *,
+               cfg: ExperimentConfig) -> Dict[str, torch.Tensor]:
+    """One update of a model in training mode: forward and loss with the
+    model's random draws from ``generator``, backward, the global-norm clip
+    and AdamW. Returns the loss terms (on the device) and ``grad_norm``."""
+    optimizer.zero_grad()
+    with use_generator(generator):
+        total, losses, _ = loss_fn(model, batch, cfg)
+    total.backward()
+    losses = {k: v.detach() for k, v in losses.items()}
+    losses["grad_norm"] = optimizer.step()
+    return losses

@@ -1,7 +1,9 @@
-"""NMS-free box decoding (static shapes).
+"""3D box codec and NMS-free box decoding (static shapes).
 
 Counterpart of the JAX package's utils/box_coder.py (reference
-core/bbox/util.py and core/bbox/coders/nms_free_coder.py): top-k over the
+core/bbox/util.py and core/bbox/coders/nms_free_coder.py): 9-dim
+(cx, cy, cz, w, l, h, rot, vx, vy) boxes to and from 10-dim regression
+targets (cx, cy, log w, log l, cz, log h, sin, cos, vx, vy); top-k over the
 flattened sigmoid scores, decode, post_center_range filter as a validity
 mask.
 """
@@ -11,6 +13,19 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:
+    """(..., 9) meters/rad boxes -> (..., 10) regression targets."""
+    cx, cy, cz = bboxes[..., 0:1], bboxes[..., 1:2], bboxes[..., 2:3]
+    w = torch.log(bboxes[..., 3:4])
+    l = torch.log(bboxes[..., 4:5])  # noqa: E741
+    h = torch.log(bboxes[..., 5:6])
+    rot = bboxes[..., 6:7]
+    parts = [cx, cy, w, l, cz, h, torch.sin(rot), torch.cos(rot)]
+    if bboxes.shape[-1] > 7:
+        parts += [bboxes[..., 7:8], bboxes[..., 8:9]]
+    return torch.cat(parts, dim=-1)
 
 
 def denormalize_bbox(nb: torch.Tensor) -> torch.Tensor:

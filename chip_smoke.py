@@ -5,7 +5,8 @@ one NVIDIA GPU, nvcc (PATH or /usr/local/cuda/bin) and this checkout.
 
 Phases, each printing JSON lines:
   env          card name and power limit (nvidia-smi), torch and CUDA versions.
-  build        builds the kernels of csrc/ in parallel (one nvcc each) and
+  build        builds the kernels of csrc/ (the MSDA forward and backward,
+               DCN) in parallel (one nvcc each) and
                prints each source's seconds and, per kernel, the compiler's
                registers, shared memory, stack frame and spills; fails if
                any instance of a vector MSDA kernel (plain/masked or
@@ -44,6 +45,27 @@ Phases, each printing JSON lines:
                come from seed 0, and the zero-initialized offset predictors
                (``conv2_offset``, ``sampling_offsets``) get seeded noise so
                that the deformable samples land between pixels.
+  train        the flagship's train step at full width (queue 3, batch 1,
+               bf16 as configured, random weights from seed 0, synthetic
+               batch with painted GT): 3 steps through
+               ``parallel.train.train_step`` (no-grad history replay,
+               grid mask and dropout from a device generator, det + map
+               losses with Hungarian matching, backward through the CUDA
+               MSDA backward, clip, AdamW) with exact launch counts per step
+               (forward 21 plain + 9 masked on the vector variant, backward
+               15 + 3) and finite loss terms; one f32 step's loss terms and
+               every parameter's gradient against the same step under
+               ``ops.plain_versions()`` (same draws and assignment),
+               beside a witness of the step's own sensitivity (the plain
+               step on slightly perturbed images);
+               steady-state steps/s in bf16 and f32 and a profile of each.
+  train_overfit  bev_smoke_det_map, batch 4 with painted GT, lr 4e-4,
+               300 steps with warmup 30, as the JAX package's
+               tools/overfit_check.py runs it: the loss curve every 10
+               steps; fails unless the last loss_total is at most 30% of
+               the first.
+The kernels phase also holds ``msda_bwd`` (plain and masked) at the
+flagship's four MSDA shapes against autograd through the plain version.
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 """
@@ -63,14 +85,17 @@ import torch.nn.functional as F
 from apollo_vision_net_tpu_torch import ops
 from apollo_vision_net_tpu_torch.configs import (
     bev_base_det_map,
+    bev_smoke_det_map,
     bev_tiny_det_map_apollo,
 )
 from apollo_vision_net_tpu_torch.data.synthetic import (
     camera_ring_lidar2img,
+    make_batch,
     make_stream,
 )
 from apollo_vision_net_tpu_torch.data.temporal import StreamingState
 from apollo_vision_net_tpu_torch.models.detector import build_model
+from apollo_vision_net_tpu_torch.models.layers import use_generator
 from apollo_vision_net_tpu_torch.ops import _build, dcn_cuda, msda_cuda
 from apollo_vision_net_tpu_torch.ops.dcn import modulated_deform_conv_ref
 from apollo_vision_net_tpu_torch.ops.msda import (
@@ -78,10 +103,13 @@ from apollo_vision_net_tpu_torch.ops.msda import (
     ms_deform_attn_factored,
     ms_deform_attn_ref,
 )
+from apollo_vision_net_tpu_torch.parallel import train as train_lib
+from apollo_vision_net_tpu_torch.parallel.optim import make_optimizer
 from apollo_vision_net_tpu_torch.runtime.inference import (
     StreamingRunner,
     last_layer,
 )
+from apollo_vision_net_tpu_torch.runtime.train_loop import step_seed
 from apollo_vision_net_tpu_torch.utils import geometry
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 rate
@@ -103,7 +131,47 @@ STREAM_REL_TOL = 2e-3
 # ops.plain_versions() on the GPU: the same convolutions and products, the
 # kernels' sums in other orders through 101 + ~80 layers; relative as above
 BASE_REL_TOL = 2e-3
+# one f32 flagship train step with the kernels against the same step under
+# ops.plain_versions() (same weights, batch, random draws and assignment).
+# Loss terms relative to each one's magnitude, as BASE_REL_TOL (the forwards
+# differ by the kernels' summation order, ~1e-5 relative at the last decoder
+# layer). Gradients: each one's max abs error beyond a floor of
+# TRAIN_GRAD_FLOOR of the model's largest gradient (gradients that are zero
+# in exact arithmetic, as the self-attention key biases that softmax
+# cancels, are noise on both sides), relative to its largest magnitude; and
+# each one's error relative to its L2 norm. The step is sensitive: a forward
+# difference of ~1e-5 crosses a few ReLU and max kinks, and a weight
+# gradient dominated by the few matched queries then moves by percents in
+# its largest elements. The witness shows it: the plain step on images
+# perturbed by a relative WITNESS_EPS moves the loss terms about as much as
+# the kernels' summation order does (6.5e-6 against 7.4e-6) and the
+# gradients by up to 1.2% of their largest elements and 6.6e-3 of their
+# norms, where the kernels move them by 2.7% and 7.0e-3 (H100 chip run;
+# one gradient, map reg branch 4's, moved by 1.2107% in both). The limits
+# are about twice the larger reading. A second run with the kernels agrees
+# with the first to within the floor; a wrong backward is off by O(1).
+TRAIN_REL_TOL = 2e-3
+TRAIN_GRAD_REL_TOL = 5e-2
+TRAIN_GRAD_NORM_TOL = 2e-2
+TRAIN_GRAD_FLOOR = 1e-6
+WITNESS_EPS = 1e-6
+# the overfit run must bring loss_total to this share of its first value in
+# OVERFIT_STEPS steps (warmup 30, cosine to 300). The JAX package's run
+# (artifacts/overfit_r3, a 3000-step schedule) stood at 16.1% of its first
+# loss after 300 steps; the port's 300-step runs at 18.8-20.3% (H100) and
+# 19.6% (CPU). A loop that does not train stays near 100%.
+OVERFIT_SHARE = 0.30
+OVERFIT_STEPS = 300
+# msda_bwd against autograd through the plain version, relative to each
+# gradient's largest magnitude: f32 sums in other orders (the atomics'
+# order changes from run to run); bf16 grad_value is the same f32 sum
+# rounded to bf16 in both, which may land one bf16 ulp apart (2^-7 of the
+# largest magnitude at most), while grad_loc and grad_attn stay f32 sums of
+# the same bf16 products
+BWD_REL_TOL = {"float32": {"grad_value": 1e-4, "grad_loc": 1e-4, "grad_attn": 1e-4},
+               "bfloat16": {"grad_value": 1e-2, "grad_loc": 1e-4, "grad_attn": 1e-4}}
 SOURCES = {"msda_fwd.cu": "apollo_vision_net_tpu_torch/csrc/msda_fwd.cu",
+           "msda_bwd.cu": "apollo_vision_net_tpu_torch/csrc/msda_bwd.cu",
            "dcn_fwd.cu": "apollo_vision_net_tpu_torch/csrc/dcn_fwd.cu"}
 MSDA_PALLAS = "apollo_vision_net_tpu/ops/msda_pallas.py"
 REPLACES = {
@@ -116,7 +184,14 @@ REPLACES = {
                         "multi-level SCA on materialized operands)"),
     "msda_fwd_factored": f"{MSDA_PALLAS}:676 (_msda_kernel_pt2d)",
     "dcn_fwd": "apollo_vision_net_tpu/ops/dcn_pallas.py:73 (_dcn_kernel)",
+    # the JAX package's MSDA backward is not a Pallas kernel
+    "msda_bwd": (f"{MSDA_PALLAS}:1468 (_bwd: XLA VJP of ms_deform_attn_xla, "
+                 "the backward of _msda_kernel and _msda_kernel_slab)"),
+    "msda_bwd_masked": (f"{MSDA_PALLAS}:1468 (_bwd: XLA VJP of "
+                        "ms_deform_attn_xla, the backward of "
+                        "_msda_kernel_slab with a tile mask)"),
 }
+TRAIN_STEP = "bev_tiny_det_map_apollo train step"
 # per-frame calls of each entry point, by kernels-phase case: the base frame
 # where the base path launches the entry, else the flagship frame
 FRAME_CALLS = {
@@ -126,9 +201,15 @@ FRAME_CALLS = {
     "msda_fwd_factored": ("bev_base_det_map", {"sca_base_factored": 6}),
     "dcn_fwd": ("bev_base_det_map", {"dcn_s3_stride2": 1, "dcn_s3": 22,
                                      "dcn_s4_stride2": 1, "dcn_s4": 2}),
+    # per flagship train step: the supervised frame's 3 TSA and 6 + 6
+    # decoder calls, and its 3 SCA calls, take the backward
+    "msda_bwd": (TRAIN_STEP, {"tsa_bwd": 3, "det_decoder_bwd": 6,
+                              "map_decoder_bwd": 6}),
+    "msda_bwd_masked": (TRAIN_STEP, {"sca_bwd": 3}),
 }
 ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
-                "msda_fwd_factored": "msda_fwd.cu", "dcn_fwd": "dcn_fwd.cu"}
+                "msda_fwd_factored": "msda_fwd.cu", "dcn_fwd": "dcn_fwd.cu",
+                "msda_bwd": "msda_bwd.cu", "msda_bwd_masked": "msda_bwd.cu"}
 # kernels whose every instance must build without a stack frame or spills
 VECTOR_KERNELS = ("msda_vec_kernel", "msda_factored_vec_kernel")
 
@@ -195,7 +276,10 @@ def variant_counts() -> dict:
     for name, counts in (("msda_fwd", msda_cuda.launches_plain_by_variant),
                          ("msda_fwd_masked", msda_cuda.launches_masked_by_variant),
                          ("msda_fwd_factored", msda_cuda.launches_factored_by_variant),
-                         ("dcn_fwd", dcn_cuda.launches_by_variant)):
+                         ("dcn_fwd", dcn_cuda.launches_by_variant),
+                         ("msda_bwd", msda_cuda.launches_bwd_plain_by_variant),
+                         ("msda_bwd_masked",
+                          msda_cuda.launches_bwd_masked_by_variant)):
         out.update({f"{name}.{v}": n for v, n in counts.items()})
     return out
 
@@ -204,7 +288,10 @@ def read_launch_counts() -> dict:
     return {"msda_fwd": msda_cuda.launches_plain,
             "msda_fwd_masked": msda_cuda.launches_masked,
             "msda_fwd_factored": msda_cuda.launches_factored,
-            "dcn_fwd": dcn_cuda.launches, **variant_counts()}
+            "dcn_fwd": dcn_cuda.launches,
+            "msda_bwd": msda_cuda.launches_bwd_plain,
+            "msda_bwd_masked": msda_cuda.launches_bwd_masked,
+            **variant_counts()}
 
 
 def kernel_name(mangled: str) -> str:
@@ -664,6 +751,109 @@ def bind(case, dtype):
                                    kw["tile_mask"], kw["q_tile"]))
 
 
+def bind_bwd(case, dtype, seed=0):
+    """(kernel, plain, bound) of the MSDA backward on a single-level
+    flagship case: msda_bwd against autograd through ms_deform_attn_ref on
+    the same inputs and a seeded grad_out. The plain version is timed
+    eagerly with CUDA events (autograd is not captured in a graph here)."""
+    value = case["value"].to(dtype).contiguous()
+    loc, attn, shapes = case["loc"], case["attn"], case["shapes"]
+    kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
+    B, _, H, D = value.shape
+    g = torch.Generator(device=value.device).manual_seed(seed)
+    grad_out = torch.randn((B, loc.shape[1], H * D), generator=g,
+                           device=value.device).to(dtype)
+
+    def kernel():
+        return msda_cuda.msda_bwd(value, shapes, loc, attn, grad_out, **kw)
+
+    def plain():
+        ins = [t.detach().requires_grad_() for t in (value, loc, attn)]
+        out = ms_deform_attn_ref(ins[0], shapes, ins[1], ins[2], **kw)
+        return torch.autograd.grad(out, ins, grad_out)
+
+    return kernel, plain, lambda: msda_bwd_bound(value, shapes, loc, attn,
+                                                 kw["tile_mask"], kw["q_tile"])
+
+
+def msda_bwd_bound(value, shapes, loc, attn, tile_mask, q_tile):
+    """Least time for the MSDA backward as a function: grad_out, locations
+    and weights of the active queries read once, the value rows that their
+    samples touch read once, grad_value written once in value's dtype,
+    grad_loc and grad_attn written; per sample and corner a D-long dot
+    product and a D-long scaled add (4·D flops). Returns (ms, bound_by,
+    design_bytes): the last is what the kernel's own design moves besides,
+    and is not in the bound: the f32 scratch zero-filled, every touched
+    row's f32 read-modify-write, and for bf16 the scratch read and cast."""
+    B, V, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    elem = value.element_size()
+    active_q = B * Q
+    if tile_mask is not None:
+        sizes = tile_sizes(Q, q_tile, tile_mask.shape[1], tile_mask.device)
+        active_q = int((tile_mask.to(torch.int64) * sizes).sum())
+    rows = touched_value_bytes(value, shapes, loc, tile_mask, q_tile) // (D * elem)
+    n_value = B * V * H * D
+    nbytes = (active_q * H * D * elem                # grad_out
+              + active_q * H * L * P * 3 * 4         # loc and attn read
+              + rows * D * elem                      # touched value rows
+              + n_value * elem                       # grad_value written
+              + B * Q * H * L * P * 3 * 4)           # grad_loc, grad_attn
+    design = n_value * 4 + rows * D * 8 + (n_value * 4 if elem == 2 else 0)
+    ms, by = _bound(nbytes, active_q * H * L * P * 4 * 4 * D / F32_FLOP_PER_S)
+    return ms, by, design
+
+
+def bwd_rows(dev, cases):
+    """msda_bwd at the flagship's MSDA shapes in f32 and bf16 against the
+    plain version's autograd: each gradient's max abs error and its error
+    relative to its largest magnitude, the variant that ran, CUDA-graph
+    time, the plain autograd's eager time and the bound."""
+    rows = []
+    for case in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            kernel, plain, bound = bind_bwd(case, dtype)
+            before = {k: dict(v) for k, v in (
+                ("plain", msda_cuda.launches_bwd_plain_by_variant),
+                ("masked", msda_cuda.launches_bwd_masked_by_variant))}
+            got = kernel()
+            torch.cuda.synchronize()
+            ran = [v for name, counts in (
+                ("plain", msda_cuda.launches_bwd_plain_by_variant),
+                ("masked", msda_cuda.launches_bwd_masked_by_variant))
+                for v, n in counts.items() if n > before[name][v]]
+            want = plain()
+            row = dict(case=case["name"] + "_bwd", dtype=dname, variant=ran[0],
+                       entry="msda_bwd_masked" if case["tile_mask"] is not None
+                       else "msda_bwd")
+            ok = True
+            for key, a, b in zip(("grad_value", "grad_loc", "grad_attn"), got, want):
+                err = float((a.float() - b.float()).abs().max())
+                scale = float(b.float().abs().max())
+                row[f"{key}_max_abs_err"] = err
+                row[f"{key}_rel_err"] = err / max(scale, 1e-30)
+                row[f"{key}_max_abs"] = scale
+                ok = (ok and bool(torch.isfinite(a).all())
+                      and row[f"{key}_rel_err"] <= BWD_REL_TOL[dname][key])
+            row["max_abs_err"] = max(row[f"{k}_max_abs_err"] for k in
+                                     ("grad_value", "grad_loc", "grad_attn"))
+            row["tol"] = BWD_REL_TOL[dname]
+            row["ms"] = graph_time_ms(kernel)
+            row["plain_ms"] = time_ms(plain, warmup=2, iters=5)
+            row["call_ms"] = time_ms(kernel)
+            row["bound_ms"], row["bound_by"], row["design_bytes"] = bound()
+            if case["tile_mask"] is not None:
+                row["active_tiles"] = int(case["tile_mask"].sum())
+                row["tiles"] = int(case["tile_mask"].numel())
+            rows.append(row)
+            emit({"phase": "kernels", **row})
+            if not ok:
+                raise AssertionError(f"msda_bwd disagrees with plain autograd: {row}")
+            del got, want, kernel, plain
+    return rows
+
+
 def grid_sample_ms(case, dtype):
     """CUDA-graph time of F.grid_sample (bilinear, zeros, align_corners=False)
     on a single-level case's value viewed as (B·H, D, h, w) at its
@@ -744,6 +934,7 @@ def phase_kernels(dev):
                 raise AssertionError(f"kernel disagrees with plain: {row}")
             del got, want, kernel, plain, bound
     del cases, outs
+    rows += bwd_rows(dev, flagship_cases(dev))
     torch.cuda.empty_cache()
     reset_launch_counts()
     return rows
@@ -948,24 +1139,243 @@ def phase_stream_base(dev):
     return launches
 
 
-def profile_frames(phase, name, cfg, model, frames, frame_ms):
-    """torch.profiler over 4 warm frames: device busy time per frame (sum
-    of kernel durations), kernels and host synchronizations per frame and
-    the top kernels by device time; idle share against the unprofiled
-    frame time ``frame_ms``."""
+# ------------------------------------------------------------------ train
+
+def train_launches_per_step(cfg) -> dict:
+    """Launches of one train step, by entry and variant: the forward runs
+    TSA per encoder layer in each of the T queue frames and the 6 + 6
+    decoder layers on the supervised one (plain entry), SCA per encoder
+    layer in each frame (masked entry); the backward runs on the supervised
+    frame's calls only (the history replay is under no_grad)."""
+    m = cfg.model
+    T, E = m.queue_length, m.encoder_layers
+    dec = m.decoder_layers + m.map_decoder_layers
+    n = {"msda_fwd": T * E + dec, "msda_fwd_masked": T * E,
+         "msda_bwd": E + dec, "msda_bwd_masked": E}
+    out = dict.fromkeys(read_launch_counts(), 0)
+    out.update(n)
+    out.update({"msda_fwd.vector": n["msda_fwd"],
+                "msda_fwd_masked.vector": n["msda_fwd_masked"],
+                "msda_bwd.lane_per_channel": n["msda_bwd"],
+                "msda_bwd_masked.lane_per_channel": n["msda_bwd_masked"]})
+    return out
+
+
+def train_steps(cfg, model, optimizer, batch, gen, first, n):
+    """``n`` train steps from step index ``first``, each with its generator
+    seed as the training loop draws it; returns the last step's terms."""
+    for i in range(first, first + n):
+        gen.manual_seed(step_seed(0, i))
+        losses = train_lib.train_step(model, optimizer, batch, gen, cfg=cfg)
+    return losses
+
+
+def steps_per_s(cfg, model, optimizer, batch, gen, n):
+    """Steady state: 2 warm steps, then host clock around ``n`` steps that
+    end in a synchronize (each step waits on the host once anyway, for the
+    matching)."""
+    train_steps(cfg, model, optimizer, batch, gen, 100, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_steps(cfg, model, optimizer, batch, gen, 102, n)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def grad_step(model, cfg, batch, gen, seed, indices=None):
+    """One f32 forward and backward in training mode: (loss terms,
+    {name: gradient}, indices)."""
+    model.zero_grad(set_to_none=True)
+    gen.manual_seed(seed)
+    with use_generator(gen):
+        total, losses, indices = train_lib.loss_fn(model, batch, cfg, indices)
+    total.backward()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, indices
+
+
+def phase_train(dev):
+    """The flagship's train step at full width: bf16 steps with exact
+    launch counts, the f32 step with kernels against plain versions,
+    steps/s and a profile."""
+    cfg = bev_tiny_det_map_apollo()
+    cfg32 = f32_config(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    batch = train_lib.batch_to_device(
+        make_batch(cfg, 1, seed=0, paint_gt=True), dev)
+    model = build_model(cfg, device=dev, seed=0).train()
+    optimizer = make_optimizer(model, cfg.optim)
+    gen = torch.Generator(device=dev)
+    n_steps = 3
+    # the main path: counts set to 0 just before the steps, read just after
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = []
+    for i in range(n_steps):
+        losses = train_steps(cfg, model, optimizer, batch, gen, i, 1)
+        history.append({k: float(v) for k, v in losses.items()})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    expect = {k: v * n_steps for k, v in train_launches_per_step(cfg).items()}
+    finite = all(math.isfinite(v) for h in history for v in h.values())
+    emit({"phase": "train", "steps": n_steps, "seconds_incl_first": seconds,
+          "launches": launches,
+          "per_step": {k: v / n_steps for k, v in launches.items()},
+          "finite": finite,
+          "loss_total": [h["loss_total"] for h in history],
+          "grad_norm": [h["grad_norm"] for h in history],
+          "terms_last": history[-1]})
+    if launches != expect:
+        raise AssertionError(f"train: launches {launches} != expected {expect}")
+    if not finite:
+        raise AssertionError(f"train: non-finite loss terms {history}")
+
+    # one f32 step with kernels against the same step under plain versions:
+    # same weights, batch, generator draws and (the kernels' run's)
+    # assignment
+    model32 = build_model(cfg32, device=dev, seed=0).train()
+    seed = step_seed(0, 0)
+    got_l, got_g, indices = grad_step(model32, cfg32, batch, gen, seed)
+    before = read_launch_counts()
+    t0 = time.perf_counter()
+    with ops.plain_versions():
+        want_l, want_g, _ = grad_step(model32, cfg32, batch, gen, seed, indices)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_launches = {k: v - before[k] for k, v in read_launch_counts().items()}
+    _, again_g, _ = grad_step(model32, cfg32, batch, gen, seed, indices)
+    loss_err = {k: abs(got_l[k] - w) / max(abs(w), 1e-12) for k, w in want_l.items()}
+    floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in want_g.values())
+    # gradients below 100x the floor are noise on both sides in their norm
+    big = {k for k, w in want_g.items() if float(w.abs().max()) > 100 * floor}
+
+    def rel_errs(a, b):
+        """Each gradient's max abs error beyond the floor, over its largest
+        magnitude (or the floor, where that is larger)."""
+        return {k: max(0.0, float((a[k] - w).abs().max()) - floor)
+                / max(float(w.abs().max()), floor) for k, w in b.items()}
+
+    def norm_errs(a, b):
+        return {k: float((a[k] - b[k]).norm()) / float(b[k].norm()) for k in big}
+
+    def worst(errs):
+        return sorted(errs.items(), key=lambda kv: -kv[1])[:8]
+
+    # the witness of the step's own sensitivity (see TRAIN_GRAD_REL_TOL)
+    noise = torch.randn(batch["img"].shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    wbatch = dict(batch, img=batch["img"] * (1 + WITNESS_EPS * noise))
+    with ops.plain_versions():
+        wit_l, wit_g, _ = grad_step(model32, cfg32, wbatch, gen, seed, indices)
+    witness = {"eps": WITNESS_EPS,
+               "max_loss_rel_err": max(abs(wit_l[k] - w) / max(abs(w), 1e-12)
+                                       for k, w in want_l.items()),
+               "grad_worst_rel_err": worst(rel_errs(wit_g, want_g)),
+               "grad_worst_norm_rel_err": worst(norm_errs(wit_g, want_g))}
+    del wit_g, wbatch, noise
+    rel = rel_errs(got_g, want_g)
+    norm = norm_errs(got_g, want_g)
+    emit({"phase": "train_f32_vs_plain", "loss_rel_err": loss_err,
+          "max_loss_rel_err": max(loss_err.values()),
+          "params_with_grad": len(want_g), "params": len(dict(model32.named_parameters())),
+          "grad_worst_rel_err": worst(rel),
+          "grad_worst_norm_rel_err": worst(norm),
+          "grad_worst_rel_err_kernels_rerun": worst(rel_errs(again_g, got_g)),
+          "grad_worst_rel_err_trunk": worst({
+              k: v for k, v in rel.items() if k.startswith("img_backbone")}),
+          "witness": witness,
+          "grad_floor": floor, "loss_tol": TRAIN_REL_TOL,
+          "grad_tol": TRAIN_GRAD_REL_TOL, "grad_norm_tol": TRAIN_GRAD_NORM_TOL,
+          "floor_share": TRAIN_GRAD_FLOOR,
+          "plain_step_s": plain_s, "plain_launches": plain_launches,
+          "trunk_grad_max": float(want_g["img_backbone.level5.tree2.conv2.weight"]
+                                  .abs().max())})
+    bad = ([(k, v) for k, v in rel.items() if v > TRAIN_GRAD_REL_TOL]
+           + [(k, v) for k, v in norm.items() if v > TRAIN_GRAD_NORM_TOL])
+    if (max(loss_err.values()) > TRAIN_REL_TOL or bad
+            or set(got_g) != set(want_g) or any(plain_launches.values())
+            or len(want_g) != len(dict(model32.named_parameters()))):
+        raise AssertionError(f"f32 train step disagrees with plain: {bad[:8]}")
+    del got_g, want_g, again_g
+
+    optimizer32 = make_optimizer(model32, cfg32.optim)
+    sps = {"bf16": steps_per_s(cfg, model, optimizer, batch, gen, 5),
+           "f32": steps_per_s(cfg32, model32, optimizer32, batch, gen, 5)}
+    emit({"phase": "train_steps_per_s", "steps_per_s": sps,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for name, c, mdl, opt in (("bf16", cfg, model, optimizer),
+                              ("f32", cfg32, model32, optimizer32)):
+        profile_train(c, mdl, opt, batch, gen, name, 1e3 / sps[name])
+    return launches
+
+
+def profile_train(cfg, model, optimizer, batch, gen, name, step_ms):
+    """torch.profiler over 2 warm train steps: device busy ms per step, idle
+    share against the unprofiled step time, kernels and host syncs per
+    step, the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    run = StreamingRunner(cfg, model)
-    for f in frames[:2]:
-        run.step(f)
+    train_steps(cfg, model, optimizer, batch, gen, 200, 1)
     torch.cuda.synchronize()
-    n = 4
+    n = 2
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for f in frames[2:2 + n]:
-            run.step(f)
+        train_steps(cfg, model, optimizer, batch, gen, 201, n)
         torch.cuda.synchronize()
+    summarize_profile(prof, "profile_train", name, n, "step", step_ms)
+
+
+def phase_train_overfit(dev, steps=OVERFIT_STEPS):
+    """bev_smoke_det_map set up as the JAX package's tools/overfit_check.py
+    sets it up: batch 4 with GT cues painted into the images, lr 4e-4,
+    warmup max(steps / 10, 10), cosine to ``steps``; the loss curve every 10
+    steps. Fails unless the last loss_total is at most OVERFIT_SHARE of the
+    first."""
+    cfg = bev_smoke_det_map()
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, lr=4e-4, warmup_iters=max(steps // 10, 10),
+        total_steps=steps))
+    batch = train_lib.batch_to_device(
+        make_batch(cfg, 4, seed=0, paint_gt=True), dev)
+    model = build_model(cfg, device=dev, seed=0).train()
+    optimizer = make_optimizer(model, cfg.optim)
+    gen = torch.Generator(device=dev)
+    reset_launch_counts()
+    curve = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        losses = train_steps(cfg, model, optimizer, batch, gen, i, 1)
+        if i % 10 == 0 or i == steps - 1:
+            curve.append({"step": i, "loss_total": float(losses["loss_total"]),
+                          "loss_cls": float(losses["loss_cls"]),
+                          "loss_bbox": float(losses["loss_bbox"]),
+                          "loss_map_pts": float(losses["loss_map_pts"])})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    first, last = curve[0]["loss_total"], curve[-1]["loss_total"]
+    emit({"phase": "train_overfit", "config": cfg.name, "steps": steps,
+          "seconds": seconds, "curve": curve, "first": first, "last": last,
+          "share": last / first, "limit": OVERFIT_SHARE,
+          "launches": launches})
+    expect = {k: v * steps for k, v in train_launches_per_step(cfg).items()}
+    if launches != expect:
+        raise AssertionError(f"train_overfit: launches {launches} != {expect}")
+    if not math.isfinite(last) or last > OVERFIT_SHARE * first:
+        raise AssertionError(f"train_overfit: {first} -> {last}")
+    return launches
+
+
+def summarize_profile(prof, phase, name, n, unit, unit_ms):
+    """Device busy time per ``unit`` (sum of kernel durations), kernels and
+    host synchronizations per unit and the top kernels by device time; idle
+    share against the unprofiled time ``unit_ms``."""
     events = prof.events()
-    kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernels only: a user annotation (the optimizer's step range) is
+    # also a device event
+    kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     # host calls that wait for the device (a pageable host-to-device copy
     # synchronizes the stream): each one lets the device run dry
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -980,21 +1390,38 @@ def profile_frames(phase, name, cfg, model, frames, frame_ms):
         by_name[k] = (t + e.time_range.elapsed_us(), c + 1)
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": phase, "dtype": name, "frames": n,
-          "device_busy_ms_per_frame": busy_ms,
-          "kernels_per_frame": len(kern) / n,
-          "host_syncs_per_frame": syncs / n,
-          "frame_ms_unprofiled": frame_ms,
-          "device_idle_share": 1.0 - busy_ms / frame_ms,
-          "top": [{"name": k, "ms_per_frame": t / 1e3 / n, "calls_per_frame": c / n}
-                  for k, (t, c) in top]})
+    emit({"phase": phase, "dtype": name, unit + "s": n,
+          f"device_busy_ms_per_{unit}": busy_ms,
+          f"kernels_per_{unit}": len(kern) / n,
+          f"host_syncs_per_{unit}": syncs / n,
+          f"{unit}_ms_unprofiled": unit_ms,
+          "device_idle_share": 1.0 - busy_ms / unit_ms,
+          "top": [{"name": k, f"ms_per_{unit}": t / 1e3 / n,
+                   f"calls_per_{unit}": c / n} for k, (t, c) in top]})
+
+
+def profile_frames(phase, name, cfg, model, frames, frame_ms):
+    """torch.profiler over 4 warm frames (``summarize_profile`` per frame)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run = StreamingRunner(cfg, model)
+    for f in frames[:2]:
+        run.step(f)
+    torch.cuda.synchronize()
+    n = 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for f in frames[2:2 + n]:
+            run.step(f)
+        torch.cuda.synchronize()
+    summarize_profile(prof, phase, name, n, "frame", frame_ms)
 
 
 def kernels_line(rows, launches_by_path):
-    """One entry per kernel entry point. Times are per-frame sums, in bf16
-    (the configured dtype), of the entry's calls in one frame of the config
-    named by ``frame`` (FRAME_CALLS); ``launches`` sums the main paths'
-    runs, ``launches_by_path`` splits them."""
+    """One entry per kernel entry point. Times are per-frame (per train
+    step for the backward) sums, in bf16 (the configured dtype), of the
+    entry's calls in one frame or step named by ``frame`` (FRAME_CALLS);
+    ``launches`` sums the main paths' runs, ``launches_by_path`` splits
+    them."""
     out = []
     for name, (frame, mix) in FRAME_CALLS.items():
         sel = [r for r in rows if r["case"] in mix]
@@ -1048,6 +1475,10 @@ def main() -> int:
     launches = {"stream": phase_stream(dev)}
     torch.cuda.empty_cache()
     launches["stream_base"] = phase_stream_base(dev)
+    torch.cuda.empty_cache()
+    launches["train"] = phase_train(dev)
+    torch.cuda.empty_cache()
+    launches["train_overfit"] = phase_train_overfit(dev)
     emit(kernels_line(rows, launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

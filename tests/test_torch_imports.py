@@ -20,6 +20,14 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.configs",
     "apollo_vision_net_tpu_torch.data.synthetic",
     "apollo_vision_net_tpu_torch.data.temporal",
+    "apollo_vision_net_tpu_torch.data.vector_map",
+    "apollo_vision_net_tpu_torch.losses.det_loss",
+    "apollo_vision_net_tpu_torch.losses.map_loss",
+    "apollo_vision_net_tpu_torch.parallel.optim",
+    "apollo_vision_net_tpu_torch.parallel.train",
+    "apollo_vision_net_tpu_torch.runtime.checkpoint",
+    "apollo_vision_net_tpu_torch.runtime.train_loop",
+    "apollo_vision_net_tpu_torch.utils.grid_mask",
     "apollo_vision_net_tpu_torch.ops",
     "apollo_vision_net_tpu_torch.ops._build",
     "apollo_vision_net_tpu_torch.ops.dcn",
@@ -139,3 +147,72 @@ def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_smoke_config_equals_the_jax_one():
+    j = jax_configs.bev_smoke_det_map()
+    t = port_configs.bev_smoke_det_map()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_make_batch_map_gt_and_painted_cues_equal_the_jax_ones():
+    """make_batch with paint_gt (box and map cues painted into every frame)
+    and its map GT keys, for the smoke and flagship-sized configs, equal the
+    JAX package's make_batch array for array."""
+    import numpy as np
+
+    from apollo_vision_net_tpu.data import synthetic as jsyn
+    from apollo_vision_net_tpu_torch.data import synthetic as tsyn
+
+    small = dataclasses.replace(
+        jax_configs.bev_tiny_det_map_apollo(),
+        model=dataclasses.replace(jax_configs.bev_tiny_det_map_apollo().model,
+                                  img_shape=(96, 160)))
+    for cfg in (jax_configs.bev_smoke_det_map(), small):
+        want = jsyn.make_batch(cfg, batch_size=3, seed=7, paint_gt=True)
+        got = tsyn.make_batch(port_configs.ExperimentConfig(
+            **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}),
+            batch_size=3, seed=7, paint_gt=True)
+        assert set(got) == set(want)
+        assert {"map_shift_pts", "map_labels", "map_mask",
+                "map_order_mask"} <= set(got)
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+        assert (got["img"] == 4.0).any() and (got["img"] == -4.0).any()
+
+
+@pytest.mark.parametrize("pattern", ["v0", "v1", "v2"])
+def test_vector_map_copy_equals_the_jax_one(pattern):
+    """pack_map_gt (with its shift protocols and order mask) and
+    resample_line equal the JAX package's, polylines and a closed polygon."""
+    import numpy as np
+
+    from apollo_vision_net_tpu.data import vector_map as jvm
+    from apollo_vision_net_tpu.evaluation import map_eval as jme
+    from apollo_vision_net_tpu_torch.data import vector_map as tvm
+
+    rng = np.random.default_rng(3)
+    line = np.cumsum(rng.uniform(-2, 2, (7, 2)), 0).astype(np.float32)
+    ring = rng.uniform(-5, 5, (5, 2)).astype(np.float32)
+    ring = np.concatenate([ring, ring[:1]])
+    far = (line * 8).astype(np.float32)  # clamped to the patch
+    vecs, labels = [line, ring, far], [0, 1, 2]
+    for max_vec in (2, 5):
+        want = jvm.pack_map_gt(vecs, labels, max_vec, fixed_num=10,
+                               pattern=pattern, seed=4)
+        got = tvm.pack_map_gt(vecs, labels, max_vec, fixed_num=10,
+                              pattern=pattern, seed=4)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for pts, num in ((line, 20), (line, 7), (ring[:1], 4), (ring, 13)):
+        np.testing.assert_array_equal(tvm.resample_line(pts, num),
+                                      jme.resample_line(pts, num))
+
+
+def test_trainer_raises_without_a_gpu(monkeypatch, tmp_path):
+    from apollo_vision_net_tpu_torch.runtime.train_loop import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(port_configs.bev_tiny_det_map_apollo(), iter([]), num_steps=1,
+              work_dir=str(tmp_path))

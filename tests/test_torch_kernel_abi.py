@@ -12,7 +12,8 @@ import pytest
 from apollo_vision_net_tpu_torch.ops import dcn_cuda, msda_cuda
 
 CSRC = Path(__file__).resolve().parent.parent / "apollo_vision_net_tpu_torch" / "csrc"
-WRAPPERS = {"msda_fwd.cu": msda_cuda, "dcn_fwd.cu": dcn_cuda}
+WRAPPERS = {"msda_fwd.cu": msda_cuda, "msda_bwd.cu": msda_cuda,
+            "dcn_fwd.cu": dcn_cuda}
 ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 
 
@@ -24,14 +25,20 @@ def c_entries(source):
 
 
 def test_every_entry_point_has_a_wrapper_signature():
-    for source, module in WRAPPERS.items():
-        assert set(c_entries(source)) == set(module.ARGTYPES), source
+    for module in set(WRAPPERS.values()):
+        sources = [s for s, m in WRAPPERS.items() if m is module]
+        entries = set().union(*(c_entries(s) for s in sources))
+        assert entries == set(module.ARGTYPES), sources
     assert {p.name for p in CSRC.glob("*.cu")} == set(WRAPPERS)
+    # the MSDA wrapper loads each entry from its own source
+    for name, source in msda_cuda.ENTRY_SOURCE.items():
+        assert name in c_entries(source), (name, source)
 
 
 @pytest.mark.parametrize("source,name", [
     ("msda_fwd.cu", "msda_fwd"),
     ("msda_fwd.cu", "msda_fwd_factored"),
+    ("msda_bwd.cu", "msda_bwd"),
     ("dcn_fwd.cu", "dcn_fwd"),
 ])
 def test_wrapper_argtypes_match_the_c_parameters(source, name):

@@ -252,3 +252,123 @@ def test_large_grid_tsa_is_exact(reference):
     else:
         want = ms_deform_attn_xla(value, shapes, locs, attn)
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2e-5)
+
+
+# ------------------------------------------------------------- backward
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shapes", [((7, 5),), ((6, 9), (3, 5))])
+def test_plain_backward_matches_jax_vjp(shapes, masked):
+    """Autograd through ms_deform_attn_ref (the plain version of msda_bwd)
+    against jax.vjp of ms_deform_attn_xla, which is the backward of every
+    Pallas MSDA kernel (msda_pallas.py:1468-1484). With a tile mask the JAX
+    backward runs unmasked on a cotangent zeroed on the masked queries, as
+    the caller's zeroed output gives it. f32 sums in other orders: 1e-5
+    relative to each gradient's largest magnitude (locations scale by the
+    level's w and h)."""
+    import jax
+
+    value, shapes, locs, attn = make_inputs(7, B=2, H=2, D=8, Q=70, P=4,
+                                            shapes=shapes)
+    g = np.random.default_rng(8).standard_normal((2, 70, 16)).astype(np.float32)
+    tile_mask = np.array([[1, 0, 1], [0, 1, 1]], np.int32) if masked else None
+    g_jax = g
+    if masked:
+        keep = np.repeat(tile_mask.astype(bool), 32, axis=1)[:, :70]
+        g_jax = g * keep[..., None]
+    _, vjp = jax.vjp(lambda v, s, a: ms_deform_attn_xla(v, shapes, s, a),
+                     value, locs, attn)
+    want = [np.asarray(w) for w in vjp(g_jax)]
+    ins = [t.requires_grad_() for t in _torch(value, locs, attn)]
+    out = ms_deform_attn_ref(ins[0], shapes, ins[1], ins[2],
+                             tile_mask=None if tile_mask is None
+                             else torch.from_numpy(tile_mask), q_tile=32)
+    got = torch.autograd.grad(out, ins, torch.from_numpy(g))
+    for name, a, w in zip(("value", "loc", "attn"), got, want):
+        err = np.abs(a.numpy() - w).max() / np.abs(w).max()
+        assert err <= 1e-5, (name, err)
+    if masked:  # masked queries get no gradient
+        assert float(got[1][0, 32:64].abs().max()) == 0.0
+        assert float(got[2][1, :32].abs().max()) == 0.0
+
+
+def test_msda_function_routes_backward_to_the_kernel_entry(monkeypatch):
+    """On CUDA tensors ms_deform_attn runs MSDAFunction: forward through
+    msda_cuda.msda_fwd, backward through msda_cuda.msda_bwd with the saved
+    value, locations, weights and tile mask. Checked on the CPU with the
+    kernel branch forced and both entries replaced by the plain version
+    (forward) and its autograd (backward): the gradients equal the plain
+    version's."""
+    from apollo_vision_net_tpu_torch.ops import msda as msda_mod
+
+    calls = []
+
+    def fake_fwd(value, shapes, loc, attn, *, tile_mask=None, q_tile=32):
+        calls.append("fwd")
+        return ms_deform_attn_ref(value, shapes, loc, attn,
+                                  tile_mask=tile_mask, q_tile=q_tile)
+
+    def fake_bwd(value, shapes, loc, attn, grad_out, *, tile_mask=None,
+                 q_tile=32):
+        calls.append(("bwd", tuple(map(tuple, shapes)), q_tile,
+                      tile_mask is not None))
+        assert grad_out.dtype == value.dtype and grad_out.is_contiguous()
+        with torch.enable_grad():  # a backward runs without grad mode
+            ins = [t.detach().requires_grad_() for t in (value, loc, attn)]
+            out = ms_deform_attn_ref(ins[0], shapes, ins[1], ins[2],
+                                     tile_mask=tile_mask, q_tile=q_tile)
+            return torch.autograd.grad(out, ins, grad_out)
+
+    monkeypatch.setattr(msda_mod, "use_plain", lambda t: False)
+    monkeypatch.setattr(msda_cuda, "msda_fwd", fake_fwd)
+    monkeypatch.setattr(msda_cuda, "msda_bwd", fake_bwd)
+    value, shapes, locs, attn = make_inputs(9, Q=40)
+    tm = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32)
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (2, 40, 32)).astype(np.float32))
+    grads = []
+    for fn in (ms_deform_attn, ms_deform_attn_ref):
+        ins = [t.requires_grad_() for t in _torch(value, locs, attn)]
+        out = fn(ins[0], shapes, ins[1], ins[2], tile_mask=tm, q_tile=32)
+        grads.append(torch.autograd.grad(out, ins, g))
+    assert calls == ["fwd", ("bwd", tuple(map(tuple, shapes)), 32, True)]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_backward_wrapper_refuses_cpu_tensors():
+    value, shapes, locs, attn = make_inputs(11)
+    g = torch.zeros((2, 37, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        msda_cuda.msda_bwd(torch.from_numpy(value), shapes,
+                           *_torch(locs, attn), g)
+
+
+@pytest.mark.parametrize("front_end", ["msda_factored", "dcn"])
+def test_front_ends_without_a_backward_refuse_grad_on_the_kernel_branch(
+        monkeypatch, front_end):
+    """The factored MSDA and the DCN kernels have no backward yet: on the
+    kernel branch (forced here on the CPU), inputs that require a gradient
+    raise instead of returning a tensor cut from the graph; without grad
+    mode the call goes on to the kernel wrapper (which refuses CPU
+    tensors)."""
+    from apollo_vision_net_tpu_torch.ops import dcn as dcn_mod
+    from apollo_vision_net_tpu_torch.ops import msda as msda_mod
+
+    if front_end == "dcn":
+        monkeypatch.setattr(dcn_mod, "use_plain", lambda t: False)
+        rng = np.random.default_rng(12)
+        args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                for s in ((1, 5, 6, 4), (1, 5, 6, 9, 2), (1, 5, 6, 9), (9, 4, 3))]
+        fn, name = dcn_mod.modulated_deform_conv, "dcn_fwd"
+    else:
+        monkeypatch.setattr(msda_mod, "use_plain", lambda t: False)
+        value, shapes, ref_flat, off, attn = make_factored_inputs(13, Q=40)
+        args = [torch.from_numpy(value), shapes,
+                *_torch(ref_flat, off, attn)]
+        fn, name = msda_mod.ms_deform_attn_factored, "msda_fwd_factored"
+    args[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match=f"{name} has no backward"):
+        fn(*args)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fn(*args)
