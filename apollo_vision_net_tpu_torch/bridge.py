@@ -14,7 +14,11 @@ torch key by joining its names with dots, after these rewrites:
   ``map_cls_branches.{i}``;
 - Dense kernels (in, out) -> Linear weights (out, in);
 - Conv kernels HWIO -> OIHW; ``nn.ConvTranspose`` kernels (k, k, in, out)
-  are flipped spatially (flax does not flip, torch does) -> (in, out, k, k);
+  are flipped spatially (flax does not flip, torch does) -> (in, out, k, k).
+  A 4-D kernel is a transposed convolution's when its flax module is one:
+  named ``*_up`` (SECONDFPNV2's deblocks) or auto-named ``ConvTranspose_{i}``
+  (the occupancy head's upsampling). A square kernel fits either layout,
+  so ``strict=True`` loading cannot catch the wrong one;
 - flax MHA ``query/key/value`` kernels (C, H, D) and biases (H, D), and the
   ``out`` kernel (H, D, C), flatten to (H·D)-wide Linear layers;
 - norm ``scale`` -> ``weight``; FrozenBatchNorm ``mean``/``var`` ->
@@ -36,6 +40,10 @@ import torch
 # nn.scan bodies: layers/<body>/... -> <ModuleList>.{i}...
 _SCANNED_BODY = {"layer": "layers", "reg_branch": "reg_branches"}
 _BN_RENAME = {"mean": "running_mean", "var": "running_var"}
+
+
+def _is_conv_transpose(owner: str) -> bool:
+    return owner.endswith("_up") or re.fullmatch(r"ConvTranspose_\d+", owner) is not None
 
 
 def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -67,7 +75,7 @@ def _convert(path, arr) -> Tuple[Tuple[str, ...], np.ndarray]:
             return (*mods, "weight"), arr.reshape(arr.shape[0], -1).T
         if arr.ndim == 3 and owner == "out":
             return (*mods, "weight"), arr.reshape(-1, arr.shape[-1]).T
-        if arr.ndim == 4 and owner.endswith("_up"):
+        if arr.ndim == 4 and _is_conv_transpose(owner):
             return (*mods, "weight"), arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if arr.ndim == 4:
             return (*mods, "weight"), arr.transpose(3, 2, 0, 1)

@@ -138,6 +138,23 @@ class ExperimentConfig:
     pretrained_path: str = ""
 
 
+def bev_tiny_det_occ_apollo() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_det_occ_apollo.py — DLA-34 +
+    SECONDFPNV2, 50×50 BEV, group_detr=11 (900 queries/group), CNN-upsample
+    occupancy 200×200×16 @0.5m, CustomFocal+lovász+affinity losses."""
+    return ExperimentConfig(
+        name="bev_tiny_det_occ_apollo",
+        model=ModelConfig(
+            bev_h=50, bev_w=50,
+            backbone_type="dla", backbone_out_indices=(3, 4, 5),
+            neck_type="secondfpn",
+            num_query=900 * 11, group_detr=11,
+            with_occupancy=True, msda_impl="auto_fast",
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
 def bev_tiny_det_map_apollo() -> ExperimentConfig:
     """projects/configs/bevformer/bev_tiny_det_map_apollo.py — det+map:
     DLA-34 + SECONDFPNV2, 50×50 BEV, queue 3, 900 det queries, 50×20 map
@@ -151,6 +168,24 @@ def bev_tiny_det_map_apollo() -> ExperimentConfig:
             with_map=True, msda_impl="auto_fast",
         ),
         compute_dtype="bfloat16",
+    )
+
+
+def bev_smoke_det_occ() -> ExperimentConfig:
+    """CI-sized det+occ (the JAX package's occupancy overfit-check config):
+    ResNet-50 stage 4 + FPN, 8x8 BEV, embed_dims 32, 2 Group-DETR groups of
+    12 queries, CNN upsampling to a 32x32x4 grid of 16-wide voxels."""
+    return ExperimentConfig(
+        name="bev_smoke_det_occ",
+        model=ModelConfig(
+            bev_h=8, bev_w=8, num_query=24, embed_dims=32,
+            encoder_layers=1, decoder_layers=2, feedforward_channels=64,
+            num_cams=2, img_shape=(64, 96), queue_length=2,
+            group_detr=2, with_occupancy=True,
+            occ_xdim=32, occ_ydim=32, occ_zdim=4, occ_dims=16,
+        ),
+        data=DataConfig(max_gt_boxes=8),
+        optim=OptimConfig(warmup_iters=2, total_steps=100),
     )
 
 

@@ -2,9 +2,10 @@
 
 ``camera_ring_lidar2img`` and ``make_batch`` are copies of the JAX package's
 data/synthetic.py (a ring of forward-facing pinhole cameras, ego motion
-along +x), limited to the fields inference, the detection GT and the map GT
-use (occupancy GT comes with the occupancy slice). ``paint_gt`` paints
-class-coded cues of the GT into the images, so that a small set is
+along +x), limited to the fields inference, the detection GT, the
+occupancy GT and the map GT use (the flow GT comes with ``predict_flow``).
+``paint_gt`` paints class-coded cues of the GT into the images, and
+voxelizes the GT boxes into the occupancy GT, so that a small set is
 learnable for an overfit check. ``make_stream`` lays the same kind of data
 out as a stream of frames for the streaming runner.
 """
@@ -66,14 +67,47 @@ def _paint_points(img, lidar2img, pts3d, labels, value=4.0, radius=2):
     return img
 
 
+def _boxes_to_occupancy(boxes, labels, m) -> np.ndarray:
+    """(k, 9) GT boxes -> dense (occ_zdim*occ_ydim*occ_xdim,) class grid,
+    voxel index (zi*ydim + yi)*xdim + xi, the occupancy head's (z, y, x)
+    order. Voxels inside a box get min(label, occupancy_classes - 1);
+    everything else free (occupancy_classes)."""
+    pc = np.asarray(m.pc_range, np.float32)
+    xd, yd, zd = m.occ_xdim, m.occ_ydim, m.occ_zdim
+    dense = np.full(zd * xd * yd, m.occupancy_classes, np.int32)
+    if len(boxes) == 0:
+        return dense
+    xs = pc[0] + (np.arange(xd) + 0.5) * (pc[3] - pc[0]) / xd
+    ys = pc[1] + (np.arange(yd) + 0.5) * (pc[4] - pc[1]) / yd
+    zs = pc[2] + (np.arange(zd) + 0.5) * (pc[5] - pc[2]) / zd
+    zz, yy, xx = np.meshgrid(zs, ys, xs, indexing="ij")
+    pts = np.stack([xx, yy, zz], axis=-1).reshape(-1, 3)  # (z, y, x) order
+    for b, lab in zip(np.asarray(boxes), np.asarray(labels)):
+        cx, cy, cz, w, l, h, yaw = b[:7]
+        c, s = np.cos(yaw), np.sin(yaw)
+        dx = (pts[:, 0] - cx) * c + (pts[:, 1] - cy) * s   # along heading
+        dy = -(pts[:, 0] - cx) * s + (pts[:, 1] - cy) * c
+        dz = pts[:, 2] - cz
+        # at least one voxel in each dim so thin boxes stay visible
+        vs = np.array([(pc[3] - pc[0]) / xd, (pc[4] - pc[1]) / yd,
+                       (pc[5] - pc[2]) / zd], np.float32)
+        inside = ((np.abs(dx) <= max(l / 2, vs[0] / 2))
+                  & (np.abs(dy) <= max(w / 2, vs[1] / 2))
+                  & (np.abs(dz) <= max(h / 2, vs[2] / 2)))
+        dense[inside] = min(int(lab), m.occupancy_classes - 1)
+    return dense
+
+
 def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
                dtype=np.float32, paint_gt: bool = False
                ) -> Dict[str, np.ndarray]:
     """A (B, T = queue_length) batch of images, can_bus deltas, camera
-    matrices, has_prev flags, padded detection GT and, with a map head,
-    padded map GT; the same arrays as the JAX package's make_batch for these
-    keys and seed. ``paint_gt`` paints the GT boxes' centres and the map
-    vectors' points into every frame."""
+    matrices, has_prev flags, padded detection GT and, with an occupancy
+    head, dense occupancy GT, with a map head, padded map GT; the same
+    arrays as the JAX package's make_batch for these keys and seed.
+    ``paint_gt`` paints the GT boxes' centres and the map vectors' points
+    into every frame and makes the occupancy GT the voxelized GT boxes
+    (random sparse voxels otherwise)."""
     m, d = cfg.model, cfg.data
     rng = np.random.default_rng(seed)
     B, T, N = batch_size, m.queue_length, m.num_cams
@@ -127,6 +161,23 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
         gt_labels=gt_labels,
         gt_mask=gt_mask,
     )
+    if m.with_occupancy:
+        # the supervised frame's GT (multi-frame GT comes with
+        # keep_bev_history, which the port does not run)
+        vox = m.occ_zdim * m.occ_xdim * m.occ_ydim
+        if paint_gt:
+            occ = np.stack([
+                _boxes_to_occupancy(gt_boxes[b, :int(n_real[b])],
+                                    gt_labels[b, :int(n_real[b])], m)
+                for b in range(B)])
+        else:
+            # mostly free (= occupancy_classes), sparse semantic voxels
+            occ = np.full((B, vox), m.occupancy_classes, np.int32)
+            n_occ = vox // 20
+            for b in range(B):
+                idx = rng.choice(vox, n_occ, replace=False)
+                occ[b, idx] = rng.integers(0, m.occupancy_classes, n_occ)
+        batch["gt_occupancy"] = occ
     if m.with_map:
         # Hungarian matching needs GT rows <= query columns
         max_vec = min(d.max_gt_boxes, m.num_map_vec)

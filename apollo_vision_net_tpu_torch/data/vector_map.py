@@ -2,9 +2,10 @@
 
 Copy of the part of the JAX package's data/vector_map.py that the training
 slice uses (``InstanceLines`` with its shift protocols,
-``order_mask_from_shifts``, ``pack_map_gt``) and of ``resample_line`` from
-its evaluation/map_eval.py; the port keeps its own copy so that it imports
-nothing of the JAX package, and a test holds the copy equal to the original.
+``order_mask_from_shifts``, ``pack_map_gt``), with ``resample_line`` from
+the port's copy of evaluation/map_eval.py as in the JAX package; the port
+keeps its own copy so that it imports nothing of the JAX package, and a
+test holds the copy equal to the original.
 
 Parity (reference datasets/nuscenes_det_occ_map_dataset.py): fixed-N
 arc-length resampling (:95-125), shift protocols v0 (:127-166), v1
@@ -18,28 +19,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from apollo_vision_net_tpu_torch.evaluation.map_eval import resample_line
+
 PADDING_VALUE = -10000.0
-
-
-def resample_line(pts: np.ndarray, num: int) -> np.ndarray:
-    """Arc-length uniform resampling (shapely interpolate parity)."""
-    pts = np.asarray(pts, np.float64)
-    if pts.shape[0] == num:
-        return pts.astype(np.float32)
-    if pts.shape[0] < 2:
-        p = pts[0] if pts.shape[0] == 1 else np.zeros((2,))
-        return np.repeat(p[None], num, axis=0).astype(np.float32)
-    seg = np.linalg.norm(np.diff(pts, axis=0), axis=1)
-    cum = np.concatenate([[0.0], np.cumsum(seg)])
-    total = cum[-1]
-    if total <= 1e-6:
-        return np.repeat(pts[:1], num, axis=0).astype(np.float32)
-    targets = np.linspace(0.0, total, num)
-    idx = np.clip(np.searchsorted(cum, targets, side="right") - 1, 0,
-                  len(seg) - 1)
-    t = (targets - cum[idx]) / np.maximum(seg[idx], 1e-12)
-    out = pts[idx] + (pts[idx + 1] - pts[idx]) * t[:, None]
-    return out.astype(np.float32)
 
 
 def _is_closed(pts: np.ndarray) -> bool:

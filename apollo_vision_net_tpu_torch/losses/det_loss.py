@@ -8,16 +8,21 @@ with num_pos as the normalizer, bevformer_head.py:344-429; code weights
 
 The step is split in two so that one host synchronization serves every
 decoder layer (and the map loss too, parallel/train.py):
-- ``match_costs`` computes every layer's (B, G, Q) cost matrices on the
-  device (padded GT rows included; they are constant);
+- ``match_costs`` computes every layer's (Lyr, B, G, V, q) cost matrices on
+  the device (padded GT rows included; they are constant);
 - ``solve`` runs ``scipy.optimize.linear_sum_assignment`` on the host over
   the real GT rows only, since padded rows change nothing (the reference's
-  own solver; the JAX package's ops/hungarian.py is a TPU tactic), and
-  returns the indices as an (M, 4) int64 array of (layer, batch, query,
-  gt row);
+  own solver; the JAX package's ops/hungarian.py is a TPU tactic), once per
+  (layer, sample, group), and returns the indices as an (M, 4) int64 array
+  of (layer, batch, query, gt row);
 - ``det_loss`` computes the loss terms for given indices, so that two runs
   can be held against each other at the same assignment.
-Group-DETR (``num_groups`` > 1) is not ported: the flagship has one group.
+
+Group-DETR (JAX :93-180): with ``num_groups`` G > 1 the query axis holds G
+contiguous groups of q = Q / G queries; each group is matched against the
+full GT on its own, and the shared normalizer is G times the GT count, which
+equals the reference's per-group loss averaged over the groups
+(occupancy_head_apollo.py:625-647). G = 1 is the single-group loss.
 """
 from __future__ import annotations
 
@@ -79,32 +84,40 @@ def normalized_gt(gt: DetGT) -> torch.Tensor:
 
 @torch.no_grad()
 def match_costs(all_cls_scores: torch.Tensor, all_bbox_preds: torch.Tensor,
-                gt: DetGT, *, cls_cost_weight: float = 2.0,
+                gt: DetGT, *, num_groups: int = 1, cls_cost_weight: float = 2.0,
                 reg_cost_weight: float = 0.25) -> torch.Tensor:
     """all_cls_scores (Lyr, B, Q, C), all_bbox_preds (Lyr, B, Q, 10) ->
-    cost (Lyr, B, G, Q): focal cls cost + L1 over the first 8 normalized
+    cost (Lyr, B, G, V, q) for G = ``num_groups`` groups of q = Q / G
+    queries and V GT rows: focal cls cost + L1 over the first 8 normalized
     box dims, rows of padded GT included."""
+    n_layers, B, Q, C = all_cls_scores.shape
+    G = num_groups
+    cls = all_cls_scores.reshape(n_layers, B, G, Q // G, C)
+    box = all_bbox_preds.reshape(n_layers, B, G, Q // G, -1)
     gt_norm = normalized_gt(gt)
-    cls_cost = focal_cls_cost(all_cls_scores, gt.labels[None],
-                              weight=cls_cost_weight)      # (Lyr, B, Q, G)
-    reg_cost = (all_bbox_preds[..., None, :8].float()
-                - gt_norm[None, :, None, :, :8]).abs().sum(-1)
+    cls_cost = focal_cls_cost(cls, gt.labels[None, :, None],
+                              weight=cls_cost_weight)      # (Lyr, B, G, q, V)
+    reg_cost = (box[..., None, :8].float()
+                - gt_norm[None, :, None, None, :, :8]).abs().sum(-1)
     return (cls_cost + reg_cost * reg_cost_weight).transpose(-1, -2)
 
 
 def solve(costs: np.ndarray, mask: np.ndarray) -> np.ndarray:
-    """costs (Lyr, B, G, Q), mask (B, G) on the host -> (M, 4) int64 rows
-    (layer, batch, query, gt row): the optimal assignment of the real rows
-    of each layer and sample."""
+    """costs (Lyr, B, G, V, q), mask (B, V) on the host -> (M, 4) int64 rows
+    (layer, batch, query, gt row), the query indexing the whole G·q axis:
+    the optimal assignment of the real rows of each layer, sample and
+    group."""
     out = []
-    for lyr in range(costs.shape[0]):
-        for b in range(costs.shape[1]):
+    n_layers, B, G, _, q_per_group = costs.shape
+    for lyr in range(n_layers):
+        for b in range(B):
             rows = np.flatnonzero(mask[b])
             if rows.size == 0:
                 continue
-            r, q = linear_sum_assignment(costs[lyr, b, rows])
-            out.append(np.stack([np.full_like(q, lyr), np.full_like(q, b),
-                                 q, rows[r]], axis=1))
+            for g in range(G):
+                r, q = linear_sum_assignment(costs[lyr, b, g, rows])
+                out.append(np.stack([np.full_like(q, lyr), np.full_like(q, b),
+                                     q + g * q_per_group, rows[r]], axis=1))
     if not out:
         return np.zeros((0, 4), np.int64)
     return np.concatenate(out).astype(np.int64)
@@ -121,18 +134,20 @@ def _index(indices: np.ndarray, device) -> torch.Tensor:
 
 def det_loss(all_cls_scores: torch.Tensor, all_bbox_preds: torch.Tensor,
              gt: DetGT, indices: np.ndarray, *, num_classes: int = 10,
-             cls_loss_weight: float = 2.0, bbox_loss_weight: float = 0.25,
+             num_groups: int = 1, cls_loss_weight: float = 2.0,
+             bbox_loss_weight: float = 0.25,
              code_weights: Sequence[float] = DEFAULT_CODE_WEIGHTS
              ) -> Dict[str, torch.Tensor]:
     """The multi-layer detection loss at the assignment ``indices`` (from
     ``solve``): focal cls over every query (background where unmatched) and
-    code-weighted L1 on matched boxes, each normalized by the count of real
-    GT boxes; ``loss_cls`` / ``loss_bbox`` for the last layer, ``.d{l}``
-    suffixes for the others, ``loss_total`` their sum."""
+    code-weighted L1 on matched boxes, each normalized by ``num_groups``
+    times the count of real GT boxes; ``loss_cls`` / ``loss_bbox`` for the
+    last layer, ``.d{l}`` suffixes for the others, ``loss_total`` their
+    sum."""
     n_layers, B, Q, C = all_cls_scores.shape
     dev = all_cls_scores.device
     gt_norm = normalized_gt(gt)
-    num_pos = torch.clamp(gt.mask.sum().float(), min=1.0)
+    num_pos = torch.clamp(gt.mask.sum().float(), min=1.0) * num_groups
     idx = _index(indices, dev)
     lyr, b, q, r = idx.unbind(-1)
     labels = torch.full((n_layers, B, Q), num_classes, dtype=torch.int64,

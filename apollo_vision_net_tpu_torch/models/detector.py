@@ -7,9 +7,10 @@ bevformer/detectors/bevformer.py): backbone + neck over the folded cameras
 the training forward over a (B, T, ...) queue: a no-grad replay of the T-1
 history frames in eval mode builds the BEV that the supervised last frame
 starts from. ``forward_test_frame`` is the stateful streaming step.
-``build_model`` builds a det or det+map model from a config, with DLA-34 +
-SECONDFPNV2 (the flagship) or ResNet (optionally with DCN stages) + FPN
-(the base configs), with random weights made from a seed.
+``build_model`` builds a det, det+map or det+occupancy model from a config,
+with DLA-34 + SECONDFPNV2 (the flagship, Apollo's det+occ model) or ResNet
+(optionally with DCN stages) + FPN (the base and smoke configs), with
+random weights made from a seed.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from apollo_vision_net_tpu_torch.models.heads.det_head import (
     BEVFormerHead,
 )
 from apollo_vision_net_tpu_torch.models.heads.map_head import BEVFormerDetMapHead
+from apollo_vision_net_tpu_torch.models.heads.occ_head import BEVFormerOccupancyHead
 from apollo_vision_net_tpu_torch.models.layers import (
     FrozenBatchNorm,
     current_generator,
@@ -137,6 +139,11 @@ def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
         # config pins them
         dtype=_DTYPES[m.transformer_dtype or cfg.compute_dtype],
     )
+    if m.with_occupancy:
+        return BEVFormerOccupancyHead(
+            occupancy_classes=m.occupancy_classes, occ_xdim=m.occ_xdim,
+            occ_ydim=m.occ_ydim, occ_zdim=m.occ_zdim, occ_dims=m.occ_dims,
+            occ_head_type=m.occ_head_type, **common)
     if m.with_map:
         return BEVFormerDetMapHead(
             num_map_vec=m.num_map_vec, map_num_pts=m.map_num_pts,
@@ -168,13 +175,20 @@ def _check_supported(cfg: ExperimentConfig) -> None:
             f"(port has {sorted(trunks)})")
     unported = {
         "head_family": (m.head_family, "bev"),
-        "with_occupancy": (m.with_occupancy, False),
         "map_version": (m.map_version, 1),
+        "occ_tsa": (m.occ_tsa, False),
+        "with_occupancy_flow": (m.with_occupancy_flow, False),
+        "keep_bev_history": (m.keep_bev_history, False),
+        "predict_flow": (m.predict_flow, False),
     }
     for key, (got, want) in unported.items():
         if got != want:
             raise NotImplementedError(
                 f"{cfg.name}: {key}={got!r} is not ported yet (port has {want!r})")
+    if m.with_map and m.with_occupancy:
+        raise NotImplementedError(
+            f"{cfg.name}: with_map together with with_occupancy is not ported "
+            "yet (the port has a det+map or a det+occupancy head)")
 
 
 @torch.no_grad()

@@ -4,12 +4,14 @@ Counterpart of the JAX package's parallel/train.py (``loss_fn`` and
 ``train_step``, :157-229) on one device: the model's training forward over
 the (B, T, ...) queue (no-grad history replay, then the supervised last
 frame with dropout and grid mask drawn from ``generator``), the det loss
-plus, with a map head, the MapTR v1 map loss. ``loss_total`` is their sum,
-returned with every term.
+(over the Group-DETR groups) plus, with a map head, the MapTR v1 map loss,
+or, with an occupancy head, the occupancy losses (losses/multitask.py).
+``loss_total`` is their sum, returned with every term.
 
 Matching takes one host synchronization a step: ``match`` computes every
-decoder layer's cost matrices of both heads on the device, copies them (and
-the GT masks) to the host in one transfer and solves them there with scipy.
+decoder layer's cost matrices of both heads (of every group) on the device,
+copies them (and the GT masks) to the host in one transfer and solves them
+there with scipy.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from apollo_vision_net_tpu_torch.configs import ExperimentConfig
 from apollo_vision_net_tpu_torch.losses import det_loss as det_lib
 from apollo_vision_net_tpu_torch.losses import map_loss as map_lib
+from apollo_vision_net_tpu_torch.losses.multitask import det_occ_loss
 from apollo_vision_net_tpu_torch.models.layers import use_generator
 from apollo_vision_net_tpu_torch.parallel.optim import Optimizer
 
@@ -41,6 +44,13 @@ def ground_truth(batch: Dict[str, torch.Tensor]):
     return gt, mgt
 
 
+def query_groups(outs: Dict[str, torch.Tensor], cfg: ExperimentConfig) -> int:
+    """Group-DETR groups in the det outputs: all ``group_detr`` in training
+    mode, the first one alone in eval mode."""
+    m = cfg.model
+    return outs["all_cls_scores"].shape[2] // (m.num_query // m.group_detr)
+
+
 @torch.no_grad()
 def match(outs: Dict[str, torch.Tensor], gt: det_lib.DetGT,
           mgt: Optional[map_lib.MapGT], cfg: ExperimentConfig) -> Indices:
@@ -48,7 +58,7 @@ def match(outs: Dict[str, torch.Tensor], gt: det_lib.DetGT,
     device-to-host copy: (det indices (M, 4), map indices (M, 5) or None),
     as det_loss.solve and map_loss.solve give them."""
     parts = [det_lib.match_costs(outs["all_cls_scores"], outs["all_bbox_preds"],
-                                 gt), gt.mask]
+                                 gt, num_groups=query_groups(outs, cfg)), gt.mask]
     if mgt is not None:
         parts += [*map_lib.match_costs(outs["map_all_cls_scores"],
                                        outs["map_all_pts_preds"], mgt,
@@ -79,8 +89,17 @@ def loss_fn(model, batch: Dict[str, torch.Tensor], cfg: ExperimentConfig,
     gt, mgt = ground_truth(batch)
     if indices is None:
         indices = match(outs, gt, mgt, cfg)
-    losses = det_lib.det_loss(outs["all_cls_scores"], outs["all_bbox_preds"],
-                              gt, indices[0], num_classes=m.num_classes)
+    if m.with_occupancy:
+        losses = det_occ_loss(
+            outs, gt, batch["gt_occupancy"], indices[0],
+            occupancy_classes=m.occupancy_classes,
+            group_detr=query_groups(outs, cfg),
+            num_classes=m.num_classes, occ_loss_type=m.occ_loss_type,
+            occ_grid_hw=(m.occ_ydim, m.occ_xdim), occ_zdim=m.occ_zdim)
+    else:
+        losses = det_lib.det_loss(
+            outs["all_cls_scores"], outs["all_bbox_preds"], gt, indices[0],
+            num_classes=m.num_classes, num_groups=query_groups(outs, cfg))
     if m.with_map:
         map_losses = map_lib.map_loss(
             outs["map_all_cls_scores"], outs["map_all_pts_preds"], mgt,

@@ -1,11 +1,13 @@
-"""Streaming inference over frames.
+"""Streaming inference over frames, and the evaluators over its results.
 
 Counterpart of the JAX package's runtime/inference.py (reference
-bevformer/apis/test.py:44-209) without the evaluators: a stateful frame loop
-in which ``StreamingState`` resets the history at a scene change and turns
-absolute can_bus readings into deltas, ``forward_test_frame`` carries the
-BEV, and each frame's last-layer outputs are decoded into detections and
-map vectors.
+bevformer/apis/test.py:44-209, tools/test.py:336-359): a stateful frame
+loop in which ``StreamingState`` resets the history at a scene change and
+turns absolute can_bus readings into deltas, ``forward_test_frame`` carries
+the BEV, and each frame's last-layer outputs are decoded into detections,
+map vectors and the dense occupancy class grid; ``evaluate_results`` runs
+the nuScenes detection, MapTR chamfer/IoU and SSC occupancy evaluators
+(numpy copies under ``evaluation/``) on the formatted records.
 """
 from __future__ import annotations
 
@@ -15,22 +17,36 @@ import torch
 
 from apollo_vision_net_tpu_torch.configs import ExperimentConfig
 from apollo_vision_net_tpu_torch.data.temporal import StreamingState
+from apollo_vision_net_tpu_torch.evaluation.map_eval import evaluate_map
+from apollo_vision_net_tpu_torch.evaluation.nuscenes_det import evaluate_detection
+from apollo_vision_net_tpu_torch.evaluation.ssc_metrics import SSCMetrics
 from apollo_vision_net_tpu_torch.models.heads.map_head import get_map_results
+from apollo_vision_net_tpu_torch.models.heads.occ_head import occupancy_prediction
 from apollo_vision_net_tpu_torch.utils.box_coder import nms_free_decode
 
 POST_CENTER_RANGE = (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
 
 
 def last_layer(outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The streaming step's five outputs (what ``__graft_entry__.entry``
-    returns in the JAX package): last-layer det and map heads and the BEV."""
+    """The streaming step's outputs (what ``__graft_entry__.entry`` returns
+    in the JAX package): last-layer det and map heads, the occupancy logits
+    (B, voxels, classes) of an occupancy head, and the BEV."""
     res = {"cls_scores": outs["all_cls_scores"][-1],
            "bbox_preds": outs["all_bbox_preds"][-1]}
     if "map_all_cls_scores" in outs:
         res["map_cls_scores"] = outs["map_all_cls_scores"][-1]
         res["map_pts_preds"] = outs["map_all_pts_preds"][-1]
+    if "occupancy_preds" in outs:
+        res["occupancy_preds"] = outs["occupancy_preds"]
     res["bev_embed"] = outs["bev_embed"]
     return res
+
+
+def occupancy_rule(cfg: ExperimentConfig) -> str:
+    """occupancy_prediction's rule for the config's occupancy loss: the
+    focal threshold for both focal losses, the argmax for CE."""
+    t = cfg.model.occ_loss_type
+    return "focal_loss" if t == "CustomFocalLoss" else t
 
 
 class StreamingRunner:
@@ -56,7 +72,7 @@ class StreamingRunner:
     @torch.inference_mode()
     def step(self, frame: dict) -> dict:
         """-> {outs: last-layer outputs, det: Detections, map: vectors,
-        has_prev}, all on the device."""
+        occ: the (voxels,) class grid, has_prev}, all on the device."""
         m = self.cfg.model
         cb, has_prev = self.state.prepare_frame(frame["can_bus"],
                                                 frame["scene_token"])
@@ -75,4 +91,28 @@ class StreamingRunner:
         if "map_cls_scores" in res:
             out["map"] = get_map_results(res["map_cls_scores"],
                                          res["map_pts_preds"], m.pc_range)
+        if "occupancy_preds" in res:
+            out["occ"] = occupancy_prediction(res["occupancy_preds"],
+                                              occupancy_rule(self.cfg))[0]
         return out
+
+
+def evaluate_results(cfg: ExperimentConfig, results: Dict[str, list],
+                     gt: Dict[str, list]) -> Dict[str, float]:
+    """All applicable evaluators: ``results`` and ``gt`` hold per-frame
+    records under "det" and "map" (evaluation/formatting.py) and dense
+    occupancy class grids (numpy) under "occ"."""
+    out: Dict[str, float] = {}
+    if results["det"] and gt.get("det"):
+        out.update(evaluate_detection(gt["det"], results["det"]))
+    if results["map"] and gt.get("map"):
+        out.update(evaluate_map(results["map"], gt["map"]))
+    if results["occ"] and gt.get("occ") is not None:
+        metrics = SSCMetrics(n_classes=cfg.model.occupancy_classes + 1,
+                             point_cloud_range=cfg.model.pc_range)
+        for pred, true in zip(results["occ"], gt["occ"]):
+            metrics.add_batch(pred, true)
+        s = metrics.get_stats()
+        out["occ_iou"] = float(s["iou"])
+        out["occ_miou"] = float(s["miou"])
+    return out

@@ -59,13 +59,41 @@ Phases, each printing JSON lines:
                beside a witness of the step's own sensitivity (the plain
                step on slightly perturbed images);
                steady-state steps/s in bf16 and f32 and a profile of each.
+  stream_occ   Apollo's det+occ model bev_tiny_det_occ_apollo at full width
+               (the flagship's trunk and encoder, 11 Group-DETR groups of
+               900 queries of which a frame serves the first, CNN
+               upsampling to a 200x200x16 grid of 128-wide voxels, 16
+               classes) through the streaming runner as ``stream``: exact
+               launch counts per frame (9 plain + 3 masked, vector), finite
+               outputs, the class histogram of each frame's occupancy grid;
+               its f32 frame with history against the same frame under
+               ``ops.plain_versions()``; the bf16 frame's occupancy logits
+               and class grid against the f32 frame's, and the bf16 head
+               alone against the f32 head on one BEV (the upsampling
+               convolutions run in bf16, the JAX package's in f32),
+               within OCC_BF16_REL_TOL and OCC_BF16_AGREEMENT;
+               frames/s, peak memory, profiles.
+  train_occ    its train step as ``train`` (all 11 groups, 9,900 queries
+               in the det decoder, the occupancy losses): forward 15 plain
+               + 9 masked, backward 9 + 3 launches per step, the f32 step
+               against plain versions beside a witness with ``train``'s
+               limits, steps/s, peak memory, profiles.
   train_overfit  bev_smoke_det_map, batch 4 with painted GT, lr 4e-4,
                300 steps with warmup 30, as the JAX package's
                tools/overfit_check.py runs it: the loss curve every 10
                steps; fails unless the last loss_total is at most 30% of
                the first.
+  train_overfit_occ  bev_smoke_det_occ the same way; fails unless the last
+               loss_occupancy is at most OCC_OVERFIT_SHARE of the first
+               (loss_total stays high: loss_geo_scal does not fall, as in
+               the JAX package's run); prints the SSC occ_iou / occ_miou
+               of the trained model on its batch.
 The kernels phase also holds ``msda_bwd`` (plain and masked) at the
-flagship's four MSDA shapes against autograd through the plain version.
+flagship's four MSDA shapes and at the det+occ train step's 9,900-query
+decoder against autograd through the plain version.
+The full overfit-to-metric check (det mAP, map chamfer mAP, occ IoU/mIoU
+bars) is ``python3 -m apollo_vision_net_tpu_torch.tools.overfit_check``,
+not part of this run.
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 """
@@ -86,7 +114,9 @@ from apollo_vision_net_tpu_torch import ops
 from apollo_vision_net_tpu_torch.configs import (
     bev_base_det_map,
     bev_smoke_det_map,
+    bev_smoke_det_occ,
     bev_tiny_det_map_apollo,
+    bev_tiny_det_occ_apollo,
 )
 from apollo_vision_net_tpu_torch.data.synthetic import (
     camera_ring_lidar2img,
@@ -95,6 +125,7 @@ from apollo_vision_net_tpu_torch.data.synthetic import (
 )
 from apollo_vision_net_tpu_torch.data.temporal import StreamingState
 from apollo_vision_net_tpu_torch.models.detector import build_model
+from apollo_vision_net_tpu_torch.models.heads.occ_head import occupancy_prediction
 from apollo_vision_net_tpu_torch.models.layers import use_generator
 from apollo_vision_net_tpu_torch.ops import _build, dcn_cuda, msda_cuda
 from apollo_vision_net_tpu_torch.ops.dcn import modulated_deform_conv_ref
@@ -108,8 +139,14 @@ from apollo_vision_net_tpu_torch.parallel.optim import make_optimizer
 from apollo_vision_net_tpu_torch.runtime.inference import (
     StreamingRunner,
     last_layer,
+    occupancy_rule,
 )
 from apollo_vision_net_tpu_torch.runtime.train_loop import step_seed
+from apollo_vision_net_tpu_torch.tools.overfit_check import (
+    evaluate_overfit,
+    overfit,
+    overfit_config,
+)
 from apollo_vision_net_tpu_torch.utils import geometry
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 rate
@@ -127,6 +164,13 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # matmul algorithms and summation orders through ~60 layers; error relative
 # to each output's largest magnitude
 STREAM_REL_TOL = 2e-3
+# the bf16 occupancy logits (head alone, and the whole bf16 frame) against
+# the f32 ones, relative to the f32 logits' largest magnitude, and the share
+# of voxels given the same class; set from readings (H100: 9.5e-3 head,
+# 1.7e-2 frame, 99.2-99.5% equal classes; the bf16 smoke copy on the CPU:
+# 2.7e-2 and 4.3e-2, 99.1-99.2%)
+OCC_BF16_REL_TOL = 6e-2
+OCC_BF16_AGREEMENT = 0.97
 # the base f32 frame with kernels against the same frame under
 # ops.plain_versions() on the GPU: the same convolutions and products, the
 # kernels' sums in other orders through 101 + ~80 layers; relative as above
@@ -162,6 +206,14 @@ WITNESS_EPS = 1e-6
 # 19.6% (CPU). A loop that does not train stays near 100%.
 OVERFIT_SHARE = 0.30
 OVERFIT_STEPS = 300
+# the det+occ overfit (bev_smoke_det_occ, the same schedule) must bring
+# loss_occupancy to this share of its first value. The JAX package's run
+# (artifacts/overfit_r5, a 1500-step schedule) read 27.23 -> 0.659 (2.4%)
+# at step 300; the port's 300-step schedule on the CPU read 31.89 -> 4.03
+# (12.6%; its learning rate is down to a tenth by step 250). The limit is
+# about twice that reading. loss_total is not limited: loss_geo_scal (~27.6,
+# a third of the first total) does not fall in either package.
+OCC_OVERFIT_SHARE = 0.25
 # msda_bwd against autograd through the plain version, relative to each
 # gradient's largest magnitude: f32 sums in other orders (the atomics'
 # order changes from run to run); bf16 grad_value is the same f32 sum
@@ -509,6 +561,19 @@ def flagship_cases(dev):
     return cases
 
 
+def occ_cases(dev):
+    """The MSDA shape that the det+occ train step adds: the det decoder's
+    cross-attention over all 11 groups, 9,900 queries over the 50x50 BEV
+    (a served frame runs the first group, the flagship's 900)."""
+    m = bev_tiny_det_occ_apollo().model
+    g = torch.Generator(device=dev).manual_seed(5)
+    ref = torch.rand((1, m.num_query, 1, 2), generator=g, device=dev)
+    return [msda_case("det_decoder_occ_train", g, dev, B=1,
+                      hw=(m.bev_h, m.bev_w), H=8, D=m.embed_dims // 8,
+                      Q=m.num_query, P=4,
+                      ref_xy=ref.expand(1, m.num_query, 4, 2))]
+
+
 def base_msda_cases(dev):
     """The MSDA call shapes of one bev_base_det_map frame: TSA over the
     200x200 BEV (kernel 6's contract, exact), det and map decoders over it,
@@ -805,7 +870,8 @@ def msda_bwd_bound(value, shapes, loc, attn, tile_mask, q_tile):
 
 
 def bwd_rows(dev, cases):
-    """msda_bwd at the flagship's MSDA shapes in f32 and bf16 against the
+    """msda_bwd at the flagship's and the det+occ train step's MSDA shapes
+    in f32 and bf16 against the
     plain version's autograd: each gradient's max abs error and its error
     relative to its largest magnitude, the variant that ran, CUDA-graph
     time, the plain autograd's eager time and the bound."""
@@ -882,8 +948,8 @@ def conv3x3_ms(case, dtype):
 
 def phase_kernels(dev):
     rows, outs = [], {}
-    cases = (flagship_cases(dev) + base_msda_cases(dev) + msda_edge_cases(dev)
-             + factored_edge_cases(dev) + dcn_cases(dev))
+    cases = (flagship_cases(dev) + occ_cases(dev) + base_msda_cases(dev)
+             + msda_edge_cases(dev) + factored_edge_cases(dev) + dcn_cases(dev))
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
@@ -896,8 +962,11 @@ def phase_kernels(dev):
             want = plain()
             err = float((got.float() - want.float()).abs().max())
             finite = bool(torch.isfinite(got).all())
-            row = dict(case=case["name"], dtype=dname, max_abs_err=err,
-                       tol=TOL[dname], finite=finite,
+            entry = {"dcn": "dcn_fwd", "factored": "msda_fwd_factored"}.get(
+                case["kind"], "msda_fwd" if case.get("tile_mask") is None
+                else "msda_fwd_masked")
+            row = dict(case=case["name"], dtype=dname, entry=entry,
+                       max_abs_err=err, tol=TOL[dname], finite=finite,
                        max_abs_out=float(want.float().abs().max()))
             if ran:
                 row["variant"] = ran[0]
@@ -934,7 +1003,7 @@ def phase_kernels(dev):
                 raise AssertionError(f"kernel disagrees with plain: {row}")
             del got, want, kernel, plain, bound
     del cases, outs
-    rows += bwd_rows(dev, flagship_cases(dev))
+    rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev))
     torch.cuda.empty_cache()
     reset_launch_counts()
     return rows
@@ -993,10 +1062,16 @@ def drive(name, cfg, model, frames, expect_per_frame):
     finite = all(bool(torch.isfinite(t.float()).all())
                  for r in results for t in r["outs"].values())
     has_prev = [r["has_prev"] for r in results]
-    emit({"phase": name, "frames": n, "launches": launches,
-          "per_frame": {k: v / n for k, v in launches.items()},
-          "finite": finite, "has_prev": has_prev,
-          "dets_valid": [int(r["det"].valid.sum()) for r in results]})
+    line = {"phase": name, "frames": n, "launches": launches,
+            "per_frame": {k: v / n for k, v in launches.items()},
+            "finite": finite, "has_prev": has_prev,
+            "dets_valid": [int(r["det"].valid.sum()) for r in results]}
+    if "occ" in results[0]:
+        # voxels per class (the last one free) of each frame's grid
+        line["occ_class_hist"] = [torch.bincount(
+            r["occ"], minlength=cfg.model.occupancy_classes + 1).tolist()
+            for r in results]
+    emit(line)
     expect = {k: v * n for k, v in expect_per_frame.items()}
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches} != expected {expect}")
@@ -1071,6 +1146,108 @@ def phase_stream(dev):
     return launches
 
 
+def f32_frame_vs_plain(phase, model32, dev, frames, tol):
+    """One f32 frame with history (frame 1 after frame 0) on the GPU,
+    kernels against the plain versions of the same frame from the same
+    carried BEV; no kernel may launch under the plain versions."""
+    m = model32.head
+    deltas = first_deltas(frames)
+    _, prev = frame_step(model32, dev, frames[0], deltas[0], torch.zeros(
+        (1, m.bev_h * m.bev_w, m.embed_dims), device=dev))
+    got, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
+    torch.cuda.synchronize()
+    before = read_launch_counts()
+    t0 = time.perf_counter()
+    with ops.plain_versions():
+        want, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    errs = {k: _rel_err(got[k], want[k]) for k in got}
+    emit({"phase": phase, "has_prev": deltas[1][1], "rel_err": errs,
+          "tol": tol, "plain_frame_s": plain_s,
+          "plain_launches": {k: v - before[k]
+                             for k, v in read_launch_counts().items()}})
+    if (deltas[1][1] != 1.0 or max(errs.values()) > tol
+            or read_launch_counts() != before):
+        raise AssertionError(f"{phase}: GPU f32 frame disagrees with plain: {errs}")
+
+
+def occ_bf16_vs_f32(cfg, model, model32, dev, frames):
+    """What computing the occupancy upsampling in bf16 (the JAX package's
+    CNNUpsample computes in f32) changes: frame 1 (after frame 0) of the
+    bf16 model against the f32 model, and the bf16 head alone against the
+    f32 head on the f32 model's BEV. Logits as error relative to the f32
+    logits' largest magnitude; class grids as the share of voxels of equal
+    class, over all voxels and over those the f32 grid marks occupied.
+    Fails above OCC_BF16_REL_TOL or below OCC_BF16_AGREEMENT."""
+    deltas = first_deltas(frames)
+    m = model32.head
+    outs = {}
+    for name, mdl in (("bf16", model), ("f32", model32)):
+        _, prev = frame_step(mdl, dev, frames[0], deltas[0], torch.zeros(
+            (1, m.bev_h * m.bev_w, m.embed_dims), device=dev))
+        outs[name], _ = frame_step(mdl, dev, frames[1], deltas[1], prev)
+    want = outs["f32"]["occupancy_preds"]
+    with torch.inference_mode():
+        head = model.head.occ_branches(
+            model.head._occ_from_bev(outs["f32"]["bev_embed"]).float())
+    rule = occupancy_rule(cfg)
+    free = want.shape[-1]
+    w = occupancy_prediction(want, rule)
+    occupied = w != free
+    line = {"phase": "stream_occ_bf16_vs_f32",
+            "f32_occupied_share": float(occupied.float().mean())}
+    for name, got in (("frame", outs["bf16"]["occupancy_preds"]),
+                      ("head", head)):
+        same = occupancy_prediction(got, rule) == w
+        line[name] = {
+            "logits_rel_err": _rel_err(got, want),
+            "class_agreement": float(same.float().mean()),
+            "class_agreement_occupied": float(same[occupied].float().mean())
+            if bool(occupied.any()) else None}
+    line.update(tol=OCC_BF16_REL_TOL, min_agreement=OCC_BF16_AGREEMENT)
+    emit(line)
+    if (not bool(torch.isfinite(head).all())
+            or any(line[k]["logits_rel_err"] > OCC_BF16_REL_TOL
+                   or line[k]["class_agreement"] < OCC_BF16_AGREEMENT
+                   for k in ("frame", "head"))):
+        raise AssertionError(f"stream_occ_bf16_vs_f32: {line}")
+
+
+def phase_stream_occ(dev):
+    """bev_tiny_det_occ_apollo at full width through the streaming runner:
+    the flagship's launches without the map decoder, the occupancy grid's
+    class histogram, the f32 frame against plain versions, frames/s and
+    profiles."""
+    cfg = bev_tiny_det_occ_apollo()
+    cfg32 = f32_config(cfg)
+    m = cfg.model
+    torch.cuda.reset_peak_memory_stats()
+    frames = [_frame_to(f, dev) for f in
+              make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
+    model = build_model(cfg, device=dev, seed=0)
+    # per frame: TSA per encoder layer and cross-attention per det decoder
+    # layer (9), SCA per encoder layer (3), all on the vector variants
+    n_plain = m.encoder_layers + m.decoder_layers
+    launches = drive("stream_occ", cfg, model, frames, {
+        **dict.fromkeys(read_launch_counts(), 0),
+        "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
+        "msda_fwd_masked": m.encoder_layers,
+        "msda_fwd_masked.vector": m.encoder_layers})
+    model32 = build_model(cfg32, device=dev, seed=0)
+    model32.load_state_dict(model.state_dict())
+    f32_frame_vs_plain("stream_occ_f32_vs_plain", model32, dev, frames,
+                       STREAM_REL_TOL)
+    occ_bf16_vs_f32(cfg, model, model32, dev, frames)
+    fps = {name: frames_per_s(c, mdl, frames, 20)
+           for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32))}
+    emit({"phase": "stream_occ_fps", "frames_per_s": fps,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32)):
+        profile_frames("profile_occ", name, c, mdl, frames, 1e3 / fps[name])
+    return launches
+
+
 @torch.no_grad()
 def perturb_offset_predictors(model, seed):
     """Seeded N(0, 1/fan_in) noise on the zero-initialized DCN offset convs
@@ -1105,30 +1282,10 @@ def phase_stream_base(dev):
         "msda_fwd_factored.vector": m.encoder_layers,
         "dcn_fwd": n_dcn, "dcn_fwd.vector": n_dcn})
 
-    # one f32 frame with history on the GPU, kernels against the plain
-    # versions of the same frame from the same carried BEV
     model32 = build_model(cfg32, device=dev, seed=0)
     model32.load_state_dict(model.state_dict())
-    deltas = first_deltas(frames)
-    _, prev = frame_step(model32, dev, frames[0], deltas[0], torch.zeros(
-        (1, m.bev_h * m.bev_w, m.embed_dims), device=dev))
-    got, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
-    torch.cuda.synchronize()
-    before = read_launch_counts()
-    t0 = time.perf_counter()
-    with ops.plain_versions():
-        want, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    errs = {k: _rel_err(got[k], want[k]) for k in got}
-    emit({"phase": "stream_base_f32_vs_plain", "has_prev": deltas[1][1],
-          "rel_err": errs, "tol": BASE_REL_TOL, "plain_frame_s": plain_s,
-          "plain_launches": {k: v - before[k]
-                             for k, v in read_launch_counts().items()}})
-    if (deltas[1][1] != 1.0 or max(errs.values()) > BASE_REL_TOL
-            or read_launch_counts() != before):
-        raise AssertionError(f"GPU f32 base frame disagrees with plain: {errs}")
-    del got, want, prev
+    f32_frame_vs_plain("stream_base_f32_vs_plain", model32, dev, frames,
+                       BASE_REL_TOL)
 
     fps = {name: frames_per_s(c, mdl, frames, 10)
            for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32))}
@@ -1143,13 +1300,13 @@ def phase_stream_base(dev):
 
 def train_launches_per_step(cfg) -> dict:
     """Launches of one train step, by entry and variant: the forward runs
-    TSA per encoder layer in each of the T queue frames and the 6 + 6
-    decoder layers on the supervised one (plain entry), SCA per encoder
+    TSA per encoder layer in each of the T queue frames and the det (and
+    map) decoder layers on the supervised one (plain entry), SCA per encoder
     layer in each frame (masked entry); the backward runs on the supervised
     frame's calls only (the history replay is under no_grad)."""
     m = cfg.model
     T, E = m.queue_length, m.encoder_layers
-    dec = m.decoder_layers + m.map_decoder_layers
+    dec = m.decoder_layers + (m.map_decoder_layers if m.with_map else 0)
     n = {"msda_fwd": T * E + dec, "msda_fwd_masked": T * E,
          "msda_bwd": E + dec, "msda_bwd_masked": E}
     out = dict.fromkeys(read_launch_counts(), 0)
@@ -1195,11 +1352,11 @@ def grad_step(model, cfg, batch, gen, seed, indices=None):
     return {k: float(v.detach()) for k, v in losses.items()}, grads, indices
 
 
-def phase_train(dev):
-    """The flagship's train step at full width: bf16 steps with exact
-    launch counts, the f32 step with kernels against plain versions,
-    steps/s and a profile."""
-    cfg = bev_tiny_det_map_apollo()
+def phase_train(dev, cfg, phase):
+    """A train step at full width (the flagship's, ``phase`` "train", or
+    the det+occ model's, "train_occ"): bf16 steps with exact launch counts,
+    the f32 step with kernels against plain versions, steps/s and a
+    profile."""
     cfg32 = f32_config(cfg)
     torch.cuda.reset_peak_memory_stats()
     batch = train_lib.batch_to_device(
@@ -1220,7 +1377,7 @@ def phase_train(dev):
     launches = read_launch_counts()
     expect = {k: v * n_steps for k, v in train_launches_per_step(cfg).items()}
     finite = all(math.isfinite(v) for h in history for v in h.values())
-    emit({"phase": "train", "steps": n_steps, "seconds_incl_first": seconds,
+    emit({"phase": phase, "steps": n_steps, "seconds_incl_first": seconds,
           "launches": launches,
           "per_step": {k: v / n_steps for k, v in launches.items()},
           "finite": finite,
@@ -1228,9 +1385,9 @@ def phase_train(dev):
           "grad_norm": [h["grad_norm"] for h in history],
           "terms_last": history[-1]})
     if launches != expect:
-        raise AssertionError(f"train: launches {launches} != expected {expect}")
+        raise AssertionError(f"{phase}: launches {launches} != expected {expect}")
     if not finite:
-        raise AssertionError(f"train: non-finite loss terms {history}")
+        raise AssertionError(f"{phase}: non-finite loss terms {history}")
 
     # one f32 step with kernels against the same step under plain versions:
     # same weights, batch, generator draws and (the kernels' run's)
@@ -1277,7 +1434,7 @@ def phase_train(dev):
     del wit_g, wbatch, noise
     rel = rel_errs(got_g, want_g)
     norm = norm_errs(got_g, want_g)
-    emit({"phase": "train_f32_vs_plain", "loss_rel_err": loss_err,
+    emit({"phase": phase + "_f32_vs_plain", "loss_rel_err": loss_err,
           "max_loss_rel_err": max(loss_err.values()),
           "params_with_grad": len(want_g), "params": len(dict(model32.named_parameters())),
           "grad_worst_rel_err": worst(rel),
@@ -1297,21 +1454,22 @@ def phase_train(dev):
     if (max(loss_err.values()) > TRAIN_REL_TOL or bad
             or set(got_g) != set(want_g) or any(plain_launches.values())
             or len(want_g) != len(dict(model32.named_parameters()))):
-        raise AssertionError(f"f32 train step disagrees with plain: {bad[:8]}")
+        raise AssertionError(f"{phase}: f32 step disagrees with plain: {bad[:8]}")
     del got_g, want_g, again_g
 
     optimizer32 = make_optimizer(model32, cfg32.optim)
     sps = {"bf16": steps_per_s(cfg, model, optimizer, batch, gen, 5),
            "f32": steps_per_s(cfg32, model32, optimizer32, batch, gen, 5)}
-    emit({"phase": "train_steps_per_s", "steps_per_s": sps,
+    emit({"phase": phase + "_steps_per_s", "steps_per_s": sps,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for name, c, mdl, opt in (("bf16", cfg, model, optimizer),
                               ("f32", cfg32, model32, optimizer32)):
-        profile_train(c, mdl, opt, batch, gen, name, 1e3 / sps[name])
+        profile_train("profile_" + phase, c, mdl, opt, batch, gen, name,
+                      1e3 / sps[name])
     return launches
 
 
-def profile_train(cfg, model, optimizer, batch, gen, name, step_ms):
+def profile_train(phase, cfg, model, optimizer, batch, gen, name, step_ms):
     """torch.profiler over 2 warm train steps: device busy ms per step, idle
     share against the unprofiled step time, kernels and host syncs per
     step, the top kernels by device time."""
@@ -1323,47 +1481,35 @@ def profile_train(cfg, model, optimizer, batch, gen, name, step_ms):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         train_steps(cfg, model, optimizer, batch, gen, 201, n)
         torch.cuda.synchronize()
-    summarize_profile(prof, "profile_train", name, n, "step", step_ms)
+    summarize_profile(prof, phase, name, n, "step", step_ms)
 
 
-def phase_train_overfit(dev, steps=OVERFIT_STEPS):
-    """bev_smoke_det_map set up as the JAX package's tools/overfit_check.py
-    sets it up: batch 4 with GT cues painted into the images, lr 4e-4,
-    warmup max(steps / 10, 10), cosine to ``steps``; the loss curve every 10
-    steps. Fails unless the last loss_total is at most OVERFIT_SHARE of the
+def phase_train_overfit(dev, cfg, phase, term, share, steps=OVERFIT_STEPS):
+    """A smoke config through the port's overfit tool, set up as the JAX
+    package's tools/overfit_check.py sets it up: batch 4 with GT cues
+    painted into the images, lr 4e-4, warmup max(steps / 10, 10), cosine to
+    ``steps``; the loss curve every 10 steps and the metrics of the trained
+    model on its batch. Fails unless
+    the last value of the loss term ``term`` is at most ``share`` of the
     first."""
-    cfg = bev_smoke_det_map()
-    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
-        cfg.optim, lr=4e-4, warmup_iters=max(steps // 10, 10),
-        total_steps=steps))
-    batch = train_lib.batch_to_device(
-        make_batch(cfg, 4, seed=0, paint_gt=True), dev)
-    model = build_model(cfg, device=dev, seed=0).train()
-    optimizer = make_optimizer(model, cfg.optim)
-    gen = torch.Generator(device=dev)
+    cfg = overfit_config(cfg, steps)
     reset_launch_counts()
-    curve = []
     t0 = time.perf_counter()
-    for i in range(steps):
-        losses = train_steps(cfg, model, optimizer, batch, gen, i, 1)
-        if i % 10 == 0 or i == steps - 1:
-            curve.append({"step": i, "loss_total": float(losses["loss_total"]),
-                          "loss_cls": float(losses["loss_cls"]),
-                          "loss_bbox": float(losses["loss_bbox"]),
-                          "loss_map_pts": float(losses["loss_map_pts"])})
+    model, batch, curve = overfit(cfg, steps=steps, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launch_counts()
-    first, last = curve[0]["loss_total"], curve[-1]["loss_total"]
-    emit({"phase": "train_overfit", "config": cfg.name, "steps": steps,
-          "seconds": seconds, "curve": curve, "first": first, "last": last,
-          "share": last / first, "limit": OVERFIT_SHARE,
-          "launches": launches})
+    metrics = evaluate_overfit(cfg, model, batch)
+    first, last = curve[0][term], curve[-1][term]
+    emit({"phase": phase, "config": cfg.name, "steps": steps,
+          "seconds": seconds, "curve": curve, "term": term, "first": first,
+          "last": last, "share": last / first, "limit": share,
+          "metrics": metrics, "launches": launches})
     expect = {k: v * steps for k, v in train_launches_per_step(cfg).items()}
     if launches != expect:
-        raise AssertionError(f"train_overfit: launches {launches} != {expect}")
-    if not math.isfinite(last) or last > OVERFIT_SHARE * first:
-        raise AssertionError(f"train_overfit: {first} -> {last}")
+        raise AssertionError(f"{phase}: launches {launches} != {expect}")
+    if not math.isfinite(last) or last > share * first:
+        raise AssertionError(f"{phase}: {term} {first} -> {last}")
     return launches
 
 
@@ -1441,6 +1587,13 @@ def kernels_line(rows, launches_by_path):
             entry[key] = sum(r[key] * mix[r["case"]] for r in bf)
         entry["bound_by"] = "bytes" if all(
             r["bound_by"] == "bytes" for r in bf) else "operations"
+        # every measured shape of the entry, per call in bf16
+        entry["rows"] = [
+            {"case": r["case"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "share": r["bound_ms"] / r["ms"]}
+            for r in rows if r.get("entry") == name and "ms" in r
+            and r["dtype"] == "bfloat16"]
         entry["library_ms"] = None
         entry["frame"] = frame
         entry["per_frame_calls"] = mix
@@ -1476,9 +1629,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["stream_base"] = phase_stream_base(dev)
     torch.cuda.empty_cache()
-    launches["train"] = phase_train(dev)
+    launches["train"] = phase_train(dev, bev_tiny_det_map_apollo(), "train")
     torch.cuda.empty_cache()
-    launches["train_overfit"] = phase_train_overfit(dev)
+    launches["stream_occ"] = phase_stream_occ(dev)
+    torch.cuda.empty_cache()
+    launches["train_occ"] = phase_train(dev, bev_tiny_det_occ_apollo(),
+                                        "train_occ")
+    torch.cuda.empty_cache()
+    launches["train_overfit"] = phase_train_overfit(
+        dev, bev_smoke_det_map(), "train_overfit", "loss_total", OVERFIT_SHARE)
+    launches["train_overfit_occ"] = phase_train_overfit(
+        dev, bev_smoke_det_occ(), "train_overfit_occ", "loss_occupancy",
+        OCC_OVERFIT_SHARE)
     emit(kernels_line(rows, launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,8 +21,16 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.data.synthetic",
     "apollo_vision_net_tpu_torch.data.temporal",
     "apollo_vision_net_tpu_torch.data.vector_map",
+    "apollo_vision_net_tpu_torch.evaluation.formatting",
+    "apollo_vision_net_tpu_torch.evaluation.map_eval",
+    "apollo_vision_net_tpu_torch.evaluation.nuscenes_det",
+    "apollo_vision_net_tpu_torch.evaluation.ssc_metrics",
     "apollo_vision_net_tpu_torch.losses.det_loss",
     "apollo_vision_net_tpu_torch.losses.map_loss",
+    "apollo_vision_net_tpu_torch.losses.multitask",
+    "apollo_vision_net_tpu_torch.losses.occ_loss",
+    "apollo_vision_net_tpu_torch.models.heads.occ_head",
+    "apollo_vision_net_tpu_torch.tools.overfit_check",
     "apollo_vision_net_tpu_torch.parallel.optim",
     "apollo_vision_net_tpu_torch.parallel.train",
     "apollo_vision_net_tpu_torch.runtime.checkpoint",
@@ -102,13 +110,17 @@ def test_data_copies_equal_the_jax_ones():
 
     np.testing.assert_array_equal(tsyn.camera_ring_lidar2img(6, 480, 800),
                                   jsyn.camera_ring_lidar2img(6, 480, 800))
+    for cfg in (jax_configs.bev_smoke_det_map(), jax_configs.bev_smoke_det_occ()):
+        want = jsyn.make_batch(cfg, batch_size=2, seed=5)
+        got = tsyn.make_batch(port_configs.ExperimentConfig(
+            **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}),
+            batch_size=2, seed=5)
+        assert set(got) == set(want)
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+    # random sparse occupancy GT: free voxels and every class
+    assert (got["gt_occupancy"] == 16).mean() > 0.9
     cfg = jax_configs.bev_smoke_det_map()
-    want = jsyn.make_batch(cfg, batch_size=2, seed=5)
-    got = tsyn.make_batch(port_configs.ExperimentConfig(
-        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}),
-        batch_size=2, seed=5)
-    for k, v in got.items():
-        np.testing.assert_array_equal(v, want[k], err_msg=k)
 
     frames = tsyn.make_stream(cfg, 5, seed=1, scene_change_at=(3,))
     js, ts = JState(), StreamingState()
@@ -129,9 +141,14 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     for cfg in (port_configs.bev_tiny_det_map_apollo(),
-                port_configs.bev_base_det_map()):
+                port_configs.bev_base_det_map(),
+                port_configs.bev_tiny_det_occ_apollo()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)
+    from apollo_vision_net_tpu_torch.tools.overfit_check import overfit
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        overfit(port_configs.bev_smoke_det_occ(), steps=1)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -155,6 +172,14 @@ def test_smoke_config_equals_the_jax_one():
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
+@pytest.mark.parametrize("name", ["bev_tiny_det_occ_apollo", "bev_smoke_det_occ"])
+def test_occupancy_configs_equal_the_jax_ones(name):
+    j = getattr(jax_configs, name)()
+    t = getattr(port_configs, name)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.with_occupancy and t.model.group_detr > 1
+
+
 def test_make_batch_map_gt_and_painted_cues_equal_the_jax_ones():
     """make_batch with paint_gt (box and map cues painted into every frame)
     and its map GT keys, for the smoke and flagship-sized configs, equal the
@@ -164,21 +189,28 @@ def test_make_batch_map_gt_and_painted_cues_equal_the_jax_ones():
     from apollo_vision_net_tpu.data import synthetic as jsyn
     from apollo_vision_net_tpu_torch.data import synthetic as tsyn
 
-    small = dataclasses.replace(
-        jax_configs.bev_tiny_det_map_apollo(),
-        model=dataclasses.replace(jax_configs.bev_tiny_det_map_apollo().model,
-                                  img_shape=(96, 160)))
-    for cfg in (jax_configs.bev_smoke_det_map(), small):
+    def smaller(cfg):
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, img_shape=(96, 160)))
+
+    occ_keys = {"gt_occupancy"}
+    map_keys = {"map_shift_pts", "map_labels", "map_mask", "map_order_mask"}
+    for cfg, keys in ((jax_configs.bev_smoke_det_map(), map_keys),
+                      (smaller(jax_configs.bev_tiny_det_map_apollo()), map_keys),
+                      (jax_configs.bev_smoke_det_occ(), occ_keys),
+                      (smaller(jax_configs.bev_tiny_det_occ_apollo()), occ_keys)):
         want = jsyn.make_batch(cfg, batch_size=3, seed=7, paint_gt=True)
         got = tsyn.make_batch(port_configs.ExperimentConfig(
             **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}),
             batch_size=3, seed=7, paint_gt=True)
         assert set(got) == set(want)
-        assert {"map_shift_pts", "map_labels", "map_mask",
-                "map_order_mask"} <= set(got)
+        assert keys <= set(got)
         for k, v in got.items():
             np.testing.assert_array_equal(v, want[k], err_msg=k)
-        assert (got["img"] == 4.0).any() and (got["img"] == -4.0).any()
+        assert (got["img"] == 4.0).any()
+        assert (got["img"] == -4.0).any() == (keys == map_keys)
+        if keys == occ_keys:  # the voxelized boxes: some voxels of a class
+            assert (got["gt_occupancy"] < cfg.model.occupancy_classes).any()
 
 
 @pytest.mark.parametrize("pattern", ["v0", "v1", "v2"])
