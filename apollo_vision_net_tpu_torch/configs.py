@@ -221,3 +221,22 @@ def bev_base_det_map() -> ExperimentConfig:
         ),
         compute_dtype="bfloat16",
     )
+
+
+def bev_base_occ() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_base_occ.py: BEVFormer-base's trunk
+    (R101 with DCN in stages 3-4, a 4-level FPN, 200×200 BEV, 6 encoder
+    layers) with the det head and the MLP occupancy head on a 200×200×16
+    grid at 0.5 m."""
+    return ExperimentConfig(
+        name="bev_base_occ",
+        model=ModelConfig(
+            bev_h=200, bev_w=200, backbone_depth=101,
+            backbone_dcn_stages=(False, False, True, True),
+            backbone_out_indices=(1, 2, 3), num_feature_levels=4,
+            encoder_layers=6, with_occupancy=True,
+            occ_head_type="mlp", occ_xdim=200, occ_ydim=200,
+            msda_impl="auto_fast",
+        ),
+        compute_dtype="bfloat16",
+    )

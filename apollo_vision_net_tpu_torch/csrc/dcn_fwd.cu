@@ -79,6 +79,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "cast_bf16.cuh"
+
 namespace {
 
 constexpr int kTaps = 9;
@@ -187,36 +189,63 @@ __device__ __forceinline__ float unit_elem(const uint4& v, int e,
   return __uint_as_float(w);
 }
 
+// Tap `tap` of output pixel m: the four corner element offsets in x (-1
+// outside the image), their bilinear weights (0 outside), the fractions
+// fx = px - floor(px), fy = py - floor(py) and the mask. The forward and
+// the backward (dcn_bwd.cuh) both form their samples from it, so both round
+// the positions and weights the same way.
+struct TapSample {
+  int idx[4];
+  float bw[4];
+  float fx, fy, mk;
+};
+
+__device__ __forceinline__ TapSample tap_sample(const float* __restrict__ offset,
+                                                const float* __restrict__ mask,
+                                                int m, int tap, int H, int W,
+                                                int C, int Ho, int Wo,
+                                                int stride) {
+  const int Q = Ho * Wo;
+  const int b = m / Q, q = m - b * Q;
+  const int oy = q / Wo, ox = q - oy * Wo;
+  const float* om = offset + ((int64_t)m * kTaps + tap) * 2;
+  const float px = (float)(ox * stride + tap % 3 - 1) + om[0];
+  const float py = (float)(oy * stride + tap / 3 - 1) + om[1];
+  TapSample t;
+  t.mk = mask[(int64_t)m * kTaps + tap];
+  const float fx0 = floorf(px), fy0 = floorf(py);
+  t.fx = px - fx0;
+  t.fy = py - fy0;
+  const int x0 = (int)fx0, y0 = (int)fy0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int cx = j & 1, cy = j >> 1;
+    const int xx = x0 + cx, yy = y0 + cy;
+    const bool in = xx >= 0 && xx < W && yy >= 0 && yy < H;
+    t.idx[j] = in ? ((b * H + yy) * W + xx) * C : -1;
+    t.bw[j] = in ? __fmul_rn(cx ? t.fx : 1.f - t.fx, cy ? t.fy : 1.f - t.fy)
+                 : 0.f;
+  }
+  return t;
+}
+
 template <int BM>
 __device__ void fill_corners(TapCorners* tab, const float* __restrict__ offset,
                              const float* __restrict__ mask, int m0, int M,
                              int H, int W, int C, int Ho, int Wo,
                              int stride) {
-  const int Q = Ho * Wo;
   for (int e = threadIdx.x; e < kTaps * BM; e += kThreads) {
     const int tap = e / BM, i = e - tap * BM;
     const int m = m0 + i;
     int idx[4] = {-1, -1, -1, -1};
     float wt[4] = {0.f, 0.f, 0.f, 0.f};
     if (m < M) {
-      const int b = m / Q, q = m - b * Q;
-      const int oy = q / Wo, ox = q - oy * Wo;
-      const float* om = offset + ((int64_t)m * kTaps + tap) * 2;
-      const float px = (float)(ox * stride + tap % 3 - 1) + om[0];
-      const float py = (float)(oy * stride + tap / 3 - 1) + om[1];
-      const float mk = mask[(int64_t)m * kTaps + tap];
-      const float fx0 = floorf(px), fy0 = floorf(py);
-      const float fx = px - fx0, fy = py - fy0;
-      const int x0 = (int)fx0, y0 = (int)fy0;
+      const TapSample t =
+          tap_sample(offset, mask, m, tap, H, W, C, Ho, Wo, stride);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int cx = j & 1, cy = j >> 1;
-        const int xx = x0 + cx, yy = y0 + cy;
-        if (xx >= 0 && xx < W && yy >= 0 && yy < H) {
-          idx[j] = ((b * H + yy) * W + xx) * C;
-          wt[j] = __fmul_rn(__fmul_rn(cx ? fx : 1.f - fx, cy ? fy : 1.f - fy),
-                            mk);
-        }
+        idx[j] = t.idx[j];
+        wt[j] = t.idx[j] >= 0 ? __fmul_rn(t.bw[j], t.mk) : 0.f;
       }
     }
     tab[e].idx = make_int4(idx[0], idx[1], idx[2], idx[3]);
@@ -530,6 +559,9 @@ int dispatch(const void* x, const float* offset, const float* mask,
                                   Wo, O, stride, s);
 }
 
+// The backward's kernels (im2col and col2im), which use the helpers above.
+#include "dcn_bwd.cuh"
+
 }  // namespace
 
 // Returns 0 on success, else a cudaError_t code. dtype 0 = f32, 1 = bf16
@@ -556,4 +588,84 @@ extern "C" int dcn_fwd(const void* x, int dtype, const float* offset,
                                    Ho, Wo, O, stride, s, variant);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------- backward
+// The entries of the backward (dcn_bwd.cuh). They live in this source so
+// that the forward and its backward build into one library, bound by one
+// wrapper (ops/dcn_cuda.py).
+
+static bool dcn_shape_ok(int B, int H, int W, int C, int Ho, int Wo,
+                         int stride) {
+  return B >= 0 && H >= 1 && W >= 1 && C >= 1 && stride >= 1 && Ho >= 0 &&
+         Wo >= 0 && (int64_t)B * H * W * C <= INT32_MAX &&
+         (int64_t)B * Ho * Wo * kTaps <= INT32_MAX - kBwdItems;
+}
+
+// col (B * Ho * Wo, 9 * C) in x's dtype: the modulated samples rounded to
+// x's dtype, exactly as the forward forms them. Returns 0 on success, else
+// a cudaError_t code; *variant as dcn_fwd's.
+extern "C" int dcn_bwd_im2col(const void* x, int dtype, const float* offset,
+                              const float* mask, void* col, int B, int H,
+                              int W, int C, int Ho, int Wo, int stride,
+                              void* stream, int* variant) {
+  if (!dcn_shape_ok(B, H, W, C, Ho, Wo, stride)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int M = B * Ho * Wo;
+  if (M == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    return im2col_dispatch<float>(x, offset, mask, col, M, H, W, C, Ho, Wo,
+                                  stride, s, variant);
+  }
+  if (dtype == 1) {
+    return im2col_dispatch<__nv_bfloat16>(x, offset, mask, col, M, H, W, C,
+                                          Ho, Wo, stride, s, variant);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// From dcol (B * Ho * Wo, 9 * C) in x's dtype, the gradient of the samples:
+// grad_x (B, H, W, C) in x's dtype through the f32 scratch grad_x_f32
+// (zero-filled here; for f32 x it is grad_x itself), grad_offset
+// (B, Ho, Wo, 9, 2) and grad_mask (B, Ho, Wo, 9) in f32. Returns 0 on
+// success, else a cudaError_t code; *variant as dcn_fwd's.
+extern "C" int dcn_bwd_col2im(const void* x, int dtype, const float* offset,
+                              const float* mask, const void* dcol,
+                              float* grad_x_f32, void* grad_x,
+                              float* grad_offset, float* grad_mask, int B,
+                              int H, int W, int C, int Ho, int Wo, int stride,
+                              void* stream, int* variant) {
+  if (!dcn_shape_ok(B, H, W, C, Ho, Wo, stride)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t n_x = (int64_t)B * H * W * C;
+  if (n_x > 0) {
+    const cudaError_t e =
+        cudaMemsetAsync(grad_x_f32, 0, n_x * sizeof(float), s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int M = B * Ho * Wo;
+  if (M > 0) {
+    const int err =
+        dtype == 0
+            ? col2im_dispatch<float>(x, offset, mask, dcol, grad_x_f32,
+                                     grad_offset, grad_mask, M, H, W, C, Ho,
+                                     Wo, stride, s, variant)
+            : col2im_dispatch<__nv_bfloat16>(x, offset, mask, dcol,
+                                             grad_x_f32, grad_offset,
+                                             grad_mask, M, H, W, C, Ho, Wo,
+                                             stride, s, variant);
+    if (err != 0) return err;
+  }
+  if (dtype == 1 && n_x > 0) {
+    const int64_t blocks = (n_x + kThreads - 1) / kThreads;
+    cast_bf16_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536),
+                       kThreads, 0, s>>>(
+        grad_x_f32, (__nv_bfloat16*)grad_x, n_x);
+  }
+  return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // What the MSDA forward (msda_fwd.cu) and backward (msda_bwd.cu) share: the
 // level table, the loads and stores of f32 and bf16, and the formation of a
-// sample's four bilinear corners. The backward must form its corners, and
+// sample's location (on factored operands) and four bilinear corners. The backward must form its corners, and
 // round them, exactly as the forward does, so both take them from here.
 #pragma once
 
@@ -92,6 +92,18 @@ __device__ __forceinline__ Bilinear4 bilinear_at(const SharedLevels& s, int l,
   return c;
 }
 
+// The location of a sample of level l on factored operands (the factored
+// entries of msda_fwd.cu and msda_bwd.cu): loc = ref + off * (1 / w_l,
+// 1 / h_l), the f32 reciprocal, then a multiply and an add, each rounded as
+// the plain materialize_factored rounds them.
+__device__ __forceinline__ float2 factored_loc(const SharedLevels& s, int l,
+                                               float rx, float ry, float ox,
+                                               float oy) {
+  const float4 f = s.whi[l];
+  return make_float2(__fadd_rn(rx, __fmul_rn(ox, f.z)),
+                     __fadd_rn(ry, __fmul_rn(oy, f.w)));
+}
+
 // The corners of a sample with its weight attn x bilinear (0 outside the
 // grid).
 struct Corners4 {
@@ -120,6 +132,15 @@ __device__ __forceinline__ Corners4 corners_at(const SharedLevels& s, int l,
     c.wt[k] = bl.idx[k] >= 0 ? __fmul_rn(bl.cw[k], a) : 0.f;
   }
   return c;
+}
+
+// The corners of a factored sample (see factored_loc).
+__device__ __forceinline__ Corners4 sample_corners(const SharedLevels& s,
+                                                   int l, float rx, float ry,
+                                                   float ox, float oy,
+                                                   float a, int row) {
+  const float2 xy = factored_loc(s, l, rx, ry, ox, oy);
+  return corners_at(s, l, xy.x, xy.y, a, row);
 }
 
 // Host side: the level table from 2 * L host ints (h0, w0, h1, w1, ...);

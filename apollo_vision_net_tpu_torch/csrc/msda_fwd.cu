@@ -139,17 +139,6 @@ constexpr int kFactoredItemsPerWarp = 16;  // (query, head) items per warp
 constexpr int kFactoredItems = kFactoredWarps * kFactoredItemsPerWarp;
 constexpr int kFactoredBatch = 4;          // loads issued before any is used
 
-// The corners of a factored sample: loc = ref + off * (1 / w), each op
-// rounded as the plain materialize_factored rounds it.
-__device__ __forceinline__ Corners4 sample_corners(const SharedLevels& s,
-                                                   int l, float rx, float ry,
-                                                   float ox, float oy,
-                                                   float a, int row) {
-  const float4 f = s.whi[l];
-  return corners_at(s, l, __fadd_rn(rx, __fmul_rn(ox, f.z)),
-                    __fadd_rn(ry, __fmul_rn(oy, f.w)), a, row);
-}
-
 // The (query, head) item of a block's warp (item = (b * Q + q) * H + hh;
 // the entry checks that B * Q * H fits an int, so the divisions are 32-bit).
 struct FactoredItem {

@@ -30,9 +30,3 @@ def use_plain(t: torch.Tensor) -> bool:
     """True for a CPU tensor, or inside ``plain_versions()``."""
     return t.device.type == "cpu" or _plain_depth > 0
 
-
-def needs_grad(*tensors: torch.Tensor) -> bool:
-    """True when autograd records and some input requires a gradient: a
-    kernel without a backward must then refuse the call rather than return
-    a tensor cut from the graph."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)

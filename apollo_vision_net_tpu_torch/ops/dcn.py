@@ -13,15 +13,15 @@ contracted with the weight in f32 and the result rounded to x's dtype (the
 JAX package's ``_dcn_xla_ref`` order: sample first, then project).
 
 ``modulated_deform_conv`` runs the plain version for CPU tensors and the
-CUDA kernel (ops/dcn_cuda.py) for CUDA tensors. The kernel has no backward
-yet: on CUDA tensors that require a gradient the front end raises rather
-than return a tensor cut from the graph.
+CUDA kernel (ops/dcn_cuda.py) for CUDA tensors, through ``DCNFunction``,
+whose backward is the hand-written CUDA backward (``dcn_cuda.dcn_bwd``);
+the plain version's backward is autograd through it.
 """
 from __future__ import annotations
 
 import torch
 
-from apollo_vision_net_tpu_torch.ops import needs_grad, use_plain
+from apollo_vision_net_tpu_torch.ops import use_plain
 
 # (dx, dy) of tap k = ky * 3 + kx
 _TAPS = torch.tensor([[kx - 1.0, ky - 1.0] for ky in range(3) for kx in range(3)])
@@ -60,20 +60,38 @@ def modulated_deform_conv_ref(x: torch.Tensor, offset: torch.Tensor,
     return out.to(x.dtype).reshape(B, Ho, Wo, O)
 
 
+class DCNFunction(torch.autograd.Function):
+    """The CUDA DCN forward (``dcn_cuda.dcn_fwd``) with its CUDA backward
+    (``dcn_cuda.dcn_bwd``): gradients of x, the offsets, the mask and the
+    weight."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, stride):
+        from apollo_vision_net_tpu_torch.ops import dcn_cuda
+
+        ctx.stride = stride
+        ctx.save_for_backward(x, offset, mask, weight)
+        return dcn_cuda.dcn_fwd(x, offset, mask, weight, stride)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from apollo_vision_net_tpu_torch.ops import dcn_cuda
+
+        x, offset, mask, weight = ctx.saved_tensors
+        grads = dcn_cuda.dcn_bwd(x, offset, mask, weight,
+                                 grad_out.to(x.dtype).contiguous(), ctx.stride)
+        return (*grads, None)
+
+
 def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                           mask: torch.Tensor, weight: torch.Tensor,
                           stride: int = 1) -> torch.Tensor:
     """DCNv2 front end: the plain version for CPU tensors, the hand-written
-    CUDA kernel for CUDA tensors (which raises on inputs it does not take)."""
+    CUDA kernel for CUDA tensors (which raises on inputs it does not take),
+    with the hand-written CUDA backward where a gradient is needed."""
     if offset.shape[-2:] != (9, 2) or weight.shape[0] != 9:
         raise ValueError(f"3x3 taps only: offset {tuple(offset.shape)}, "
                          f"weight {tuple(weight.shape)}")
     if use_plain(x):
         return modulated_deform_conv_ref(x, offset, mask, weight, stride)
-    if needs_grad(x, offset, mask, weight):
-        raise NotImplementedError(
-            "modulated_deform_conv: the CUDA kernel dcn_fwd has no backward "
-            "yet; its inputs require a gradient")
-    from apollo_vision_net_tpu_torch.ops import dcn_cuda
-
-    return dcn_cuda.dcn_fwd(x, offset, mask, weight, stride)
+    return DCNFunction.apply(x, offset, mask, weight, stride)

@@ -17,8 +17,8 @@ backward is the hand-written CUDA backward (``msda_cuda.msda_bwd``); the
 plain version's backward is autograd through it. ``ms_deform_attn_factored``
 does the same for multi-level SCA on factored operands (per-camera
 reference points, offsets and weights shared by the cameras of a sample),
-whose kernel has no backward yet: on CUDA tensors that require a gradient
-it raises rather than cut the graph.
+through ``FactoredMSDAFunction`` (``msda_cuda.msda_fwd_factored`` and
+``msda_cuda.msda_bwd_factored``).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from apollo_vision_net_tpu_torch.ops import needs_grad, use_plain
+from apollo_vision_net_tpu_torch.ops import use_plain
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -147,6 +147,38 @@ class MSDAFunction(torch.autograd.Function):
         return g_value, g_loc, g_attn, None, None, None
 
 
+class FactoredMSDAFunction(torch.autograd.Function):
+    """The factored CUDA MSDA forward (``msda_cuda.msda_fwd_factored``) with
+    its CUDA backward (``msda_cuda.msda_bwd_factored``): gradients of value,
+    reference points (only when autograd asks for them: the model's are
+    camera geometry), offsets and weights, those of a masked (camera, tile)
+    zero."""
+
+    @staticmethod
+    def forward(ctx, value, ref_flat, off_flat, attn_flat, spatial_shapes,
+                tile_mask, q_tile):
+        from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+        ctx.spatial_shapes = tuple(tuple(int(s) for s in hw)
+                                   for hw in spatial_shapes)
+        ctx.q_tile = q_tile
+        ctx.save_for_backward(value, ref_flat, off_flat, attn_flat, tile_mask)
+        return msda_cuda.msda_fwd_factored(
+            value, spatial_shapes, ref_flat, off_flat, attn_flat,
+            tile_mask=tile_mask, q_tile=q_tile)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+        value, ref_flat, off_flat, attn_flat, tile_mask = ctx.saved_tensors
+        g_value, g_ref, g_off, g_attn = msda_cuda.msda_bwd_factored(
+            value, ctx.spatial_shapes, ref_flat, off_flat, attn_flat,
+            grad_out.to(value.dtype).contiguous(), tile_mask=tile_mask,
+            q_tile=ctx.q_tile, need_ref=ctx.needs_input_grad[1])
+        return g_value, g_ref, g_off, g_attn, None, None, None
+
+
 def ms_deform_attn(
     value: torch.Tensor,
     spatial_shapes: Shapes,
@@ -181,9 +213,9 @@ def ms_deform_attn_factored(
     (B, V, H, D), ref_flat (B, Q, P·2), off_flat (Bs, Q, H·L·P·2) raw-cell
     offsets, attn_flat (Bs, Q, H·L·P) -> (B, Q, H·D). The plain version
     materializes the locations and runs ``ms_deform_attn_ref``; on CUDA
-    tensors the kernel forms them in registers and never materializes. The
-    kernel has no backward yet: on CUDA tensors that require a gradient it
-    raises (training a multi-level SCA config on the card waits for it)."""
+    tensors the kernel forms them in registers and never materializes, and
+    the hand-written CUDA backward gives the gradients where one is
+    needed."""
     if use_plain(value):
         B, V, H, D = value.shape
         Q, P, L = ref_flat.shape[1], ref_flat.shape[2] // 2, len(spatial_shapes)
@@ -192,12 +224,5 @@ def ms_deform_attn_factored(
         return ms_deform_attn_ref(
             value, spatial_shapes, loc.reshape(B, Q, H, L, P, 2),
             attn.reshape(B, Q, H, L, P), tile_mask=tile_mask, q_tile=q_tile)
-    if needs_grad(value, ref_flat, off_flat, attn_flat):
-        raise NotImplementedError(
-            "ms_deform_attn_factored: the CUDA kernel msda_fwd_factored has "
-            "no backward yet; its inputs require a gradient")
-    from apollo_vision_net_tpu_torch.ops import msda_cuda
-
-    return msda_cuda.msda_fwd_factored(
-        value, spatial_shapes, ref_flat, off_flat, attn_flat,
-        tile_mask=tile_mask, q_tile=q_tile)
+    return FactoredMSDAFunction.apply(value, ref_flat, off_flat, attn_flat,
+                                      spatial_shapes, tile_mask, q_tile)

@@ -1,17 +1,17 @@
 """Wrappers of the hand-written CUDA MSDA kernels: the forwards
-(csrc/msda_fwd.cu) and the backward of the plain and masked entry
-(csrc/msda_bwd.cu).
+(csrc/msda_fwd.cu) and their backwards (csrc/msda_bwd.cu).
 
-``msda_fwd``, ``msda_fwd_factored`` and ``msda_bwd`` check their inputs,
-allocate the outputs and launch kernels on the current CUDA stream. Their plain
-counterparts are ``ops.msda.ms_deform_attn_ref`` and the materialization of
-the factored operands followed by it. ``msda_fwd`` replaces the Pallas
-kernels ``_msda_kernel``, ``_msda_kernel_slab``, ``_msda_kernel_masked``,
-``_msda_kernel_window`` and ``_msda_kernel_ml_chunk`` of the JAX package;
-``msda_fwd_factored`` replaces ``_msda_kernel_pt2d``. ``msda_bwd`` is the
-gradient of ``msda_fwd``, whose plain counterpart is autograd through
-``ms_deform_attn_ref`` (the JAX package's backward is the XLA VJP of its
-plain version, not a Pallas kernel).
+``msda_fwd``, ``msda_fwd_factored``, ``msda_bwd`` and ``msda_bwd_factored``
+check their inputs, allocate the outputs and launch kernels on the current
+CUDA stream. Their plain counterparts are ``ops.msda.ms_deform_attn_ref``
+and the materialization of the factored operands followed by it.
+``msda_fwd`` replaces the Pallas kernels ``_msda_kernel``,
+``_msda_kernel_slab``, ``_msda_kernel_masked``, ``_msda_kernel_window`` and
+``_msda_kernel_ml_chunk`` of the JAX package; ``msda_fwd_factored``
+replaces ``_msda_kernel_pt2d``. ``msda_bwd`` is the gradient of
+``msda_fwd`` and ``msda_bwd_factored`` that of ``msda_fwd_factored``; their
+plain counterparts are autograd through the plain versions (the JAX
+package's backwards are XLA VJPs of its plain versions, not Pallas kernels).
 
 Launch counts: ``launches_plain`` (no tile mask: TSA, det and map decoder
 cross-attention), ``launches_masked`` (single-level SCA with its
@@ -25,7 +25,9 @@ element size a power-of-two multiple of 16 bytes, aligned rows) or
 ``launches_bwd_masked`` count the backward's launches without and with a
 tile mask, and ``launches_bwd_plain_by_variant`` /
 ``launches_bwd_masked_by_variant`` split them by ``BWD_VARIANTS``:
-``lane_per_channel`` (D <= 32) or ``chunked``.
+``lane_per_channel`` (D <= 32) or ``chunked``. ``launches_bwd_factored``
+counts the factored backward's launches and
+``launches_bwd_factored_by_variant`` splits them by ``VARIANTS``.
 
 ``ARGTYPES`` are the C signatures of the entry points as ctypes sees them:
 ``c_void_p`` for every pointer and the stream, ``c_int`` for every int.
@@ -45,6 +47,7 @@ launches_masked = 0
 launches_factored = 0
 launches_bwd_plain = 0
 launches_bwd_masked = 0
+launches_bwd_factored = 0
 # the C entry reports the variant it launched: 1 vector, 0 general
 VARIANTS = {1: "vector", 0: "general"}
 launches_plain_by_variant = dict.fromkeys(VARIANTS.values(), 0)
@@ -53,6 +56,7 @@ launches_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 BWD_VARIANTS = {1: "lane_per_channel", 0: "chunked"}
 launches_bwd_plain_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
 launches_bwd_masked_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
+launches_bwd_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -71,22 +75,29 @@ ARGTYPES = {
     # stream, variant
     "msda_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                  _I, _I, _P, _I, _P, _P],
+    # value, dtype, ref, off, attn, tile_mask, grad_out, grad_value_f32,
+    # grad_value, grad_ref, grad_off, grad_attn, B, N, V, H, D, Q, L, P,
+    # shapes, q_tile, stream, variant
+    "msda_bwd_factored": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
 }
 # the source of each entry point
 ENTRY_SOURCE = {"msda_fwd": SOURCE, "msda_fwd_factored": SOURCE,
-                "msda_bwd": BWD_SOURCE}
+                "msda_bwd": BWD_SOURCE, "msda_bwd_factored": BWD_SOURCE}
 
 
 def reset_launch_counts() -> None:
     global launches_plain, launches_masked, launches_factored
-    global launches_bwd_plain, launches_bwd_masked
+    global launches_bwd_plain, launches_bwd_masked, launches_bwd_factored
     launches_plain = 0
     launches_masked = 0
     launches_factored = 0
     launches_bwd_plain = 0
     launches_bwd_masked = 0
+    launches_bwd_factored = 0
     for counts in (launches_plain_by_variant, launches_masked_by_variant,
-                   launches_factored_by_variant):
+                   launches_factored_by_variant,
+                   launches_bwd_factored_by_variant):
         counts.update(dict.fromkeys(VARIANTS.values(), 0))
     for counts in (launches_bwd_plain_by_variant, launches_bwd_masked_by_variant):
         counts.update(dict.fromkeys(BWD_VARIANTS.values(), 0))
@@ -168,6 +179,35 @@ def msda_fwd(
     return out
 
 
+def _factored_shapes(value, spatial_shapes, ref_flat, attn_flat):
+    """(B, V, H, D, Q, L, P, Bs) of a factored call, checked against each
+    other."""
+    if value.dim() != 4 or ref_flat.dim() != 3:
+        raise ValueError("value must be (B, V, H, D), ref_flat (B, Q, P * 2)")
+    B, V, H, D = value.shape
+    _, Q, P2 = ref_flat.shape
+    P, L, Bs = P2 // 2, len(spatial_shapes), attn_flat.shape[0]
+    if sum(h * w for h, w in spatial_shapes) != V:
+        raise ValueError(f"spatial_shapes {spatial_shapes} do not match V={V}")
+    if P2 % 2 or Bs < 1 or B % Bs:
+        raise ValueError(f"ref_flat {tuple(ref_flat.shape)} / attn batch {Bs} "
+                         f"do not fit value batch {B}")
+    return B, V, H, D, Q, L, P, Bs
+
+
+def _check_factored(value, ref_flat, off_flat, attn_flat, tile_mask, q_tile,
+                    shapes):
+    B, V, H, D, Q, L, P, Bs = shapes
+    dev = value.device
+    _check("value", value, (B, V, H, D), (torch.float32, torch.bfloat16), dev)
+    _check("ref_flat", ref_flat, (B, Q, 2 * P), (torch.float32,), dev)
+    _check("off_flat", off_flat, (Bs, Q, H * L * P * 2), (torch.float32,), dev)
+    _check("attn_flat", attn_flat, (Bs, Q, H * L * P), (torch.float32,), dev)
+    if tile_mask is not None:
+        _check("tile_mask", tile_mask, (B, (Q + q_tile - 1) // q_tile),
+               (torch.int32,), dev)
+
+
 def msda_fwd_factored(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -186,24 +226,11 @@ def msda_fwd_factored(
     global launches_factored
     if value.device.type != "cuda":
         raise ValueError(f"msda_fwd_factored launches on CUDA tensors, got {value.device}")
-    if value.dim() != 4 or ref_flat.dim() != 3:
-        raise ValueError("value must be (B, V, H, D), ref_flat (B, Q, P * 2)")
-    B, V, H, D = value.shape
-    _, Q, P2 = ref_flat.shape
-    P, L, Bs = P2 // 2, len(spatial_shapes), attn_flat.shape[0]
-    if sum(h * w for h, w in spatial_shapes) != V:
-        raise ValueError(f"spatial_shapes {spatial_shapes} do not match V={V}")
-    if P2 % 2 or Bs < 1 or B % Bs:
-        raise ValueError(f"ref_flat {tuple(ref_flat.shape)} / attn batch {Bs} "
-                         f"do not fit value batch {B}")
+    shapes_ = _factored_shapes(value, spatial_shapes, ref_flat, attn_flat)
+    B, V, H, D, Q, L, P, Bs = shapes_
+    _check_factored(value, ref_flat, off_flat, attn_flat, tile_mask, q_tile,
+                    shapes_)
     dev = value.device
-    _check("value", value, (B, V, H, D), (torch.float32, torch.bfloat16), dev)
-    _check("ref_flat", ref_flat, (B, Q, P2), (torch.float32,), dev)
-    _check("off_flat", off_flat, (Bs, Q, H * L * P * 2), (torch.float32,), dev)
-    _check("attn_flat", attn_flat, (Bs, Q, H * L * P), (torch.float32,), dev)
-    if tile_mask is not None:
-        _check("tile_mask", tile_mask, (B, (Q + q_tile - 1) // q_tile),
-               (torch.int32,), dev)
     lib = _lib()
     out = torch.empty((B, Q, H * D), dtype=value.dtype, device=dev)
     shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
@@ -283,3 +310,56 @@ def msda_bwd(
     if variant[0] in BWD_VARIANTS:  # an empty call launches nothing
         by_variant[BWD_VARIANTS[variant[0]]] += 1
     return grad_value, grad_loc, grad_attn
+
+
+def msda_bwd_factored(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    ref_flat: torch.Tensor,
+    off_flat: torch.Tensor,
+    attn_flat: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    tile_mask: Optional[torch.Tensor] = None,
+    q_tile: int = 128,
+    need_ref: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The gradient of ``msda_fwd_factored`` at (value, ref_flat, off_flat,
+    attn_flat) for ``grad_out`` (B, Q, H * D) in value's dtype ->
+    (grad_value in value's dtype, grad_ref like ref_flat or None when
+    ``need_ref`` is False, grad_off like off_flat, grad_attn like
+    attn_flat; f32). d off and d attn are summed over the cameras that
+    share them; grad_value is accumulated in an f32 scratch and cast once."""
+    global launches_bwd_factored
+    if value.device.type != "cuda":
+        raise ValueError(f"msda_bwd_factored launches on CUDA tensors, got {value.device}")
+    shapes_ = _factored_shapes(value, spatial_shapes, ref_flat, attn_flat)
+    B, V, H, D, Q, L, P, Bs = shapes_
+    _check_factored(value, ref_flat, off_flat, attn_flat, tile_mask, q_tile,
+                    shapes_)
+    dev = value.device
+    _check("grad_out", grad_out, (B, Q, H * D), (value.dtype,), dev)
+    lib = _lib(BWD_SOURCE)
+    grad_value_f32 = torch.empty((B, V, H, D), dtype=torch.float32, device=dev)
+    grad_value = (grad_value_f32 if value.dtype == torch.float32
+                  else torch.empty_like(value))
+    grad_ref = torch.empty_like(ref_flat) if need_ref else None
+    grad_off = torch.empty_like(off_flat)
+    grad_attn = torch.empty_like(attn_flat)
+    shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    variant = (ctypes.c_int * 1)(-1)
+    err = lib.msda_bwd_factored(
+        value.data_ptr(), _DTYPES[value.dtype], ref_flat.data_ptr(),
+        off_flat.data_ptr(), attn_flat.data_ptr(),
+        tile_mask.data_ptr() if tile_mask is not None else None,
+        grad_out.data_ptr(), grad_value_f32.data_ptr(), grad_value.data_ptr(),
+        grad_ref.data_ptr() if grad_ref is not None else None,
+        grad_off.data_ptr(), grad_attn.data_ptr(), B, B // Bs, V, H, D, Q, L,
+        P, shapes, q_tile, stream, variant)
+    if err != 0:
+        raise RuntimeError(f"msda_bwd_factored kernel launch failed: CUDA error {err}")
+    launches_bwd_factored += 1
+    if variant[0] in VARIANTS:  # an empty call launches nothing
+        launches_bwd_factored_by_variant[VARIANTS[variant[0]]] += 1
+    return grad_value, grad_ref, grad_off, grad_attn

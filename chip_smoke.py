@@ -56,8 +56,10 @@ Phases, each printing JSON lines:
                15 + 3) and finite loss terms; one f32 step's loss terms and
                every parameter's gradient against the same step under
                ``ops.plain_versions()`` (same draws and assignment),
-               beside a witness of the step's own sensitivity (the plain
-               step on slightly perturbed images);
+               beside the witnesses of the step's own sensitivity (the
+               plain step on images moved by a relative 1e-6, three noise
+               seeds, and with every weight so moved; the gradient the
+               kernels move most is read in each);
                steady-state steps/s in bf16 and f32 and a profile of each.
   stream_occ   Apollo's det+occ model bev_tiny_det_occ_apollo at full width
                (the flagship's trunk and encoder, 11 Group-DETR groups of
@@ -76,7 +78,7 @@ Phases, each printing JSON lines:
   train_occ    its train step as ``train`` (all 11 groups, 9,900 queries
                in the det decoder, the occupancy losses): forward 15 plain
                + 9 masked, backward 9 + 3 launches per step, the f32 step
-               against plain versions beside a witness with ``train``'s
+               against plain versions beside the witnesses with ``train``'s
                limits, steps/s, peak memory, profiles.
   train_overfit  bev_smoke_det_map, batch 4 with painted GT, lr 4e-4,
                300 steps with warmup 30, as the JAX package's
@@ -88,14 +90,37 @@ Phases, each printing JSON lines:
                (loss_total stays high: loss_geo_scal does not fall, as in
                the JAX package's run); prints the SSC occ_iou / occ_miou
                of the trained model on its batch.
-The kernels phase also holds ``msda_bwd`` (plain and masked) at the
-flagship's four MSDA shapes and at the det+occ train step's 9,900-query
-decoder against autograd through the plain version.
+  train_base   bev_base_det_map's train step as ``train`` (R101 with DCN in
+               stages 3-4, 4-level FPN, 200x200 BEV, 6 encoder layers, queue
+               3, offset predictors seeded as in ``stream_base``): 3 bf16
+               steps with exact launch counts per step (forward 30 plain,
+               18 factored, 78 DCN; backward 18 msda_bwd, 6
+               msda_bwd_factored, 26 dcn_bwd; all on their vector or
+               lane_per_channel variants), loss terms finite and moving;
+               the f32 step at 1 encoder and 2 + 2 decoder layers
+               (BASE_CMP_SIZES) against plain versions beside the witnesses,
+               with ``train``'s limits; steps/s in bf16 and f32 (full
+               depth), peak memory of the steps, profiles.
+  base_occ     bev_base_occ (the base trunk with the MLP occupancy head on a
+               200x200x16 grid) streamed as ``stream_base`` (12 plain, 6
+               factored, 26 DCN launches a frame), its f32 frame against
+               plain versions, bf16 frames/s and a profile; then 3 bf16
+               train steps with exact launch counts (forward 24 plain, 18
+               factored, 78 DCN; backward 12 + 6 + 26), steps/s, peak
+               memory and a profile.
+The kernels phase also holds the backwards against autograd through their
+plain versions: ``msda_bwd`` (plain and masked) at the flagship's four
+MSDA shapes, the det+occ train step's 9,900-query decoder and the base
+TSA over 200x200 and both base decoders; ``msda_bwd_factored`` at the base
+SCA shape (the full shape, ~35 GB of plain autograd) and the factored edge
+shapes (tail tiles, random masks, a misaligned value, both variants);
+``dcn_bwd`` at the four R101 shapes and the DCN edge shapes.
 The full overfit-to-metric check (det mAP, map chamfer mAP, occ IoU/mIoU
 bars) is ``python3 -m apollo_vision_net_tpu_torch.tools.overfit_check``,
 not part of this run.
-Then the ``{"kernels": [...]}`` line, the card's name and power limit, and as
-the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+Then the run's seconds (kernel builds included), the ``{"kernels": [...]}``
+line, the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 """
 from __future__ import annotations
 
@@ -113,6 +138,7 @@ import torch.nn.functional as F
 from apollo_vision_net_tpu_torch import ops
 from apollo_vision_net_tpu_torch.configs import (
     bev_base_det_map,
+    bev_base_occ,
     bev_smoke_det_map,
     bev_smoke_det_occ,
     bev_tiny_det_map_apollo,
@@ -127,6 +153,7 @@ from apollo_vision_net_tpu_torch.data.temporal import StreamingState
 from apollo_vision_net_tpu_torch.models.detector import build_model
 from apollo_vision_net_tpu_torch.models.heads.occ_head import occupancy_prediction
 from apollo_vision_net_tpu_torch.models.layers import use_generator
+from apollo_vision_net_tpu_torch.models.resnet import STAGE_BLOCKS
 from apollo_vision_net_tpu_torch.ops import _build, dcn_cuda, msda_cuda
 from apollo_vision_net_tpu_torch.ops.dcn import modulated_deform_conv_ref
 from apollo_vision_net_tpu_torch.ops.msda import (
@@ -196,9 +223,39 @@ BASE_REL_TOL = 2e-3
 # with the first to within the floor; a wrong backward is off by O(1).
 TRAIN_REL_TOL = 2e-3
 TRAIN_GRAD_REL_TOL = 5e-2
+# a trunk parameter whose gradient the f32 step reports, per backbone (the
+# DCN weight of R101's first stage-3 block)
+TRUNK_PARAM = {"dla": "img_backbone.level5.tree2.conv2.weight",
+               "resnet": "img_backbone.layer3_0.conv2_dcn_weight"}
 TRAIN_GRAD_NORM_TOL = 2e-2
 TRAIN_GRAD_FLOOR = 1e-6
 WITNESS_EPS = 1e-6
+# the witnesses: the plain step on images moved by WITNESS_EPS (three
+# noise seeds) and with every weight moved by WITNESS_EPS (which also
+# reaches the kinks that depend on no image). Each crosses a few kinks of
+# its own, the kernels' summation order others. In each f32 step an image
+# witness moves the gradient the kernels move most as much (H100 chip run):
+# flagship cls branch 5's weight 2.6890% (kernels) and 2.6888% (seed 3);
+# det+occ cls branch 5's LayerNorm bias 1.0059% and 1.0059% (seed 1); base
+# head.bev_embedding 2.0468% and 2.0463% (seed 3; one BEV query's row,
+# behind a ReLU of the encoder's FFN whose input sits next to zero), where
+# seeds 1 and 2 move it by nothing beyond the floor. So one set of limits
+# holds for all three: about twice the largest of these readings. Moving
+# every weight moves each forward ~10x as much as the kernels do and
+# crosses more kinks (6.1%, 9.2% and 8.3% at decoder sampling offsets and
+# reg branches): it bounds the steps' sensitivity from above.
+WITNESSES = (("images", 1), ("images", 2), ("images", 3), ("weights", 1))
+# The base f32 step is held against plain versions at 1 encoder layer and
+# 2 + 2 decoder layers. Memory: the plain factored MSDA's autograd keeps
+# ~34 GB a layer at the base shape (16 gathers of (6, 8, 320,000, 32) f32).
+# Sensitivity: at random weights each base decoder layer, sampling a
+# 200x200 BEV (four times the flagship's cells a side), amplifies a
+# difference ~10x, so at 6 + 6 layers the kernels' summation order moved
+# loss_bbox by 2e-6, 2e-5, 5e-5, 1e-3 and 3.7e-3 relative at decoder layers
+# 1-5 and the last decoder's sampling-offset gradient by 98.9% of its
+# largest element, and the witness moved them as much (95.3%; H100 chip
+# run), which no limit can tell from a fault.
+BASE_CMP_SIZES = dict(encoder_layers=1, decoder_layers=2, map_decoder_layers=2)
 # the overfit run must bring loss_total to this share of its first value in
 # OVERFIT_STEPS steps (warmup 30, cosine to 300). The JAX package's run
 # (artifacts/overfit_r3, a 3000-step schedule) stood at 16.1% of its first
@@ -222,9 +279,32 @@ OCC_OVERFIT_SHARE = 0.25
 # the same bf16 products
 BWD_REL_TOL = {"float32": {"grad_value": 1e-4, "grad_loc": 1e-4, "grad_attn": 1e-4},
                "bfloat16": {"grad_value": 1e-2, "grad_loc": 1e-4, "grad_attn": 1e-4}}
-SOURCES = {"msda_fwd.cu": "apollo_vision_net_tpu_torch/csrc/msda_fwd.cu",
-           "msda_bwd.cu": "apollo_vision_net_tpu_torch/csrc/msda_bwd.cu",
-           "dcn_fwd.cu": "apollo_vision_net_tpu_torch/csrc/dcn_fwd.cu"}
+# msda_bwd_factored against autograd through the plain factored version:
+# as BWD_REL_TOL (grad_ref, grad_off and grad_attn are f32 sums, over the
+# cameras too, of the same products)
+FACTORED_BWD_REL_TOL = {
+    "float32": {"grad_value": 1e-4, "grad_ref": 1e-4, "grad_off": 1e-4,
+                "grad_attn": 1e-4},
+    "bfloat16": {"grad_value": 1e-2, "grad_ref": 1e-4, "grad_off": 1e-4,
+                 "grad_attn": 1e-4}}
+# dcn_bwd against autograd through the plain DCN, relative to each
+# gradient's largest magnitude: f32 sums in other orders (the atomics' order
+# changes from run to run); in bf16 the samples' gradient dcol is g . W^T
+# rounded to bf16 on both sides, from a bf16 GEMM with f32 accumulation
+# here and an f32 product there, so single elements may land one bf16 ulp
+# apart (2^-8 relative) before the f32 scatter and dot products, and
+# grad_x and grad_weight are rounded to bf16 (2^-8) at the end
+DCN_BWD_REL_TOL = {
+    "float32": {"grad_x": 1e-4, "grad_offset": 1e-4, "grad_mask": 1e-4,
+                "grad_weight": 1e-4},
+    "bfloat16": {"grad_x": 3e-2, "grad_offset": 3e-2, "grad_mask": 3e-2,
+                 "grad_weight": 3e-2}}
+CSRC = "apollo_vision_net_tpu_torch/csrc"
+# the sources nvcc builds (dcn_fwd.cu includes the DCN backward's kernels
+# from dcn_bwd.cuh)
+SOURCES = {"msda_fwd.cu": f"{CSRC}/msda_fwd.cu",
+           "msda_bwd.cu": f"{CSRC}/msda_bwd.cu",
+           "dcn_fwd.cu": f"{CSRC}/dcn_fwd.cu"}
 MSDA_PALLAS = "apollo_vision_net_tpu/ops/msda_pallas.py"
 REPLACES = {
     "msda_fwd": (f"{MSDA_PALLAS}:194 (_msda_kernel); {MSDA_PALLAS}:234 "
@@ -242,8 +322,14 @@ REPLACES = {
     "msda_bwd_masked": (f"{MSDA_PALLAS}:1468 (_bwd: XLA VJP of "
                         "ms_deform_attn_xla, the backward of "
                         "_msda_kernel_slab with a tile mask)"),
+    "msda_bwd_factored": (f"{MSDA_PALLAS}:1586 (_factored_bwd: XLA VJP of "
+                          "_materialize_factored -> ms_deform_attn_xla, the "
+                          "backward of _msda_kernel_pt2d)"),
+    "dcn_bwd": ("apollo_vision_net_tpu/ops/dcn_pallas.py:248 (_dense_bwd: "
+                "XLA VJP of _dcn_xla_ref, the backward of _dcn_kernel)"),
 }
 TRAIN_STEP = "bev_tiny_det_map_apollo train step"
+BASE_TRAIN_STEP = "bev_base_det_map train step"
 # per-frame calls of each entry point, by kernels-phase case: the base frame
 # where the base path launches the entry, else the flagship frame
 FRAME_CALLS = {
@@ -258,10 +344,17 @@ FRAME_CALLS = {
     "msda_bwd": (TRAIN_STEP, {"tsa_bwd": 3, "det_decoder_bwd": 6,
                               "map_decoder_bwd": 6}),
     "msda_bwd_masked": (TRAIN_STEP, {"sca_bwd": 3}),
+    # per base train step: the supervised frame's 6 SCA calls and 26 DCN
+    # calls take the backward
+    "msda_bwd_factored": (BASE_TRAIN_STEP, {"sca_base_factored_bwd": 6}),
+    "dcn_bwd": (BASE_TRAIN_STEP, {"dcn_s3_stride2_bwd": 1, "dcn_s3_bwd": 22,
+                                  "dcn_s4_stride2_bwd": 1, "dcn_s4_bwd": 2}),
 }
+# the file of csrc/ that holds each entry's kernels
 ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
                 "msda_fwd_factored": "msda_fwd.cu", "dcn_fwd": "dcn_fwd.cu",
-                "msda_bwd": "msda_bwd.cu", "msda_bwd_masked": "msda_bwd.cu"}
+                "msda_bwd": "msda_bwd.cu", "msda_bwd_masked": "msda_bwd.cu",
+                "msda_bwd_factored": "msda_bwd.cu", "dcn_bwd": "dcn_bwd.cuh"}
 # kernels whose every instance must build without a stack frame or spills
 VECTOR_KERNELS = ("msda_vec_kernel", "msda_factored_vec_kernel")
 
@@ -331,7 +424,10 @@ def variant_counts() -> dict:
                          ("dcn_fwd", dcn_cuda.launches_by_variant),
                          ("msda_bwd", msda_cuda.launches_bwd_plain_by_variant),
                          ("msda_bwd_masked",
-                          msda_cuda.launches_bwd_masked_by_variant)):
+                          msda_cuda.launches_bwd_masked_by_variant),
+                         ("msda_bwd_factored",
+                          msda_cuda.launches_bwd_factored_by_variant),
+                         ("dcn_bwd", dcn_cuda.launches_bwd_by_variant)):
         out.update({f"{name}.{v}": n for v, n in counts.items()})
     return out
 
@@ -343,6 +439,8 @@ def read_launch_counts() -> dict:
             "dcn_fwd": dcn_cuda.launches,
             "msda_bwd": msda_cuda.launches_bwd_plain,
             "msda_bwd_masked": msda_cuda.launches_bwd_masked,
+            "msda_bwd_factored": msda_cuda.launches_bwd_factored,
+            "dcn_bwd": dcn_cuda.launches_bwd,
             **variant_counts()}
 
 
@@ -816,18 +914,22 @@ def bind(case, dtype):
                                    kw["tile_mask"], kw["q_tile"]))
 
 
+def _grad_out(shape, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
 def bind_bwd(case, dtype, seed=0):
-    """(kernel, plain, bound) of the MSDA backward on a single-level
-    flagship case: msda_bwd against autograd through ms_deform_attn_ref on
-    the same inputs and a seeded grad_out. The plain version is timed
-    eagerly with CUDA events (autograd is not captured in a graph here)."""
+    """The MSDA backward on a single-level case: msda_bwd against autograd
+    through ms_deform_attn_ref on the same inputs and a seeded grad_out.
+    Returns (kernel, plain, bound, gradient names, tolerances, expected
+    variant or None). The plain version is timed eagerly with CUDA events
+    (autograd is not captured in a graph here)."""
     value = case["value"].to(dtype).contiguous()
     loc, attn, shapes = case["loc"], case["attn"], case["shapes"]
     kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
     B, _, H, D = value.shape
-    g = torch.Generator(device=value.device).manual_seed(seed)
-    grad_out = torch.randn((B, loc.shape[1], H * D), generator=g,
-                           device=value.device).to(dtype)
+    grad_out = _grad_out((B, loc.shape[1], H * D), dtype, value.device, seed)
 
     def kernel():
         return msda_cuda.msda_bwd(value, shapes, loc, attn, grad_out, **kw)
@@ -837,8 +939,75 @@ def bind_bwd(case, dtype, seed=0):
         out = ms_deform_attn_ref(ins[0], shapes, ins[1], ins[2], **kw)
         return torch.autograd.grad(out, ins, grad_out)
 
-    return kernel, plain, lambda: msda_bwd_bound(value, shapes, loc, attn,
-                                                 kw["tile_mask"], kw["q_tile"])
+    return (kernel, plain,
+            lambda: msda_bwd_bound(value, shapes, loc, attn, kw["tile_mask"],
+                                   kw["q_tile"]),
+            ("grad_value", "grad_loc", "grad_attn"),
+            BWD_REL_TOL[str(dtype).replace("torch.", "")], None)
+
+
+def factored_bwd_variant(D, misaligned_value):
+    """The variant msda_bwd_factored takes: vector when D = 4 * G with G in
+    {1, 2, 4, 8} and value and grad_out are aligned to 4 channels
+    (csrc/msda_bwd.cu launch_bwd_factored), in either dtype."""
+    vec = D % 4 == 0 and D // 4 in (1, 2, 4, 8) and not misaligned_value
+    return "vector" if vec else "general"
+
+
+def bind_bwd_factored(case, dtype, seed=0):
+    """msda_bwd_factored (d ref asked for) against autograd through the
+    plain factored version (materialize, then ms_deform_attn_ref), as
+    ``bind_bwd``."""
+    shift = misaligned if case.get("misaligned") else (lambda t: t)
+    value = shift(case["value"].to(dtype).contiguous())
+    shapes, ref, off, attn = case["shapes"], case["ref_flat"], case["off"], case["attn"]
+    kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
+    B, _, H, D = value.shape
+    grad_out = _grad_out((B, ref.shape[1], H * D), dtype, value.device, seed)
+
+    def kernel():
+        return msda_cuda.msda_bwd_factored(value, shapes, ref, off, attn,
+                                           grad_out, **kw)
+
+    def plain():
+        ins = [t.detach().requires_grad_() for t in (value, ref, off, attn)]
+        with ops.plain_versions():
+            out = ms_deform_attn_factored(ins[0], shapes, *ins[1:], **kw)
+        return torch.autograd.grad(out, ins, grad_out)
+
+    return (kernel, plain,
+            lambda: factored_bwd_bound(value, shapes, ref, off, attn,
+                                       kw["tile_mask"], kw["q_tile"]),
+            ("grad_value", "grad_ref", "grad_off", "grad_attn"),
+            FACTORED_BWD_REL_TOL[str(dtype).replace("torch.", "")],
+            factored_bwd_variant(D, case.get("misaligned", False)))
+
+
+def bind_dcn_bwd(case, dtype, seed=0):
+    """dcn_bwd against autograd through modulated_deform_conv_ref, as
+    ``bind_bwd``; the vector variant when C is a whole number of 16-byte
+    units and x is aligned."""
+    shift = misaligned if case.get("misaligned") else (lambda t: t)
+    x = shift(case["x"].to(dtype).contiguous())
+    w = case["weight"].to(dtype).contiguous()
+    offset, mask, stride = case["offset"], case["mask"], case["stride"]
+    B, Ho, Wo = offset.shape[:3]
+    grad_out = _grad_out((B, Ho, Wo, w.shape[-1]), dtype, x.device, seed)
+
+    def kernel():
+        return dcn_cuda.dcn_bwd(x, offset, mask, w, grad_out, stride)
+
+    def plain():
+        ins = [t.detach().requires_grad_() for t in (x, offset, mask, w)]
+        out = modulated_deform_conv_ref(*ins, stride)
+        return torch.autograd.grad(out, ins, grad_out)
+
+    C = x.shape[-1]
+    vec = C % (16 // x.element_size()) == 0 and not case.get("misaligned")
+    return (kernel, plain, lambda: dcn_bwd_bound(x, offset, w, grad_out),
+            ("grad_x", "grad_offset", "grad_mask", "grad_weight"),
+            DCN_BWD_REL_TOL[str(dtype).replace("torch.", "")],
+            "vector" if vec else "general")
 
 
 def msda_bwd_bound(value, shapes, loc, attn, tile_mask, q_tile):
@@ -869,54 +1038,117 @@ def msda_bwd_bound(value, shapes, loc, attn, tile_mask, q_tile):
     return ms, by, design
 
 
+def factored_bwd_bound(value, shapes, ref, off, attn, tile_mask, q_tile):
+    """Least time for msda_bwd_factored as a function: grad_out and the
+    references of the active (camera, query) pairs read once, offsets and
+    weights once per (sample, query) that any camera needs, the value rows
+    the active samples touch once; grad_value, grad_ref, grad_off and
+    grad_attn written once; 4·D flops per active sample and corner.
+    Returns (ms, bound_by, design_bytes) as ``msda_bwd_bound``."""
+    B, V, H, D = value.shape
+    Bs, Q, L, P = attn.shape[0], ref.shape[1], len(shapes), ref.shape[2] // 2
+    elem = value.element_size()
+    active_q, union_q = B * Q, Bs * Q
+    if tile_mask is not None:
+        sizes = tile_sizes(Q, q_tile, tile_mask.shape[1], tile_mask.device)
+        active_q = int((tile_mask.to(torch.int64) * sizes).sum())
+        any_cam = tile_mask.reshape(Bs, B // Bs, -1).any(1).to(torch.int64)
+        union_q = int((any_cam * sizes).sum())
+    loc, _ = materialize_factored(ref, off, attn, shapes, H, P)
+    rows = touched_value_bytes(value, shapes, loc.reshape(B, Q, H, L, P, 2),
+                               tile_mask, q_tile) // (D * elem)
+    del loc
+    n_value = B * V * H * D
+    nbytes = (active_q * H * D * elem + active_q * P * 2 * 4
+              + union_q * H * L * P * 3 * 4 + rows * D * elem
+              + n_value * elem + B * Q * P * 2 * 4 + Bs * Q * H * L * P * 3 * 4)
+    design = n_value * 4 + rows * D * 8 + (n_value * 4 if elem == 2 else 0)
+    ms, by = _bound(nbytes, active_q * H * L * P * 4 * 4 * D / F32_FLOP_PER_S)
+    return ms, by, design
+
+
+def dcn_bwd_bound(x, offset, weight, grad_out):
+    """Least time for dcn_bwd as a function: x, offsets, mask, weight and
+    grad_out read once, the gradients of all four written once; the two
+    products (dcol = g . W^T and grad_weight = col^T . g, 2·9·C·O each per
+    output pixel) at the card's rate for the dtype. Returns (ms, bound_by,
+    design_bytes): the im2col matrix and dcol written and read (M · 9C in
+    x's dtype, twice each) and the f32 scratch of grad_x (zero-filled, read
+    and written by the scatter, read by the bf16 cast)."""
+    B, Ho, Wo, _, _ = offset.shape
+    _, C, O = weight.shape
+    M = B * Ho * Wo
+    elem = x.element_size()
+    n_off = offset.numel()
+    nbytes = (2 * x.numel() * elem + 2 * n_off * 4 + n_off // 2 * 4 * 2
+              + 2 * weight.numel() * weight.element_size()
+              + grad_out.numel() * grad_out.element_size())
+    rate = BF16_TENSOR_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    ms, by = _bound(nbytes, 2 * 2 * M * 9 * C * O / rate)
+    design = 4 * M * 9 * C * elem + x.numel() * 4 * (3 if elem == 2 else 2)
+    return ms, by, design
+
+
+BWD_BINDERS = {"msda": bind_bwd, "factored": bind_bwd_factored,
+               "dcn": bind_dcn_bwd}
+
+
+def bwd_entry(case):
+    if case["kind"] == "dcn":
+        return "dcn_bwd"
+    if case["kind"] == "factored":
+        return "msda_bwd_factored"
+    return "msda_bwd_masked" if case["tile_mask"] is not None else "msda_bwd"
+
+
 def bwd_rows(dev, cases):
-    """msda_bwd at the flagship's and the det+occ train step's MSDA shapes
-    in f32 and bf16 against the
-    plain version's autograd: each gradient's max abs error and its error
-    relative to its largest magnitude, the variant that ran, CUDA-graph
+    """Each backward kernel on each case in f32 and bf16 against autograd
+    through its plain version: each gradient's max abs error and its error
+    relative to its largest magnitude against its tolerance, the variant
+    that ran (an edge case fails off the variant it targets), CUDA-graph
     time, the plain autograd's eager time and the bound."""
     rows = []
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
-            kernel, plain, bound = bind_bwd(case, dtype)
-            before = {k: dict(v) for k, v in (
-                ("plain", msda_cuda.launches_bwd_plain_by_variant),
-                ("masked", msda_cuda.launches_bwd_masked_by_variant))}
+            kernel, plain, bound, names, tol, expect = BWD_BINDERS[case["kind"]](
+                case, dtype)
+            entry = bwd_entry(case)
+            before = variant_counts()
             got = kernel()
             torch.cuda.synchronize()
-            ran = [v for name, counts in (
-                ("plain", msda_cuda.launches_bwd_plain_by_variant),
-                ("masked", msda_cuda.launches_bwd_masked_by_variant))
-                for v, n in counts.items() if n > before[name][v]]
+            ran = [k.split(".", 1)[1] for k, v in variant_counts().items()
+                   if v > before[k] and k.startswith(entry + ".")]
             want = plain()
-            row = dict(case=case["name"] + "_bwd", dtype=dname, variant=ran[0],
-                       entry="msda_bwd_masked" if case["tile_mask"] is not None
-                       else "msda_bwd")
-            ok = True
-            for key, a, b in zip(("grad_value", "grad_loc", "grad_attn"), got, want):
+            row = dict(case=case["name"] + "_bwd", dtype=dname,
+                       variant=ran[0] if ran else None, entry=entry)
+            ok = len(ran) == 1 and (expect is None or ran == [expect])
+            for key, a, b in zip(names, got, want):
                 err = float((a.float() - b.float()).abs().max())
                 scale = float(b.float().abs().max())
                 row[f"{key}_max_abs_err"] = err
                 row[f"{key}_rel_err"] = err / max(scale, 1e-30)
                 row[f"{key}_max_abs"] = scale
                 ok = (ok and bool(torch.isfinite(a).all())
-                      and row[f"{key}_rel_err"] <= BWD_REL_TOL[dname][key])
-            row["max_abs_err"] = max(row[f"{k}_max_abs_err"] for k in
-                                     ("grad_value", "grad_loc", "grad_attn"))
-            row["tol"] = BWD_REL_TOL[dname]
-            row["ms"] = graph_time_ms(kernel)
-            row["plain_ms"] = time_ms(plain, warmup=2, iters=5)
-            row["call_ms"] = time_ms(kernel)
-            row["bound_ms"], row["bound_by"], row["design_bytes"] = bound()
-            if case["tile_mask"] is not None:
-                row["active_tiles"] = int(case["tile_mask"].sum())
-                row["tiles"] = int(case["tile_mask"].numel())
+                      and row[f"{key}_rel_err"] <= tol[key])
+            row["max_abs_err"] = max(row[f"{k}_max_abs_err"] for k in names)
+            row["tol"] = tol
+            del got, want
+            if not case["name"].startswith("edge"):
+                row["ms"] = graph_time_ms(kernel)
+                row["plain_ms"] = time_ms(plain, warmup=2, iters=5)
+                row["call_ms"] = time_ms(kernel)
+                row["bound_ms"], row["bound_by"], row["design_bytes"] = bound()
+                if case.get("tile_mask") is not None:
+                    row["active_tiles"] = int(case["tile_mask"].sum())
+                    row["tiles"] = int(case["tile_mask"].numel())
             rows.append(row)
             emit({"phase": "kernels", **row})
             if not ok:
-                raise AssertionError(f"msda_bwd disagrees with plain autograd: {row}")
-            del got, want, kernel, plain
+                raise AssertionError(f"{entry} disagrees with plain autograd "
+                                     f"or ran off its variant: {row}")
+            del kernel, plain
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1003,7 +1235,11 @@ def phase_kernels(dev):
                 raise AssertionError(f"kernel disagrees with plain: {row}")
             del got, want, kernel, plain, bound
     del cases, outs
-    rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev))
+    torch.cuda.empty_cache()
+    base = [c for c in base_msda_cases(dev) if c["name"] != "sca_base_materialized"]
+    rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev) + base
+                     + msda_edge_cases(dev)[-1:] + factored_edge_cases(dev)
+                     + dcn_cases(dev))
     torch.cuda.empty_cache()
     reset_launch_counts()
     return rows
@@ -1268,9 +1504,8 @@ def phase_stream_base(dev):
     torch.cuda.reset_peak_memory_stats()
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
-    model = build_model(cfg, device=dev, seed=0)
-    perturb_offset_predictors(model, seed=0)
-    n_dcn = sum(n for n, dcn in zip((3, 4, 23, 3), m.backbone_dcn_stages) if dcn)
+    model = new_model(cfg, dev)
+    n_dcn = dcn_blocks(cfg)
     # per frame: TSA per encoder layer and cross-attention per det and map
     # decoder layer (18), factored SCA per encoder layer (6), DCN in every
     # block of stages 3-4 (23 + 3); all on their vector variants
@@ -1296,26 +1531,90 @@ def phase_stream_base(dev):
     return launches
 
 
+def phase_base_occ(dev):
+    """bev_base_occ at full width (the base trunk, 200x200 BEV, the MLP
+    occupancy head on a 200x200x16 grid): streamed frames with exact launch
+    counts per frame (12 plain: 6 TSA and 6 det decoder, 6 factored, 26
+    DCN; vector), finite outputs, its f32 frame with history against the
+    same frame under ``ops.plain_versions()``, bf16 frames/s and a
+    profile; then its train step: 3 bf16 steps with exact launch counts,
+    steps/s, peak memory and a profile."""
+    cfg = bev_base_occ()
+    cfg32 = f32_config(cfg)
+    m = cfg.model
+    torch.cuda.reset_peak_memory_stats()
+    frames = [_frame_to(f, dev) for f in
+              make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
+    model = new_model(cfg, dev)
+    n_plain = m.encoder_layers + m.decoder_layers
+    n_dcn = dcn_blocks(cfg)
+    stream = drive("base_occ", cfg, model, frames, {
+        **dict.fromkeys(read_launch_counts(), 0),
+        "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
+        "msda_fwd_factored": m.encoder_layers,
+        "msda_fwd_factored.vector": m.encoder_layers,
+        "dcn_fwd": n_dcn, "dcn_fwd.vector": n_dcn})
+    model32 = build_model(cfg32, device=dev, seed=0)
+    model32.load_state_dict(model.state_dict())
+    f32_frame_vs_plain("base_occ_f32_vs_plain", model32, dev, frames,
+                       BASE_REL_TOL)
+    del model32
+    fps = frames_per_s(cfg, model, frames, 10)
+    emit({"phase": "base_occ_fps", "frames_per_s": {"bf16": fps},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    profile_frames("profile_base_occ", "bf16", cfg, model, frames, 1e3 / fps)
+    del model
+    torch.cuda.empty_cache()
+    train = phase_train(dev, cfg, "base_occ_train", f32=False)
+    return stream, train
+
+
 # ------------------------------------------------------------------ train
+
+def dcn_blocks(cfg) -> int:
+    """DCN convolutions a frame runs: every block of the ResNet's DCN
+    stages (23 + 3 in R101 stages 3-4), none in DLA."""
+    m = cfg.model
+    if m.backbone_type != "resnet":
+        return 0
+    return sum(n for n, dcn in zip(STAGE_BLOCKS[m.backbone_depth],
+                                   m.backbone_dcn_stages) if dcn)
+
 
 def train_launches_per_step(cfg) -> dict:
     """Launches of one train step, by entry and variant: the forward runs
     TSA per encoder layer in each of the T queue frames and the det (and
     map) decoder layers on the supervised one (plain entry), SCA per encoder
-    layer in each frame (masked entry); the backward runs on the supervised
-    frame's calls only (the history replay is under no_grad)."""
+    layer in each frame (the masked entry over one level, the factored
+    entry over several) and DCN in every block of the DCN stages in each
+    frame; the backward runs on the supervised frame's calls only (the
+    history replay is under no_grad)."""
     m = cfg.model
     T, E = m.queue_length, m.encoder_layers
     dec = m.decoder_layers + (m.map_decoder_layers if m.with_map else 0)
-    n = {"msda_fwd": T * E + dec, "msda_fwd_masked": T * E,
-         "msda_bwd": E + dec, "msda_bwd_masked": E}
+    multi = m.num_feature_levels > 1
+    sca_fwd = "msda_fwd_factored" if multi else "msda_fwd_masked"
+    sca_bwd = "msda_bwd_factored" if multi else "msda_bwd_masked"
+    n_dcn = dcn_blocks(cfg)
+    n = {"msda_fwd": T * E + dec, sca_fwd: T * E, "msda_bwd": E + dec,
+         sca_bwd: E, "dcn_fwd": T * n_dcn, "dcn_bwd": n_dcn}
     out = dict.fromkeys(read_launch_counts(), 0)
-    out.update(n)
-    out.update({"msda_fwd.vector": n["msda_fwd"],
-                "msda_fwd_masked.vector": n["msda_fwd_masked"],
-                "msda_bwd.lane_per_channel": n["msda_bwd"],
-                "msda_bwd_masked.lane_per_channel": n["msda_bwd_masked"]})
+    out.update({k: v for k, v in n.items() if v})
+    out.update({k + ".vector": v for k, v in n.items()
+                if v and k != "msda_bwd" and k != "msda_bwd_masked"})
+    out.update({k + ".lane_per_channel": v for k, v in n.items()
+                if v and k in ("msda_bwd", "msda_bwd_masked")})
     return out
+
+
+def new_model(cfg, dev):
+    """The config's model from seed 0, with seeded noise on its
+    zero-initialized offset predictors where the trunk has DCN (as
+    ``phase_stream_base``)."""
+    model = build_model(cfg, device=dev, seed=0)
+    if dcn_blocks(cfg):
+        perturb_offset_predictors(model, seed=0)
+    return model
 
 
 def train_steps(cfg, model, optimizer, batch, gen, first, n):
@@ -1352,16 +1651,49 @@ def grad_step(model, cfg, batch, gen, seed, indices=None):
     return {k: float(v.detach()) for k, v in losses.items()}, grads, indices
 
 
-def phase_train(dev, cfg, phase):
-    """A train step at full width (the flagship's, ``phase`` "train", or
-    the det+occ model's, "train_occ"): bf16 steps with exact launch counts,
-    the f32 step with kernels against plain versions, steps/s and a
-    profile."""
+def witness_step(model, cfg, batch, gen, seed, indices, kind, wseed):
+    """The plain step (as ``grad_step``) with its images (``kind``
+    "images") or every parameter ("weights") moved by a relative
+    WITNESS_EPS of noise from ``wseed``; the weights are restored after."""
+    dev = batch["img"].device
+    noise_gen = torch.Generator(device=dev).manual_seed(wseed)
+
+    def moved(t):
+        return t * (1 + WITNESS_EPS * torch.randn(
+            t.shape, device=dev, generator=noise_gen, dtype=t.dtype))
+
+    saved = None
+    if kind == "images":
+        batch = dict(batch, img=moved(batch["img"]))
+    else:
+        saved = {k: p.detach().clone() for k, p in model.named_parameters()}
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(moved(p))
+    try:
+        with ops.plain_versions():
+            losses, grads, _ = grad_step(model, cfg, batch, gen, seed, indices)
+    finally:
+        if saved is not None:
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(saved[k])
+    return losses, grads
+
+
+def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True):
+    """A train step at full width (the flagship's, ``phase`` "train", the
+    det+occ model's, "train_occ", the base models', "train_base" and
+    "base_occ_train"): bf16 steps with exact launch counts and the peak
+    memory of those steps; with ``f32``, the f32 step with kernels against
+    plain versions beside the witnesses (with the model fields ``cmp_sizes``
+    where given, see BASE_CMP_SIZES) and steady-state steps/s of the f32
+    model at full depth; bf16 steps/s; a profile of each."""
     cfg32 = f32_config(cfg)
     torch.cuda.reset_peak_memory_stats()
     batch = train_lib.batch_to_device(
         make_batch(cfg, 1, seed=0, paint_gt=True), dev)
-    model = build_model(cfg, device=dev, seed=0).train()
+    model = new_model(cfg, dev).train()
     optimizer = make_optimizer(model, cfg.optim)
     gen = torch.Generator(device=dev)
     n_steps = 3
@@ -1375,24 +1707,53 @@ def phase_train(dev, cfg, phase):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launch_counts()
+    steps_peak = torch.cuda.max_memory_allocated() / 1e9
     expect = {k: v * n_steps for k, v in train_launches_per_step(cfg).items()}
     finite = all(math.isfinite(v) for h in history for v in h.values())
-    emit({"phase": phase, "steps": n_steps, "seconds_incl_first": seconds,
-          "launches": launches,
+    emit({"phase": phase, "config": cfg.name, "steps": n_steps,
+          "seconds_incl_first": seconds, "launches": launches,
           "per_step": {k: v / n_steps for k, v in launches.items()},
           "finite": finite,
           "loss_total": [h["loss_total"] for h in history],
           "grad_norm": [h["grad_norm"] for h in history],
-          "terms_last": history[-1]})
+          "terms_last": history[-1], "peak_mem_gb_steps": steps_peak})
     if launches != expect:
         raise AssertionError(f"{phase}: launches {launches} != expected {expect}")
     if not finite:
         raise AssertionError(f"{phase}: non-finite loss terms {history}")
+    if len({h["loss_total"] for h in history}) < n_steps:
+        raise AssertionError(f"{phase}: loss_total does not move {history}")
 
-    # one f32 step with kernels against the same step under plain versions:
-    # same weights, batch, generator draws and (the kernels' run's)
-    # assignment
-    model32 = build_model(cfg32, device=dev, seed=0).train()
+    sps = {"bf16": steps_per_s(cfg, model, optimizer, batch, gen, 5)}
+    runs = [("bf16", cfg, model, optimizer)]
+    if f32:
+        cfg_cmp = cfg32
+        if cmp_sizes is not None:
+            cfg_cmp = dataclasses.replace(cfg32, model=dataclasses.replace(
+                cfg32.model, **cmp_sizes))
+        f32_step_vs_plain(dev, cfg_cmp, phase, batch, gen)
+        model32 = new_model(cfg32, dev).train()
+        optimizer32 = make_optimizer(model32, cfg32.optim)
+        sps["f32"] = steps_per_s(cfg32, model32, optimizer32, batch, gen, 5)
+        runs.append(("f32", cfg32, model32, optimizer32))
+    emit({"phase": phase + "_steps_per_s", "steps_per_s": sps,
+          "peak_mem_gb_steps": steps_peak,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for name, c, mdl, opt in runs:
+        profile_train("profile_" + phase, c, mdl, opt, batch, gen, name,
+                      1e3 / sps[name])
+    return launches
+
+
+def f32_step_vs_plain(dev, cfg32, phase, batch, gen):
+    """One f32 step with kernels against the same step under plain
+    versions (same weights, batch, generator draws and the kernels' run's
+    assignment), beside the witnesses of the step's own sensitivity
+    (WITNESSES: the plain step on moved images or weights) and a second run
+    with the kernels; fails beyond TRAIN_REL_TOL, TRAIN_GRAD_REL_TOL or
+    TRAIN_GRAD_NORM_TOL, or if a kernel launched under the plain
+    versions."""
+    model32 = new_model(cfg32, dev).train()
     seed = step_seed(0, 0)
     got_l, got_g, indices = grad_step(model32, cfg32, batch, gen, seed)
     before = read_launch_counts()
@@ -1420,21 +1781,31 @@ def phase_train(dev, cfg, phase):
     def worst(errs):
         return sorted(errs.items(), key=lambda kv: -kv[1])[:8]
 
-    # the witness of the step's own sensitivity (see TRAIN_GRAD_REL_TOL)
-    noise = torch.randn(batch["img"].shape, device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(1))
-    wbatch = dict(batch, img=batch["img"] * (1 + WITNESS_EPS * noise))
-    with ops.plain_versions():
-        wit_l, wit_g, _ = grad_step(model32, cfg32, wbatch, gen, seed, indices)
-    witness = {"eps": WITNESS_EPS,
-               "max_loss_rel_err": max(abs(wit_l[k] - w) / max(abs(w), 1e-12)
-                                       for k, w in want_l.items()),
-               "grad_worst_rel_err": worst(rel_errs(wit_g, want_g)),
-               "grad_worst_norm_rel_err": worst(norm_errs(wit_g, want_g))}
-    del wit_g, wbatch, noise
     rel = rel_errs(got_g, want_g)
     norm = norm_errs(got_g, want_g)
-    emit({"phase": phase + "_f32_vs_plain", "loss_rel_err": loss_err,
+    trunk = TRUNK_PARAM[cfg32.model.backbone_type]
+    # the parameter the kernels move most, read by the rerun and every witness
+    top = max(rel, key=rel.get)
+    top_param = {"name": top, "kernels": rel[top],
+                 "kernels_rerun": rel_errs(again_g, got_g)[top], "witnesses": []}
+    # the witnesses of the step's own sensitivity (see TRAIN_GRAD_REL_TOL)
+    witnesses = []
+    for kind, wseed in WITNESSES:
+        wit_l, wit_g = witness_step(model32, cfg32, batch, gen, seed, indices,
+                                    kind, wseed)
+        wit_rel = rel_errs(wit_g, want_g)
+        witnesses.append({
+            "kind": kind, "seed": wseed, "eps": WITNESS_EPS,
+            "max_loss_rel_err": max(abs(wit_l[k] - w) / max(abs(w), 1e-12)
+                                    for k, w in want_l.items()),
+            "grad_worst_rel_err": worst(wit_rel),
+            "grad_worst_norm_rel_err": worst(norm_errs(wit_g, want_g))})
+        top_param["witnesses"].append(wit_rel[top])
+        del wit_g
+    emit({"phase": phase + "_f32_vs_plain", "config": cfg32.name,
+          "layers": {k: getattr(cfg32.model, k) for k in (
+              "encoder_layers", "decoder_layers", "map_decoder_layers")},
+          "loss_rel_err": loss_err,
           "max_loss_rel_err": max(loss_err.values()),
           "params_with_grad": len(want_g), "params": len(dict(model32.named_parameters())),
           "grad_worst_rel_err": worst(rel),
@@ -1442,31 +1813,22 @@ def phase_train(dev, cfg, phase):
           "grad_worst_rel_err_kernels_rerun": worst(rel_errs(again_g, got_g)),
           "grad_worst_rel_err_trunk": worst({
               k: v for k, v in rel.items() if k.startswith("img_backbone")}),
-          "witness": witness,
+          "witnesses": witnesses, "top_param": top_param,
           "grad_floor": floor, "loss_tol": TRAIN_REL_TOL,
           "grad_tol": TRAIN_GRAD_REL_TOL, "grad_norm_tol": TRAIN_GRAD_NORM_TOL,
           "floor_share": TRAIN_GRAD_FLOOR,
           "plain_step_s": plain_s, "plain_launches": plain_launches,
-          "trunk_grad_max": float(want_g["img_backbone.level5.tree2.conv2.weight"]
-                                  .abs().max())})
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "trunk_grad_param": trunk,
+          "trunk_grad_max": float(want_g[trunk].abs().max())})
     bad = ([(k, v) for k, v in rel.items() if v > TRAIN_GRAD_REL_TOL]
            + [(k, v) for k, v in norm.items() if v > TRAIN_GRAD_NORM_TOL])
     if (max(loss_err.values()) > TRAIN_REL_TOL or bad
             or set(got_g) != set(want_g) or any(plain_launches.values())
             or len(want_g) != len(dict(model32.named_parameters()))):
         raise AssertionError(f"{phase}: f32 step disagrees with plain: {bad[:8]}")
-    del got_g, want_g, again_g
-
-    optimizer32 = make_optimizer(model32, cfg32.optim)
-    sps = {"bf16": steps_per_s(cfg, model, optimizer, batch, gen, 5),
-           "f32": steps_per_s(cfg32, model32, optimizer32, batch, gen, 5)}
-    emit({"phase": phase + "_steps_per_s", "steps_per_s": sps,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    for name, c, mdl, opt in (("bf16", cfg, model, optimizer),
-                              ("f32", cfg32, model32, optimizer32)):
-        profile_train("profile_" + phase, c, mdl, opt, batch, gen, name,
-                      1e3 / sps[name])
-    return launches
+    del got_g, want_g, again_g, model32
+    torch.cuda.empty_cache()
 
 
 def profile_train(phase, cfg, model, optimizer, batch, gen, name, step_ms):
@@ -1576,7 +1938,7 @@ def kernels_line(rows, launches_by_path):
         by_variant = {k.split(".")[1]: sum(c[k] for c in launches_by_path.values())
                       for k in variant_counts() if k.startswith(name + ".")}
         entry = {"name": name, "route": "cuda",
-                 "source": SOURCES[ENTRY_SOURCE[name]],
+                 "source": f"{CSRC}/{ENTRY_SOURCE[name]}",
                  "replaces": REPLACES[name],
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -1611,6 +1973,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -1636,11 +1999,17 @@ def main() -> int:
     launches["train_occ"] = phase_train(dev, bev_tiny_det_occ_apollo(),
                                         "train_occ")
     torch.cuda.empty_cache()
+    launches["train_base"] = phase_train(dev, bev_base_det_map(), "train_base",
+                                         cmp_sizes=BASE_CMP_SIZES)
+    torch.cuda.empty_cache()
+    launches["base_occ"], launches["base_occ_train"] = phase_base_occ(dev)
+    torch.cuda.empty_cache()
     launches["train_overfit"] = phase_train_overfit(
         dev, bev_smoke_det_map(), "train_overfit", "loss_total", OVERFIT_SHARE)
     launches["train_overfit_occ"] = phase_train_overfit(
         dev, bev_smoke_det_occ(), "train_overfit_occ", "loss_occupancy",
         OCC_OVERFIT_SHARE)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(rows, launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
