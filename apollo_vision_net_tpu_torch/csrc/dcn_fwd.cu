@@ -630,7 +630,8 @@ extern "C" int dcn_bwd_im2col(const void* x, int dtype, const float* offset,
 // grad_x (B, H, W, C) in x's dtype through the f32 scratch grad_x_f32
 // (zero-filled here; for f32 x it is grad_x itself), grad_offset
 // (B, Ho, Wo, 9, 2) and grad_mask (B, Ho, Wo, 9) in f32. Returns 0 on
-// success, else a cudaError_t code; *variant as dcn_fwd's.
+// success, else a cudaError_t code; *variant is 1 when the quad variant
+// ran, 0 when the general one did.
 extern "C" int dcn_bwd_col2im(const void* x, int dtype, const float* offset,
                               const float* mask, const void* dcol,
                               float* grad_x_f32, void* grad_x,

@@ -253,34 +253,85 @@ extern "C" int msda_bwd(const void* value, int dtype, const float* loc,
 //   grad_ref[b, q, p]        = sum_{h, l} d loc[b, q, h, l, p]  (optional)
 // A masked (camera, tile) reads nothing and adds nothing.
 //
-// Design: one warp per (bs, query, head) item; it walks the N cameras of
-// the sample and skips a camera whose tile is masked (476 of 1,878 tiles
-// are active at the base SCA shape). Lane s owns sample s of the head (in
-// rounds of 32 over L * P; 32 at the base shape) and keeps its d off and
-// d attn in registers across the cameras: no atomics there, and the same
-// result every run. Vector variant (msda_bwd_factored_vec_kernel; D = 4 * G
-// with G in {1, 2, 4, 8}; value and grad_out aligned to 4 channels): G
-// lanes hold one corner row, 4 channels each, so one warp instruction
-// serves 32 / G corner rows; each lane loads its 4 channels of g once per
-// camera, forms its part of <g, v> and adds a * cw * g to the f32 scratch
-// with one 16-byte vector atomic (sm_90), so a row's adds are contiguous
-// (16-byte value units, 8 bf16 a lane, put each lane's two atomics 32
-// bytes apart and ran bf16 at 4.85 ms against f32's 2.51 ms, H100); the
-// G lanes' parts are reduced with __shfl_xor_sync and handed to the
-// sample's owner lane. General variant
-// (msda_bwd_factored_scalar_kernel; any D or alignment): the lanes walk the
-// channels of each (sample, corner) one at a time, as msda_bwd's chunked
-// variant. grad_ref, when asked for, takes f32 atomicAdds (a (camera,
-// query, point) sums over heads and levels); the model's reference points
-// are camera geometry and need none.
-//
-// Bound: bytes, ~0.1 ms a bf16 call at the base SCA shape (6 cameras x
-// 40,000 queries over 4 levels, H = 8, D = 32, L * P = 32; grad_out of the
+// What bounds it on the H100. As a function, bytes: ~0.12 ms a call at the
+// base SCA shape (6 cameras x 40,000 queries over 4 levels, H = 8, D = 32,
+// L * P = 32, 476 of 1,878 (camera, tile) pairs active; grad_out of the
 // active tiles, off, attn and ref read once, the touched value rows read
-// once, d off, d attn and d value written once). What sets the pace is the
-// scatter into the f32 scratch: 128 corner rows x 32 channels per active
-// (camera, query, head), ~2.0e9 f32 adds a call, which the vector variant
-// issues as 16-byte atomics of 4 adds each.
+// once, the four gradients written once). The work is 128 corner rows of
+// D channels per active (camera, query, head): ~62M rows a call, each read
+// (a dot product with g) and added to (a * cw * g into an f32 scratch),
+// ~2.0e9 f32 adds. Measured on the H100 (PERF.md §6):
+//   - The first design (one warp per (query, head), each row's load used at
+//     once, four shuffles a row, every add a 16-byte global atomic) ran
+//     2.50 ms, and without any add still 2.12 ms: bound by load latency,
+//     one row in flight per warp.
+//   - Batching the loads and reduce-scattering the dots (below) brought
+//     the same kernel without adds to 1.19 ms; with them it stayed at
+//     2.51 ms: the ~5e8 16-byte atomics (~2.5e8 L2 sectors) then set the
+//     pace, about one sector per L2 slice per clock.
+//   - An f32 atomicAdd to shared memory is a compare-and-swap loop on sm_90
+//     (ATOMS.CAST.SPIN), so rows summed in shared memory that way cost more
+//     than the global atomics they save; an integer shared atomic is
+//     native. Hence the counting sort below.
+//
+// Design of the vector variant (D = 4 G, G = 1, 2, 4 or 8, value and
+// grad_out aligned to 4 channels; msda_bwd_factored_priv_kernel; 1.87 ms
+// bf16 at the base shape where the first design ran 2.49, and 1.34 ms at
+// D = 16 where it ran 1.67, PERF.md §6):
+//   1. Rows of a (camera, query, head): G lanes hold one corner row, 4
+//      channels each (16-byte f32 or 8-byte bf16 loads, kept raw while in
+//      flight), so one warp instruction serves 32 / G rows. For each corner
+//      the warp takes the G steps' rows from their owner lanes, issues a
+//      batch of loads (64 bytes a lane) before it uses any and the global
+//      adds (which do not depend on the loads) while they fly, then forms
+//      the partial dot products and reduces them across the group by a
+//      recursive-halving reduce-scatter (G - 1 shuffles for G rows, where a
+//      reduction per row took 3 each at G = 8); one shuffle then hands
+//      every owner lane its dot (factored_round_grads).
+//   2. Private levels: the wrapper picks the longest run of levels, from
+//      the last, whose block fits its shared budget (levels 2-3 at the base
+//      shape: 479 rows that take 866 and 3,123 adds each per (camera, head)
+//      over the call). A block of 8 warps owns a run of 128 queries of one
+//      head and walks the cameras; per camera the owner lane of a private
+//      sample records each corner's row and weight in a fixed slot and
+//      counts it into its row with an integer shared atomic, warp 0 scans
+//      the counts, the slots are placed in a row-sorted list, and the block
+//      sums each row's slots (weight x the query's g, staged in shared
+//      memory) in equal pieces of the list a lane group, adding a row's D
+//      channels to the scratch with 16-byte atomics: the rows' adds become
+//      about one per block and camera. The other levels keep 16-byte
+//      global atomics. The barriers between a block's phases cost: without
+//      any add the block runs 1.45 ms where a warp per (query, head) ran
+//      1.19 (bf16), and the sort and the row sums cost ~0.3 ms (PERF.md §6).
+//   3. d off and d attn: the same lane owns the same (query, head, sample)
+//      on every camera, so it stores the first active camera's gradient and
+//      adds each later camera's to it in place (no atomics, the same result
+//      every run); queries active on no camera get zeros.
+//   4. When no level fits the budget the same kernel runs with no private
+//      level: every add a global atomic. No FPN pyramid of the configs gets
+//      there (its coarsest level always fits); a single 60 x 100 level at
+//      the base size runs 1.38 ms bf16 where the first design ran 1.10,
+//      since a round serves 32 samples of a (query, head) and L * P = 8
+//      fills a quarter of it.
+//   5. Two blocks an SM (the shared budget's aim) in __launch_bounds__:
+//      without the minimum ptxas gave the bf16 G = 2 and 4 instances a
+//      stack frame; with it every instance builds without one at the same
+//      speed.
+// d ref, when asked for, takes f32 atomicAdds (a (camera, query, point)
+// sums over heads and levels); the model's reference points are camera
+// geometry and need none.
+// General variant (msda_bwd_factored_scalar_kernel; any D or alignment):
+// one warp per (bs, query, head), the lanes walking the channels of each
+// (sample, corner) one at a time as msda_bwd's chunked variant, every add a
+// global atomic, d off and d attn summed over the cameras in registers.
+
+// The shared memory a privatizing block may take (two blocks an SM) and the
+// queries it takes. ops/msda_cuda.py factored_bwd_plan picks the private
+// levels within the same budget (FACTORED_BWD_PRIVATE_BYTES,
+// FACTORED_BWD_RUN); the entry refuses a plan beyond it.
+constexpr int kPrivMaxBytes = 100 * 1024;
+constexpr int kPrivRun = 128;
+constexpr int kPrivWarps = 8;  // warps per block of the privatizing kernel
 
 // Four channels as f32, from one 8-byte (bf16) or 16-byte (f32) load.
 __device__ __forceinline__ void load4(float* f, const __nv_bfloat16* p) {
@@ -326,102 +377,354 @@ __device__ __forceinline__ void add_loc_grad(const SampleGrad& sg,
   }
 }
 
-// G = D / 4 lanes hold one corner row, 4 channels each.
+// Recursive-halving reduce-scatter over the G lanes of a group: lane `sub`
+// holds G partial sums p[0..G-1] (one per row) and ends with the group's
+// total of row `sub` in p[0]. G - 1 shuffles.
+template <int G>
+__device__ __forceinline__ void group_reduce_scatter(float (&p)[G], int sub) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m >>= 1) {
+    const bool upper = (sub & m) != 0;
+#pragma unroll
+    for (int j = 0; j < m; ++j) {
+      const float send = upper ? p[j] : p[j + m];
+      const float keep = upper ? p[j + m] : p[j];
+      p[j] = keep + __shfl_xor_sync(FULL_MASK, send, m);
+    }
+  }
+}
+
+// Four channels of value as loaded (8 bytes of bf16, 16 of f32), kept raw
+// while in flight, and their dot product with g in f32.
+__device__ __forceinline__ uint2 load_raw4(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 load_raw4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float dot4(const float (&g)[4], uint2 v) {
+  return g[0] * __uint_as_float(v.x << 16) +
+         g[1] * __uint_as_float(v.x & 0xffff0000u) +
+         g[2] * __uint_as_float(v.y << 16) +
+         g[3] * __uint_as_float(v.y & 0xffff0000u);
+}
+__device__ __forceinline__ float dot4(const float (&g)[4], float4 v) {
+  return g[0] * v.x + g[1] * v.y + g[2] * v.z + g[3] * v.w;
+}
+
+// Rows a lane has in flight: 64 bytes of raw loads (8 in bf16, 4 in f32).
 template <typename T, int G>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-msda_bwd_factored_vec_kernel(const T* __restrict__ value,
-                             const float* __restrict__ ref,
-                             const float* __restrict__ off,
-                             const float* __restrict__ attn,
-                             const int* __restrict__ tile_mask,
-                             const T* __restrict__ grad_out,
-                             float* __restrict__ grad_value,
-                             float* __restrict__ grad_ref,
-                             float* __restrict__ grad_off,
-                             float* __restrict__ grad_attn, int Bs, int N,
-                             int V, int H, int Q, int P, int LP, int q_tile,
-                             int n_tiles, MsdaLevels lv) {
-  constexpr int D = 4 * G;
+struct FactoredBwdBatch {
+  static constexpr int kRaw = 4 * (int)sizeof(T);
+  static constexpr int value = G < 64 / kRaw ? G : 64 / kRaw;
+};
+
+// One round of one (camera, query, head) in the vector variant: lane s owns
+// the sample whose corners are c (row 1: cells, -1 outside the grid), weight
+// a and level f = (w, h, 1 / w, 1 / h). For each corner the warp takes the
+// G steps' rows from their owner lanes in batches, issues a batch's loads
+// before it uses any and its grad_value adds (which do not depend on the
+// loads) while they fly, then reduce-scatters the G partial dot products
+// and hands each owner lane its dot. A sample with priv set adds nothing
+// here (its block sums its rows, see msda_bwd_factored_priv_kernel).
+// Returns the lane's d off (x, y) and d attn for this camera (zeros for a
+// lane that owns no sample); adds d ref to gref unless it is null.
+template <typename T, int G>
+__device__ __forceinline__ float3 factored_round_grads(
+    const T* __restrict__ vb, float* __restrict__ gvb, int pstart, int row,
+    const Bilinear4& c, bool priv, float a, float4 f, bool own,
+    const float (&g)[4], int lane, float* gref) {
   constexpr int ROWS = 32 / G;  // corner rows per warp instruction
-  __shared__ SharedLevels sl;
-  stage_levels(sl, lv);
-
-  const int lane = threadIdx.x & 31;
+  constexpr int BATCH = FactoredBwdBatch<T, G>::value;
+  using Raw = decltype(load_raw4(vb));
   const int grp = lane / G, sub = lane % G;
-  const int item = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
-  if (item >= Bs * Q * H) return;
-  const FactoredBwdItem it = factored_bwd_item(item, H, Q);
-  const int row = H * D;  // elements between value cells
-  const float* oq = off + (int64_t)item * LP * 2;
-  const float* aq = attn + (int64_t)item * LP;
-
-  for (int r0 = 0; r0 < LP; r0 += 32) {
-    const int i = r0 + lane;  // the lane's sample
-    const bool own = i < LP;
-    const int l = own ? i / P : 0, p = own ? i - l * P : 0;
-    const float ox = own ? __ldg(oq + 2 * i) : 0.f;
-    const float oy = own ? __ldg(oq + 2 * i + 1) : 0.f;
-    const float a = own ? __ldg(aq + i) : 0.f;
-    const float4 f = sl.whi[l];
-    float gox = 0.f, goy = 0.f, ga = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const int b = it.bs * N + n;
-      // the same for every lane: the warp skips the camera as one
-      if (tile_mask != nullptr &&
-          __ldg(tile_mask + (int64_t)b * n_tiles + it.q / q_tile) == 0) {
-        continue;
+  float dot[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // corner
+    // this lane's target for corner k: a global cell (>= 0), the private
+    // row -2 - tgt (<= -2), or nothing (-1)
+    const int tgt = c.idx[k] < 0 ? -1
+                    : priv       ? pstart - 2 - c.idx[k]
+                                 : c.idx[k];
+    const float wk = a * c.cw[k];
+    float pd[G];
+#pragma unroll
+    for (int t0 = 0; t0 < G; t0 += BATCH) {
+      int id[BATCH];
+      float wv[BATCH];
+#pragma unroll
+      for (int t = 0; t < BATCH; ++t) {  // the group's row of step t0 + t
+        const int src = (t0 + t) * ROWS + grp;
+        id[t] = __shfl_sync(FULL_MASK, tgt, src);
+        wv[t] = __shfl_sync(FULL_MASK, wk, src);
       }
-      const int64_t bq = (int64_t)b * Q + it.q;
-      Bilinear4 c = {{-1, -1, -1, -1}, {0.f, 0.f, 0.f, 0.f}, 0.f, 0.f};
-      if (own) {
-        const float2 xy = factored_loc(sl, l, __ldg(ref + bq * P * 2 + 2 * p),
-                                       __ldg(ref + bq * P * 2 + 2 * p + 1),
-                                       ox, oy);
-        c = bilinear_at(sl, l, xy.x, xy.y, row);
+      Raw v[BATCH];
+#pragma unroll
+      for (int t = 0; t < BATCH; ++t) {  // the batch's loads in flight
+        const int cell = id[t] >= 0 ? id[t] : pstart - 2 - id[t];
+        v[t] = id[t] != -1 ? load_raw4(vb + (int64_t)cell * row) : Raw{};
       }
-      float g[4];
-      load4(g, grad_out + bq * row + it.hh * D + sub * 4);
-      const T* vb = value + (int64_t)b * V * row + it.hh * D + sub * 4;
-      float* gvb = grad_value + (int64_t)b * V * row + it.hh * D + sub * 4;
-      float dot[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {  // corner
-#pragma unroll
-        for (int t = 0; t < G; ++t) {
-          const int src = t * ROWS + grp;  // owner lane of the group's row
-          // the same for the G lanes of a group
-          const int id = __shfl_sync(FULL_MASK, c.idx[k], src);
-          const float wv = __shfl_sync(FULL_MASK, a * c.cw[k], src);
-          float part = 0.f;
-          if (id >= 0) {
-            float v[4];
-            load4(v, vb + id);
-            part = g[0] * v[0] + g[1] * v[1] + g[2] * v[2] + g[3] * v[3];
-            // the G lanes' 16-byte adds cover the row's D f32 contiguously
-            atomicAdd(reinterpret_cast<float4*>(gvb + id),
-                      make_float4(wv * g[0], wv * g[1], wv * g[2], wv * g[3]));
-          }
-#pragma unroll
-          for (int m = 1; m < G; m <<= 1) {
-            part += __shfl_xor_sync(FULL_MASK, part, m);
-          }
-          // the owner lanes of this step's rows take their group's sum
-          const float d = __shfl_sync(FULL_MASK, part, (lane % ROWS) * G);
-          if (lane / ROWS == t) dot[k] = d;
+      for (int t = 0; t < BATCH; ++t) {  // the adds, while the loads fly
+        if (id[t] >= 0) {
+          // the G lanes' 16-byte adds cover the row's D f32
+          atomicAdd(reinterpret_cast<float4*>(gvb + (int64_t)id[t] * row),
+                    make_float4(wv[t] * g[0], wv[t] * g[1], wv[t] * g[2],
+                                wv[t] * g[3]));
         }
       }
-      if (own) {
-        const SampleGrad sg = sample_grad(c, dot, a, f.x, f.y);
-        ga += sg.attn;
-        add_loc_grad(sg, f, &gox, &goy,
-                     grad_ref != nullptr ? grad_ref + bq * P * 2 + 2 * p
-                                         : nullptr);
+#pragma unroll
+      for (int t = 0; t < BATCH; ++t) pd[t0 + t] = dot4(g, v[t]);
+    }
+    group_reduce_scatter<G>(pd, sub);
+    // lane grp' * G + t holds step t's dot of group grp'; its owner is lane
+    // t * ROWS + grp'
+    dot[k] = __shfl_sync(FULL_MASK, pd[0], (lane % ROWS) * G + lane / ROWS);
+  }
+  float3 out = make_float3(0.f, 0.f, 0.f);
+  if (own) {
+    const SampleGrad sg = sample_grad(c, dot, a, f.x, f.y);
+    if (gref != nullptr) {
+      atomicAdd(gref, sg.lx);
+      atomicAdd(gref + 1, sg.ly);
+    }
+    out = make_float3(sg.lx * f.z, sg.ly * f.w, sg.attn);
+  }
+  return out;
+}
+
+// The shared memory of msda_bwd_factored_priv_kernel for a run of `run`
+// queries, `sp` private samples a query and `keys` private rows a head:
+// the run's grad_out rows (f32), each private corner's weight, row key and
+// place in the row-sorted list, and each row's count, start and cursor
+// (ops/msda_cuda.py factored_bwd_plan mirrors it).
+__host__ __device__ __forceinline__ int64_t factored_priv_smem(int run, int D,
+                                                               int sp,
+                                                               int keys) {
+  const int64_t slots = (int64_t)run * sp * 4;
+  return (int64_t)run * D * 4 + slots * (4 + 2 + 2) + ((int64_t)3 * keys + 1) * 4;
+}
+
+// The vector variant (design notes 2-4 above): a block of kPrivWarps warps
+// owns a run of queries of one head and walks the cameras in turn,
+// skipping a camera none of whose tiles in the run is active. For each
+// camera:
+//   A. its warps take the run's queries one at a time
+//      (factored_round_grads: the dots of every sample, the adds of the
+//      samples before the private levels); the owner lane of a private
+//      sample records each corner's row key (-1 outside the grid) and
+//      weight a * cw in the corner's fixed slot and counts it into its row;
+//      the lanes stage g in shared memory;
+//   B. warp 0 turns the counts into row starts (an exclusive scan) and
+//      every counted slot takes its place in the row-sorted list;
+//   C. the 8-lane groups cut the row-sorted list into equal pieces and
+//      sum each row's slots (weight x the slot's staged g), adding a row's
+//      sum to the scratch when it ends (a row split between two pieces
+//      takes two adds).
+template <typename T, int G>
+__global__ void __launch_bounds__(kPrivWarps * 32, 2)
+msda_bwd_factored_priv_kernel(const T* __restrict__ value,
+                              const float* __restrict__ ref,
+                              const float* __restrict__ off,
+                              const float* __restrict__ attn,
+                              const int* __restrict__ tile_mask,
+                              const T* __restrict__ grad_out,
+                              float* __restrict__ grad_value,
+                              float* __restrict__ grad_ref,
+                              float* __restrict__ grad_off,
+                              float* __restrict__ grad_attn, int N, int V,
+                              int H, int Q, int P, int LP, int q_tile,
+                              int n_tiles, int run, int pstart, int pfirst,
+                              MsdaLevels lv) {
+  constexpr int D = 4 * G;
+  constexpr int ROWS = 32 / G;  // lane groups of a warp
+  extern __shared__ __align__(16) float smem_f[];
+  __shared__ SharedLevels sl;
+  const int sp = LP - pfirst;       // private samples a query
+  const int keys = V - pstart;      // private rows a head
+  const int slots = run * sp * 4;   // a corner each
+  float* g_s = smem_f;                           // run x D
+  float* w_s = g_s + run * D;                    // slots
+  int* start = reinterpret_cast<int*>(w_s + slots);  // keys + 1
+  int* cursor = start + keys + 1;                // keys
+  int* count = cursor + keys;                    // keys
+  short* key_s = reinterpret_cast<short*>(count + keys);        // slots
+  unsigned short* list = reinterpret_cast<unsigned short*>(key_s + slots);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane / G, sub = lane % G;
+  const int hh = blockIdx.x % H;
+  const int runs = (Q + run - 1) / run;
+  const int rb = blockIdx.x / H;
+  const int bs = rb / runs;
+  const int q0 = (rb - bs * runs) * run, q1 = min(Q, q0 + run);
+  const int row = H * D;  // elements between value cells
+  stage_levels(sl, lv);   // ends in __syncthreads
+  const int t0 = q0 / q_tile, t1 = (q1 - 1) / q_tile;  // the run's tiles
+  // slot / (sp * 4), the slot's query, as __umulhi(slot, magic): exact for
+  // slot * sp * 4 < 2^32 (slots < 2^16)
+  const unsigned magic = sp > 0 ? 0xffffffffu / (unsigned)(sp * 4) + 1u : 0u;
+
+  for (int n = 0; n < N; ++n) {
+    const int b = bs * N + n;
+    int act = tile_mask == nullptr;
+    for (int t = t0 + tid; !act && t <= t1; t += blockDim.x) {
+      act = __ldg(tile_mask + (int64_t)b * n_tiles + t) != 0;
+    }
+    if (!__syncthreads_or(act)) continue;  // the same for the whole block
+    for (int i = tid; i < keys; i += blockDim.x) count[i] = 0;
+    __syncthreads();
+    // A
+    const int64_t vo = (int64_t)b * V * row + hh * D + sub * 4;
+    for (int ql = warp; ql < run; ql += kPrivWarps) {
+      const int q = q0 + ql;
+      // the same for the whole warp
+      bool on = q < q1, seen = n > 0;
+      const int tile = q / q_tile;
+      if (on && tile_mask != nullptr) {
+        on = __ldg(tile_mask + (int64_t)b * n_tiles + tile) != 0;
+        seen = false;
+        for (int n2 = 0; n2 < n; ++n2) {
+          seen |= __ldg(tile_mask + (int64_t)(bs * N + n2) * n_tiles + tile) != 0;
+        }
+      }
+      if (!on) {  // its slots count nothing
+        for (int e = lane; e < sp * 4; e += 32) key_s[ql * sp * 4 + e] = -1;
+        continue;
+      }
+      const int64_t item = ((int64_t)bs * Q + q) * H + hh;
+      const int64_t bq = (int64_t)b * Q + q;
+      const float* oq = off + item * LP * 2;
+      const float* aq = attn + item * LP;
+      float g[4];
+      load4(g, grad_out + bq * row + hh * D + sub * 4);
+      if (grp == 0) {
+        *reinterpret_cast<float4*>(g_s + ql * D + sub * 4) =
+            make_float4(g[0], g[1], g[2], g[3]);
+      }
+      for (int r0 = 0; r0 < LP; r0 += 32) {
+        const int i = r0 + lane;  // the lane's sample
+        const bool own = i < LP;
+        const int l = own ? i / P : 0, p = own ? i - l * P : 0;
+        const float a = own ? __ldg(aq + i) : 0.f;
+        Bilinear4 c = {{-1, -1, -1, -1}, {0.f, 0.f, 0.f, 0.f}, 0.f, 0.f};
+        if (own) {
+          const float2 xy = factored_loc(
+              sl, l, __ldg(ref + bq * P * 2 + 2 * p),
+              __ldg(ref + bq * P * 2 + 2 * p + 1), __ldg(oq + 2 * i),
+              __ldg(oq + 2 * i + 1));
+          c = bilinear_at(sl, l, xy.x, xy.y, 1);
+        }
+        const bool priv = own && i >= pfirst;
+        if (priv) {
+          const int base = (ql * sp + i - pfirst) * 4;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int key = c.idx[k] < 0 ? -1 : c.idx[k] - pstart;
+            key_s[base + k] = (short)key;
+            w_s[base + k] = a * c.cw[k];
+            if (key >= 0) atomicAdd(count + key, 1);
+          }
+        }
+        const float3 d = factored_round_grads<T, G>(
+            value + vo, grad_value + vo, pstart, row, c, priv, a, sl.whi[l],
+            own, g, lane,
+            grad_ref != nullptr && own ? grad_ref + bq * P * 2 + 2 * p
+                                       : nullptr);
+        if (own) {
+          float* go = grad_off + item * LP * 2 + 2 * i;
+          float* gat = grad_attn + item * LP + i;
+          float gx = d.x, gy = d.y, gz = d.z;
+          if (seen) {
+            gx += go[0];
+            gy += go[1];
+            gz += *gat;
+          }
+          go[0] = gx;
+          go[1] = gy;
+          *gat = gz;
+        }
       }
     }
-    if (own) {
-      grad_off[(int64_t)item * LP * 2 + 2 * i] = gox;
-      grad_off[(int64_t)item * LP * 2 + 2 * i + 1] = goy;
-      grad_attn[(int64_t)item * LP + i] = ga;
+    __syncthreads();
+    // B: exclusive scan of the counts by warp 0, a run of rows a lane
+    if (tid < 32) {
+      const int per = (keys + 31) / 32, k0 = lane * per;
+      const int k1 = min(keys, k0 + per);
+      int sum = 0;
+      for (int k = k0; k < k1; ++k) sum += count[k];
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int at = incl - sum;
+      for (int k = k0; k < k1; ++k) {
+        start[k] = at;
+        cursor[k] = at;
+        at += count[k];
+      }
+      if (lane == 31) start[keys] = incl;
+    }
+    __syncthreads();
+    for (int e = tid; e < slots; e += blockDim.x) {
+      const int key = key_s[e];
+      if (key >= 0) list[atomicAdd(cursor + key, 1)] = (unsigned short)e;
+    }
+    __syncthreads();
+    // C: the row-sorted list cut into one equal piece per 8-lane group (lane
+    // sub: 4 channels); a group walks its piece, summing in registers, and
+    // adds the sum to the scratch whenever the row changes and at its end
+    float* gv = grad_value + ((int64_t)b * V + pstart) * row + hh * D;
+    const float4* g4 = reinterpret_cast<const float4*>(g_s);
+    const int n_groups = kPrivWarps * ROWS;
+    const int total = start[keys];
+    const int piece = (total + n_groups - 1) / n_groups;
+    const int e0 = (warp * ROWS + grp) * piece;
+    const int e1 = min(total, e0 + piece);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    int cur = -1;
+#pragma unroll 4
+    for (int e = e0; e < e1; ++e) {
+      const unsigned slot = list[e];
+      const int key = key_s[slot];
+      if (key != cur) {  // the same for the group's lanes
+        if (cur >= 0) {
+          atomicAdd(reinterpret_cast<float4*>(gv + (int64_t)cur * row + sub * 4),
+                    acc);
+        }
+        acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        cur = key;
+      }
+      const float w = w_s[slot];
+      const float4 gq = g4[__umulhi(slot, magic) * G + sub];
+      acc.x = fmaf(w, gq.x, acc.x);
+      acc.y = fmaf(w, gq.y, acc.y);
+      acc.z = fmaf(w, gq.z, acc.z);
+      acc.w = fmaf(w, gq.w, acc.w);
+    }
+    if (cur >= 0) {
+      atomicAdd(reinterpret_cast<float4*>(gv + (int64_t)cur * row + sub * 4),
+                acc);
+    }
+    __syncthreads();
+  }
+  if (tile_mask != nullptr) {
+    // queries active on no camera: zero d off and d attn
+    for (int q = q0 + warp; q < q1; q += kPrivWarps) {
+      const int tile = q / q_tile;
+      bool any = false;
+      for (int n = 0; n < N; ++n) {
+        any |= __ldg(tile_mask + (int64_t)(bs * N + n) * n_tiles + tile) != 0;
+      }
+      if (any) continue;
+      const int64_t item = ((int64_t)bs * Q + q) * H + hh;
+      for (int i = lane; i < LP; i += 32) {
+        grad_off[item * LP * 2 + 2 * i] = 0.f;
+        grad_off[item * LP * 2 + 2 * i + 1] = 0.f;
+        grad_attn[item * LP + i] = 0.f;
+      }
     }
   }
 }
@@ -509,37 +812,62 @@ msda_bwd_factored_scalar_kernel(const T* __restrict__ value,
   }
 }
 
-// The vector variant when D = 4 * G with G in {1, 2, 4, 8} and value and
-// grad_out are aligned to 4 channels (16 bytes in f32, 8 in bf16), else
-// the general one. Returns 1 / 0.
+template <typename T, int G>
+static int launch_priv(cudaStream_t s, unsigned grid, int smem,
+                       const void* value, const float* ref, const float* off,
+                       const float* attn, const int* tile_mask,
+                       const void* grad_out, float* grad_value,
+                       float* grad_ref, float* grad_off, float* grad_attn,
+                       int N, int V, int H, int Q, int P, int LP, int q_tile,
+                       int n_tiles, int run, int pstart, int pfirst,
+                       const MsdaLevels& lv) {
+  auto kernel = msda_bwd_factored_priv_kernel<T, G>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return -(int)e;
+  kernel<<<grid, kPrivWarps * 32, smem, s>>>(
+      (const T*)value, ref, off, attn, tile_mask, (const T*)grad_out,
+      grad_value, grad_ref, grad_off, grad_attn, N, V, H, Q, P, LP, q_tile,
+      n_tiles, run, pstart, pfirst, lv);
+  return pstart < V ? 2 : 1;
+}
+
+// The vector variant when D = 4 * G with G in {1, 2, 4, 8} (D = 4 .. 32)
+// and value and grad_out are aligned to 4 channels (16 bytes in f32, 8 in
+// bf16), else the general one. Returns 2 when the vector variant ran with
+// private levels, 1 when it ran without, 0 for the general one; a negative
+// cudaError_t code when the launch was refused before it ran.
 template <typename T>
-static int launch_bwd_factored(unsigned grid, cudaStream_t s,
-                               const void* value, const float* ref,
-                               const float* off, const float* attn,
-                               const int* tile_mask, const void* grad_out,
-                               float* grad_value, float* grad_ref,
-                               float* grad_off, float* grad_attn, int Bs,
-                               int N, int V, int H, int D, int Q, int P,
-                               int LP, int q_tile, int n_tiles,
+static int launch_bwd_factored(cudaStream_t s, const void* value,
+                               const float* ref, const float* off,
+                               const float* attn, const int* tile_mask,
+                               const void* grad_out, float* grad_value,
+                               float* grad_ref, float* grad_off,
+                               float* grad_attn, int Bs, int N, int V, int H,
+                               int D, int Q, int P, int LP, int q_tile,
+                               int n_tiles, int run, int pstart, int pfirst,
                                const MsdaLevels& lv) {
   const bool aligned =
       (((uintptr_t)value | (uintptr_t)grad_out) % (4 * sizeof(T))) == 0 &&
       D % 4 == 0;
   const int G = aligned ? D / 4 : 0;
-#define MSDA_BWD_VEC_CASE(G_)                                               \
-  if (G == G_) {                                                            \
-    msda_bwd_factored_vec_kernel<T, G_><<<grid, kBwdWarps * 32, 0, s>>>(    \
-        (const T*)value, ref, off, attn, tile_mask, (const T*)grad_out,     \
-        grad_value, grad_ref, grad_off, grad_attn, Bs, N, V, H, Q, P, LP,   \
-        q_tile, n_tiles, lv);                                               \
-    return 1;                                                               \
+  const int smem = (int)factored_priv_smem(run, D, LP - pfirst, V - pstart);
+  const unsigned grid = (unsigned)((int64_t)Bs * ((Q + run - 1) / run) * H);
+#define MSDA_BWD_PRIV(G_)                                                    \
+  launch_priv<T, G_>(s, grid, smem, value, ref, off, attn, tile_mask,        \
+                     grad_out, grad_value, grad_ref, grad_off, grad_attn, N, \
+                     V, H, Q, P, LP, q_tile, n_tiles, run, pstart, pfirst, lv)
+  switch (G) {
+    case 8: return MSDA_BWD_PRIV(8);
+    case 4: return MSDA_BWD_PRIV(4);
+    case 2: return MSDA_BWD_PRIV(2);
+    case 1: return MSDA_BWD_PRIV(1);
+    default: break;
   }
-  MSDA_BWD_VEC_CASE(1)
-  MSDA_BWD_VEC_CASE(2)
-  MSDA_BWD_VEC_CASE(4)
-  MSDA_BWD_VEC_CASE(8)
-#undef MSDA_BWD_VEC_CASE
-  msda_bwd_factored_scalar_kernel<T><<<grid, kBwdWarps * 32, 0, s>>>(
+#undef MSDA_BWD_PRIV
+  const unsigned warps_grid =
+      (unsigned)(((int64_t)Bs * Q * H + kBwdWarps - 1) / kBwdWarps);
+  msda_bwd_factored_scalar_kernel<T><<<warps_grid, kBwdWarps * 32, 0, s>>>(
       (const T*)value, ref, off, attn, tile_mask, (const T*)grad_out,
       grad_value, grad_ref, grad_off, grad_attn, Bs, N, V, H, D, Q, P, LP,
       q_tile, n_tiles, lv);
@@ -551,8 +879,12 @@ static int launch_bwd_factored(unsigned grid, cudaStream_t s,
 // (B, ceil(Q / q_tile)) or null, grad_out (B, Q, H * D) in value's dtype ->
 // grad_value (through the f32 scratch grad_value_f32, as msda_bwd),
 // grad_ref (like ref, f32; null when not wanted), grad_off and grad_attn
-// (like off and attn, f32). *variant is set to 1 when the vector variant
-// ran, 0 when the general one did.
+// (like off and attn, f32). private_from is the first of the levels whose
+// grad_value rows the vector variant sums in shared memory (L for none;
+// they run to the last level), within kPrivMaxBytes at kPrivRun queries a
+// block.
+// *variant is set to 2 when the vector variant ran with private levels, 1
+// when it ran without, 0 when the general one ran.
 extern "C" int msda_bwd_factored(const void* value, int dtype,
                                  const float* ref, const float* off,
                                  const float* attn, const int* tile_mask,
@@ -561,8 +893,10 @@ extern "C" int msda_bwd_factored(const void* value, int dtype,
                                  float* grad_off, float* grad_attn, int B,
                                  int N, int V, int H, int D, int Q, int L,
                                  int P, const int* shapes, int q_tile,
-                                 void* stream, int* variant) {
+                                 int private_from, void* stream,
+                                 int* variant) {
   MsdaLevels lv;
+  constexpr int run = kPrivRun;
   if (q_tile < 1 || D < 1 || P < 1 || N < 1 || B % N != 0 ||
       (int64_t)V * H * D > INT32_MAX ||
       (int64_t)B * Q * H > INT32_MAX - kBwdWarps) {
@@ -571,6 +905,14 @@ extern "C" int msda_bwd_factored(const void* value, int dtype,
   const int err = fill_levels(&lv, L, shapes, V);
   if (err != 0) return err;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (private_from < 0 || private_from > L) return (int)cudaErrorInvalidValue;
+  const int pstart = private_from < L ? lv.start[private_from] : V;
+  const int pfirst = private_from * P;  // first private sample of a head
+  if (pstart < V &&
+      (factored_priv_smem(run, D, L * P - pfirst, V - pstart) > kPrivMaxBytes ||
+       (int64_t)run * (L * P - pfirst) * 4 > 65536 || V - pstart > 32767)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   const int Bs = B / N;
   const int64_t n_value = (int64_t)B * V * H * D;
@@ -584,21 +926,20 @@ extern "C" int msda_bwd_factored(const void* value, int dtype,
         grad_ref, 0, (int64_t)B * Q * P * 2 * sizeof(float), s);
     if (e != cudaSuccess) return (int)e;
   }
-  const int64_t items = (int64_t)Bs * Q * H;
-  if (items > 0) {
-    const unsigned grid = (unsigned)((items + kBwdWarps - 1) / kBwdWarps);
+  if ((int64_t)Bs * Q * H > 0) {
     const int n_tiles = (Q + q_tile - 1) / q_tile;
-    if (dtype == 0) {
-      *variant = launch_bwd_factored<float>(
-          grid, s, value, ref, off, attn, tile_mask, grad_out, grad_value_f32,
-          grad_ref, grad_off, grad_attn, Bs, N, V, H, D, Q, P, L * P, q_tile,
-          n_tiles, lv);
-    } else {
-      *variant = launch_bwd_factored<__nv_bfloat16>(
-          grid, s, value, ref, off, attn, tile_mask, grad_out, grad_value_f32,
-          grad_ref, grad_off, grad_attn, Bs, N, V, H, D, Q, P, L * P, q_tile,
-          n_tiles, lv);
-    }
+    const int ran =
+        dtype == 0
+            ? launch_bwd_factored<float>(
+                  s, value, ref, off, attn, tile_mask, grad_out,
+                  grad_value_f32, grad_ref, grad_off, grad_attn, Bs, N, V, H,
+                  D, Q, P, L * P, q_tile, n_tiles, run, pstart, pfirst, lv)
+            : launch_bwd_factored<__nv_bfloat16>(
+                  s, value, ref, off, attn, tile_mask, grad_out,
+                  grad_value_f32, grad_ref, grad_off, grad_attn, Bs, N, V, H,
+                  D, Q, P, L * P, q_tile, n_tiles, run, pstart, pfirst, lv);
+    if (ran < 0) return -ran;
+    *variant = ran;
   }
   if (dtype == 1 && n_value > 0) {
     const int64_t blocks = (n_value + 255) / 256;

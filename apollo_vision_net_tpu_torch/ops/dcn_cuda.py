@@ -9,16 +9,18 @@ on the current CUDA stream. Its plain counterpart is
 gradient (the JAX package's is the XLA VJP of ``_dcn_xla_ref``, not a
 Pallas kernel): the im2col kernel writes the modulated samples, two
 ``torch.matmul`` products give the weight's gradient and the samples'
-(the JAX package leaves both to XLA einsums), and the col2im kernel turns
+(the JAX package leaves both to XLA einsums), and the d-input kernel turns
 the latter into the gradients of x, the offsets and the mask. Its plain
 counterpart is autograd through the plain version.
 
 ``launches`` grows by one per forward launch, ``launches_bwd`` by one per
 backward (its two kernels), so a run can show that its main path went
-through the kernels; ``launches_by_variant`` and ``launches_bwd_by_variant``
-split them by the kernel variant that ran: ``vector`` (16-byte gathers;
-C, and for the forward O, whole 16-byte units, aligned tensors) or
-``general`` (scalar loads, any C and O).
+through the kernels; ``launches_by_variant`` splits the forward's by the
+kernel variant that ran: ``vector`` (16-byte gathers; C and O whole
+16-byte units, aligned tensors) or ``general`` (scalar loads, any C and
+O); ``launches_bwd_by_variant`` splits the backward's by ``BWD_VARIANTS``:
+``quad`` (4 channels a lane: C a multiple of 4, x aligned to 4 channels)
+or ``general``.
 
 ``ARGTYPES`` are the C signatures of the entry points as ctypes sees them.
 """
@@ -35,7 +37,9 @@ SOURCE = "dcn_fwd.cu"
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 launches_bwd = 0
-launches_bwd_by_variant = dict.fromkeys(VARIANTS.values(), 0)
+# the backward's d-input kernel reports the variant it launched
+BWD_VARIANTS = {1: "quad", 0: "general"}
+launches_bwd_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,7 +65,7 @@ def reset_launch_counts() -> None:
     launches = 0
     launches_bwd = 0
     launches_by_variant.update(dict.fromkeys(VARIANTS.values(), 0))
-    launches_bwd_by_variant.update(dict.fromkeys(VARIANTS.values(), 0))
+    launches_bwd_by_variant.update(dict.fromkeys(BWD_VARIANTS.values(), 0))
 
 
 def _lib() -> ctypes.CDLL:
@@ -165,6 +169,6 @@ def dcn_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"dcn_bwd_col2im kernel launch failed: CUDA error {err}")
     launches_bwd += 1
-    if variant[0] in VARIANTS:  # an empty call launches nothing
-        launches_bwd_by_variant[VARIANTS[variant[0]]] += 1
+    if variant[0] in BWD_VARIANTS:  # an empty call launches nothing
+        launches_bwd_by_variant[BWD_VARIANTS[variant[0]]] += 1
     return grad_x, grad_offset, grad_mask, grad_weight

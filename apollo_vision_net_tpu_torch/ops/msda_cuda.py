@@ -27,7 +27,11 @@ tile mask, and ``launches_bwd_plain_by_variant`` /
 ``launches_bwd_masked_by_variant`` split them by ``BWD_VARIANTS``:
 ``lane_per_channel`` (D <= 32) or ``chunked``. ``launches_bwd_factored``
 counts the factored backward's launches and
-``launches_bwd_factored_by_variant`` splits them by ``VARIANTS``.
+``launches_bwd_factored_by_variant`` splits them by
+``BWD_FACTORED_VARIANTS``: ``privatized`` (the vector kernel with the
+grad_value rows of the coarsest levels summed in shared memory, as
+``factored_bwd_plan`` chooses), ``vector`` (the same kernel with no level
+small enough) or ``general``.
 
 ``ARGTYPES`` are the C signatures of the entry points as ctypes sees them:
 ``c_void_p`` for every pointer and the stream, ``c_int`` for every int.
@@ -56,7 +60,15 @@ launches_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 BWD_VARIANTS = {1: "lane_per_channel", 0: "chunked"}
 launches_bwd_plain_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
 launches_bwd_masked_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
-launches_bwd_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
+BWD_FACTORED_VARIANTS = {2: "privatized", 1: "vector", 0: "general"}
+launches_bwd_factored_by_variant = dict.fromkeys(
+    BWD_FACTORED_VARIANTS.values(), 0)
+# msda_bwd_factored's vector kernel: the shared memory a block may take to
+# sum the private levels' grad_value rows (two blocks an SM), and the
+# queries a block takes; the C entry holds the same two numbers
+# (csrc/msda_bwd.cu kPrivMaxBytes, kPrivRun) and refuses a plan beyond them
+FACTORED_BWD_PRIVATE_BYTES = 100 * 1024
+FACTORED_BWD_RUN = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,9 +89,9 @@ ARGTYPES = {
                  _I, _I, _P, _I, _P, _P],
     # value, dtype, ref, off, attn, tile_mask, grad_out, grad_value_f32,
     # grad_value, grad_ref, grad_off, grad_attn, B, N, V, H, D, Q, L, P,
-    # shapes, q_tile, stream, variant
+    # shapes, q_tile, private_from, stream, variant
     "msda_bwd_factored": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P],
 }
 # the source of each entry point
 ENTRY_SOURCE = {"msda_fwd": SOURCE, "msda_fwd_factored": SOURCE,
@@ -96,9 +108,10 @@ def reset_launch_counts() -> None:
     launches_bwd_masked = 0
     launches_bwd_factored = 0
     for counts in (launches_plain_by_variant, launches_masked_by_variant,
-                   launches_factored_by_variant,
-                   launches_bwd_factored_by_variant):
+                   launches_factored_by_variant):
         counts.update(dict.fromkeys(VARIANTS.values(), 0))
+    launches_bwd_factored_by_variant.update(
+        dict.fromkeys(BWD_FACTORED_VARIANTS.values(), 0))
     for counts in (launches_bwd_plain_by_variant, launches_bwd_masked_by_variant):
         counts.update(dict.fromkeys(BWD_VARIANTS.values(), 0))
 
@@ -312,6 +325,37 @@ def msda_bwd(
     return grad_value, grad_loc, grad_attn
 
 
+def factored_bwd_priv_bytes(run: int, D: int, sp: int, keys: int) -> int:
+    """Shared memory of msda_bwd_factored's privatizing block (csrc/
+    msda_bwd.cu factored_priv_smem): ``run`` queries' grad_out rows in f32,
+    8 bytes for each of their ``sp`` private samples' four corners (weight,
+    row key, place in the sorted list) and 12 bytes for each of the ``keys``
+    private rows (count, start, cursor), plus the list's end."""
+    return run * D * 4 + run * sp * 4 * 8 + (3 * keys + 1) * 4
+
+
+def factored_bwd_plan(spatial_shapes: Sequence[Tuple[int, int]], D: int,
+                      P: int) -> int:
+    """``private_from`` of a ``msda_bwd_factored`` call: the first of the
+    longest run of levels, ending at the last, whose grad_value rows a
+    block of FACTORED_BWD_RUN queries (a tile of the mask may span several
+    blocks) sums in shared memory within FACTORED_BWD_PRIVATE_BYTES
+    (``factored_bwd_priv_bytes``), or len(spatial_shapes) when not even the
+    last level fits."""
+    run = FACTORED_BWD_RUN
+    private_from, keys = len(spatial_shapes), 0
+    for lvl in range(len(spatial_shapes) - 1, -1, -1):
+        h, w = spatial_shapes[lvl]
+        sp = (len(spatial_shapes) - lvl) * P
+        if (factored_bwd_priv_bytes(run, D, sp, keys + h * w)
+                > FACTORED_BWD_PRIVATE_BYTES
+                or run * sp * 4 > 65536 or keys + h * w > 32767):
+            break
+        keys += h * w
+        private_from = lvl
+    return private_from
+
+
 def msda_bwd_factored(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -347,6 +391,7 @@ def msda_bwd_factored(
     grad_off = torch.empty_like(off_flat)
     grad_attn = torch.empty_like(attn_flat)
     shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
+    private_from = factored_bwd_plan(spatial_shapes, D, P)
     stream = torch.cuda.current_stream(dev).cuda_stream
     variant = (ctypes.c_int * 1)(-1)
     err = lib.msda_bwd_factored(
@@ -356,10 +401,10 @@ def msda_bwd_factored(
         grad_out.data_ptr(), grad_value_f32.data_ptr(), grad_value.data_ptr(),
         grad_ref.data_ptr() if grad_ref is not None else None,
         grad_off.data_ptr(), grad_attn.data_ptr(), B, B // Bs, V, H, D, Q, L,
-        P, shapes, q_tile, stream, variant)
+        P, shapes, q_tile, private_from, stream, variant)
     if err != 0:
         raise RuntimeError(f"msda_bwd_factored kernel launch failed: CUDA error {err}")
     launches_bwd_factored += 1
-    if variant[0] in VARIANTS:  # an empty call launches nothing
-        launches_bwd_factored_by_variant[VARIANTS[variant[0]]] += 1
+    if variant[0] in BWD_FACTORED_VARIANTS:  # an empty call launches nothing
+        launches_bwd_factored_by_variant[BWD_FACTORED_VARIANTS[variant[0]]] += 1
     return grad_value, grad_ref, grad_off, grad_attn

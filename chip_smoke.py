@@ -9,8 +9,10 @@ Phases, each printing JSON lines:
                DCN) in parallel (one nvcc each) and
                prints each source's seconds and, per kernel, the compiler's
                registers, shared memory, stack frame and spills; fails if
-               any instance of a vector MSDA kernel (plain/masked or
-               factored) has a stack frame or spills.
+               any instance of a vector kernel (VECTOR_KERNELS: the plain/
+               masked and factored MSDA forwards, the factored MSDA
+               backward's privatizing kernel, the DCN backward's d-input
+               kernel) has a stack frame or spills.
   kernels      every CUDA kernel against its plain PyTorch version, in f32 and
                bf16: max abs error and tolerance, device time per call (CUDA
                graph replay), the plain version's time, an eager call's time
@@ -95,8 +97,9 @@ Phases, each printing JSON lines:
                3, offset predictors seeded as in ``stream_base``): 3 bf16
                steps with exact launch counts per step (forward 30 plain,
                18 factored, 78 DCN; backward 18 msda_bwd, 6
-               msda_bwd_factored, 26 dcn_bwd; all on their vector or
-               lane_per_channel variants), loss terms finite and moving;
+               msda_bwd_factored, 26 dcn_bwd; on their vector,
+               lane_per_channel, privatized and quad variants), loss
+               terms finite and moving;
                the f32 step at 1 encoder and 2 + 2 decoder layers
                (BASE_CMP_SIZES) against plain versions beside the witnesses,
                with ``train``'s limits; steps/s in bf16 and f32 (full
@@ -112,9 +115,14 @@ The kernels phase also holds the backwards against autograd through their
 plain versions: ``msda_bwd`` (plain and masked) at the flagship's four
 MSDA shapes, the det+occ train step's 9,900-query decoder and the base
 TSA over 200x200 and both base decoders; ``msda_bwd_factored`` at the base
-SCA shape (the full shape, ~35 GB of plain autograd) and the factored edge
-shapes (tail tiles, random masks, a misaligned value, both variants);
-``dcn_bwd`` at the four R101 shapes and the DCN edge shapes.
+SCA shape (the full shape, ~35 GB of plain autograd), the same geometry
+with 16-channel heads and with its first level alone (no level private),
+and the factored edge shapes (tail tiles, random masks, a misaligned
+value; the privatized, vector and general variants: every level's rows in
+shared memory, none, and a tile active on all six cameras); ``dcn_bwd`` at
+the four R101 shapes and the DCN edge shapes (the quad and general
+variants, offsets of ~40 px at stride 1 and 2). Each timed backward row
+also gives its device time by kernel (``parts``).
 The full overfit-to-metric check (det mAP, map chamfer mAP, occ IoU/mIoU
 bars) is ``python3 -m apollo_vision_net_tpu_torch.tools.overfit_check``,
 not part of this run.
@@ -356,7 +364,8 @@ ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
                 "msda_bwd": "msda_bwd.cu", "msda_bwd_masked": "msda_bwd.cu",
                 "msda_bwd_factored": "msda_bwd.cu", "dcn_bwd": "dcn_bwd.cuh"}
 # kernels whose every instance must build without a stack frame or spills
-VECTOR_KERNELS = ("msda_vec_kernel", "msda_factored_vec_kernel")
+VECTOR_KERNELS = ("msda_vec_kernel", "msda_factored_vec_kernel",
+                  "msda_bwd_factored_priv_kernel", "dcn_dinput_kernel")
 
 
 def emit(obj) -> None:
@@ -375,6 +384,26 @@ def time_ms(fn, warmup: int = 10, iters: int = 100) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_parts(fn, n: int = 20) -> dict:
+    """{kernel or memset: device ms a call} of the work ``fn`` launches,
+    from torch.profiler over n calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            out[e.key[:120]] = t / n / 1e3
+    return out
 
 
 def graph_time_ms(fn, iters: int = 50) -> float:
@@ -485,8 +514,8 @@ def ptxas_kernels(report: str) -> list:
 
 
 def check_vector_kernels(kernels: list) -> None:
-    """The vector variants of the MSDA kernels keep everything in registers
-    and shared memory: no instance built has a stack frame or spills."""
+    """The vector kernels (VECTOR_KERNELS) keep everything in registers and
+    shared memory: no instance built has a stack frame or spills."""
     for name in VECTOR_KERNELS:
         vec = [k for k in kernels if k["kernel"] == name]
         bad = [k for k in vec if k.get("stack_bytes", 1)
@@ -719,6 +748,31 @@ def base_msda_cases(dev):
     return cases
 
 
+def base_factored_bwd_cases(sca):
+    """msda_bwd_factored at the base SCA's size where no config calls it:
+    its geometry and tile mask with 16-channel heads (the privatizing
+    kernel at G = 4), and with the first FPN level alone (60x100: no level
+    fits the shared budget, so the vector kernel adds every row
+    globally)."""
+    dev = sca["value"].device
+    g = torch.Generator(device=dev).manual_seed(5)
+    N, V, H, D = sca["value"].shape
+    Bs, Q = sca["attn"].shape[:2]
+    P = sca["ref_flat"].shape[2] // 2
+    shapes1 = sca["shapes"][:1]
+    V1 = shapes1[0][0] * shapes1[0][1]
+    return [
+        dict(sca, name="sca_base_factored_D16", bwd_variant="privatized",
+             value=torch.randn((N, V, H, 16), generator=g, device=dev)),
+        dict(sca, name="sca_base_factored_L1", bwd_variant="vector",
+             shapes=shapes1,
+             value=torch.randn((N, V1, H, D), generator=g, device=dev),
+             off=(torch.randn((Bs, Q, H * P * 2), generator=g, device=dev)
+                  * 2.0),
+             attn=_softmax_attn(g, dev, (Bs, Q, H * P), P)),
+    ]
+
+
 def msda_edge_pair(name, g, dev, *, B, H, D, Q, P, shapes, q_tile, variant,
                    misaligned=False):
     """One plain and one masked MSDA call on the same inputs: locations
@@ -775,24 +829,30 @@ def msda_edge_cases(dev):
 
 
 def factored_case(name, g, dev, *, Bs, N, H, D, Q, P, shapes, q_tile,
-                  variant=None, misaligned=False):
+                  variant=None, misaligned=False, bwd_variant=None,
+                  all_cameras_tile=None):
     """A factored MSDA call with references spread past the grid
     ([-0.2, 1.2]), offsets of ~3 cells and a random tile mask with a tail
     tile. ``variant`` {dtype: "vector" | "general"} is the variant the
-    kernel must take; ``misaligned`` shifts value by one element off its
-    16-byte alignment."""
+    forward kernel must take, ``bwd_variant`` the one msda_bwd_factored
+    must take (else ``factored_bwd_variant``'s); ``misaligned`` shifts
+    value by one element off its 16-byte alignment; tile
+    ``all_cameras_tile`` is active on every camera."""
     L, V = len(shapes), sum(h * w for h, w in shapes)
     n_tiles = (Q + q_tile - 1) // q_tile
+    tile_mask = (torch.rand((Bs * N, n_tiles), generator=g, device=dev)
+                 > 0.3).to(torch.int32)
+    if all_cameras_tile is not None:
+        tile_mask[:, all_cameras_tile] = 1
     return dict(
         name=name, kind="factored", variant=variant, misaligned=misaligned,
+        bwd_variant=bwd_variant,
         value=torch.randn((Bs * N, V, H, D), generator=g, device=dev),
         shapes=shapes,
         ref_flat=torch.rand((Bs * N, Q, P * 2), generator=g, device=dev) * 1.4 - 0.2,
         off=torch.randn((Bs, Q, H * L * P * 2), generator=g, device=dev) * 3.0,
         attn=_softmax_attn(g, dev, (Bs, Q, H * L * P), L * P),
-        tile_mask=(torch.rand((Bs * N, n_tiles), generator=g, device=dev)
-                   > 0.3).to(torch.int32),
-        q_tile=q_tile)
+        tile_mask=tile_mask, q_tile=q_tile)
 
 
 def factored_edge_cases(dev):
@@ -800,7 +860,9 @@ def factored_edge_cases(dev):
     level sizes, L·P below, at and above one warp (P = 4, 5, 6, 8, 12),
     D = 4, 16, 32, 40 and 64 (vector and general variants), two samples of
     3 cameras, tail tiles, samples outside the grid, and a misaligned value
-    row."""
+    row; for msda_bwd_factored, every level's rows in shared memory, none
+    (the last level too large for FACTORED_BWD_PRIVATE_BYTES), and a tile
+    active on all six cameras (its busiest case)."""
     g = torch.Generator(device=dev).manual_seed(4)
     vec, gen = "vector", "general"
     return [
@@ -826,18 +888,32 @@ def factored_edge_cases(dev):
                       Q=40, P=8, shapes=((6, 8), (3, 4)), q_tile=16,
                       variant={"float32": gen, "bfloat16": gen},
                       misaligned=True),
+        factored_case("edge_factored_all_private", g, dev, Bs=1, N=3, H=4,
+                      D=32, Q=150, P=4, shapes=((10, 12), (5, 6), (3, 3)),
+                      q_tile=32, variant={"float32": vec, "bfloat16": vec},
+                      bwd_variant="privatized"),
+        factored_case("edge_factored_none_private", g, dev, Bs=1, N=2, H=2,
+                      D=32, Q=100, P=4, shapes=((100, 100),), q_tile=32,
+                      variant={"float32": vec, "bfloat16": vec},
+                      bwd_variant="vector"),
+        factored_case("edge_factored_all_cameras", g, dev, Bs=1, N=6, H=8,
+                      D=32, Q=293, P=8,
+                      shapes=((12, 20), (6, 10), (3, 5), (2, 3)), q_tile=128,
+                      variant={"float32": vec, "bfloat16": vec},
+                      bwd_variant="privatized", all_cameras_tile=1),
     ]
 
 
 def dcn_case(name, g, dev, *, B, H, W, C, O, stride, off_std, variant=None,
-             misaligned=False):
+             misaligned=False, bwd_variant=None):
     """One DCN call: x ~ N(0, 1), offsets ~ N(0, off_std) pixels, sigmoid
     masks, weights ~ N(0, 1 / (9 C)) so that outputs stay of order 1.
-    ``variant`` and ``misaligned`` as in ``factored_case`` (on x)."""
+    ``variant``, ``bwd_variant`` and ``misaligned`` as in ``factored_case``
+    (on x)."""
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     return dict(
         name=name, kind="dcn", stride=stride, variant=variant,
-        misaligned=misaligned,
+        misaligned=misaligned, bwd_variant=bwd_variant,
         x=torch.randn((B, H, W, C), generator=g, device=dev),
         offset=torch.randn((B, Ho, Wo, 9, 2), generator=g, device=dev) * off_std,
         mask=torch.sigmoid(torch.randn((B, Ho, Wo, 9), generator=g, device=dev)),
@@ -850,7 +926,10 @@ def dcn_cases(dev):
     beyond the image, pixel counts that are not multiples of the pixel tile,
     C that is neither a multiple of 8 nor of the chunk (20, 33, 24), O that
     is not a multiple of the output tile (37, 70, 72, 520: past one 512-wide
-    tile), and a misaligned x."""
+    tile), a misaligned x, and offsets of ~40 px (most samples tens of
+    pixels from their tap) on larger images at stride 1 and 2. In the
+    backward, C = 33 or a misaligned x takes the general variant, the rest
+    the quad one."""
     g = torch.Generator(device=dev).manual_seed(3)
     vec = {"float32": "vector", "bfloat16": "vector"}
     gen = {"float32": "general", "bfloat16": "general"}
@@ -864,6 +943,8 @@ def dcn_cases(dev):
         dcn_case("edge_dcn_vec_tail", g, dev, B=1, H=9, W=11, C=64, O=72, stride=1, off_std=3.0, variant=vec),
         dcn_case("edge_dcn_vec_wide", g, dev, B=1, H=7, W=9, C=24, O=520, stride=2, off_std=3.0, variant=vec),
         dcn_case("edge_dcn_misaligned", g, dev, B=1, H=6, W=5, C=32, O=64, stride=1, off_std=2.0, variant=gen, misaligned=True),
+        dcn_case("edge_dcn_offsets_40px", g, dev, B=1, H=96, W=128, C=32, O=32, stride=1, off_std=40.0, variant=vec, bwd_variant="quad"),
+        dcn_case("edge_dcn_offsets_40px_stride2", g, dev, B=1, H=96, W=128, C=32, O=40, stride=2, off_std=40.0, variant=vec, bwd_variant="quad"),
     ]
 
 
@@ -946,12 +1027,17 @@ def bind_bwd(case, dtype, seed=0):
             BWD_REL_TOL[str(dtype).replace("torch.", "")], None)
 
 
-def factored_bwd_variant(D, misaligned_value):
-    """The variant msda_bwd_factored takes: vector when D = 4 * G with G in
-    {1, 2, 4, 8} and value and grad_out are aligned to 4 channels
-    (csrc/msda_bwd.cu launch_bwd_factored), in either dtype."""
-    vec = D % 4 == 0 and D // 4 in (1, 2, 4, 8) and not misaligned_value
-    return "vector" if vec else "general"
+def factored_bwd_variant(D, misaligned_value, shapes, P):
+    """The variant msda_bwd_factored takes, in either dtype: the vector
+    kernel when D = 4, 8, 16 or 32 and value and grad_out are aligned to 4
+    channels (csrc/msda_bwd.cu launch_bwd_factored), "privatized" when
+    ``msda_cuda.factored_bwd_plan`` puts at least one level's rows in shared
+    memory, "vector" when none; else "general"."""
+    vec = D in (4, 8, 16, 32) and not misaligned_value
+    if not vec:
+        return "general"
+    private_from = msda_cuda.factored_bwd_plan(shapes, D, P)
+    return "privatized" if private_from < len(shapes) else "vector"
 
 
 def bind_bwd_factored(case, dtype, seed=0):
@@ -980,13 +1066,15 @@ def bind_bwd_factored(case, dtype, seed=0):
                                        kw["tile_mask"], kw["q_tile"]),
             ("grad_value", "grad_ref", "grad_off", "grad_attn"),
             FACTORED_BWD_REL_TOL[str(dtype).replace("torch.", "")],
-            factored_bwd_variant(D, case.get("misaligned", False)))
+            case.get("bwd_variant") or factored_bwd_variant(
+                D, case.get("misaligned", False), shapes, ref.shape[2] // 2))
 
 
 def bind_dcn_bwd(case, dtype, seed=0):
     """dcn_bwd against autograd through modulated_deform_conv_ref, as
-    ``bind_bwd``; the vector variant when C is a whole number of 16-byte
-    units and x is aligned."""
+    ``bind_bwd``; the quad variant when C is a multiple of 4 and x is
+    aligned to 4 channels (csrc/dcn_bwd.cuh col2im_dispatch), else the
+    general one."""
     shift = misaligned if case.get("misaligned") else (lambda t: t)
     x = shift(case["x"].to(dtype).contiguous())
     w = case["weight"].to(dtype).contiguous()
@@ -1002,12 +1090,11 @@ def bind_dcn_bwd(case, dtype, seed=0):
         out = modulated_deform_conv_ref(*ins, stride)
         return torch.autograd.grad(out, ins, grad_out)
 
-    C = x.shape[-1]
-    vec = C % (16 // x.element_size()) == 0 and not case.get("misaligned")
+    quad = x.shape[-1] % 4 == 0 and not case.get("misaligned")
     return (kernel, plain, lambda: dcn_bwd_bound(x, offset, w, grad_out),
             ("grad_x", "grad_offset", "grad_mask", "grad_weight"),
             DCN_BWD_REL_TOL[str(dtype).replace("torch.", "")],
-            "vector" if vec else "general")
+            case.get("bwd_variant") or ("quad" if quad else "general"))
 
 
 def msda_bwd_bound(value, shapes, loc, attn, tile_mask, q_tile):
@@ -1106,7 +1193,8 @@ def bwd_rows(dev, cases):
     through its plain version: each gradient's max abs error and its error
     relative to its largest magnitude against its tolerance, the variant
     that ran (an edge case fails off the variant it targets), CUDA-graph
-    time, the plain autograd's eager time and the bound."""
+    time, its device time by kernel (``parts``, torch.profiler), the plain
+    autograd's eager time and the bound."""
     rows = []
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1136,6 +1224,7 @@ def bwd_rows(dev, cases):
             del got, want
             if not case["name"].startswith("edge"):
                 row["ms"] = graph_time_ms(kernel)
+                row["parts"] = device_parts(kernel)
                 row["plain_ms"] = time_ms(plain, warmup=2, iters=5)
                 row["call_ms"] = time_ms(kernel)
                 row["bound_ms"], row["bound_by"], row["design_bytes"] = bound()
@@ -1238,6 +1327,8 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     base = [c for c in base_msda_cases(dev) if c["name"] != "sca_base_materialized"]
     rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev) + base
+                     + base_factored_bwd_cases(next(
+                         c for c in base if c["name"] == "sca_base_factored"))
                      + msda_edge_cases(dev)[-1:] + factored_edge_cases(dev)
                      + dcn_cases(dev))
     torch.cuda.empty_cache()
@@ -1581,6 +1672,12 @@ def dcn_blocks(cfg) -> int:
                                    m.backbone_dcn_stages) if dcn)
 
 
+# the variant each entry takes on the main paths where it is not "vector"
+MAIN_PATH_VARIANT = {"msda_bwd": "lane_per_channel",
+                     "msda_bwd_masked": "lane_per_channel",
+                     "msda_bwd_factored": "privatized", "dcn_bwd": "quad"}
+
+
 def train_launches_per_step(cfg) -> dict:
     """Launches of one train step, by entry and variant: the forward runs
     TSA per encoder layer in each of the T queue frames and the det (and
@@ -1600,10 +1697,8 @@ def train_launches_per_step(cfg) -> dict:
          sca_bwd: E, "dcn_fwd": T * n_dcn, "dcn_bwd": n_dcn}
     out = dict.fromkeys(read_launch_counts(), 0)
     out.update({k: v for k, v in n.items() if v})
-    out.update({k + ".vector": v for k, v in n.items()
-                if v and k != "msda_bwd" and k != "msda_bwd_masked"})
-    out.update({k + ".lane_per_channel": v for k, v in n.items()
-                if v and k in ("msda_bwd", "msda_bwd_masked")})
+    out.update({f"{k}.{MAIN_PATH_VARIANT.get(k, 'vector')}": v
+                for k, v in n.items() if v})
     return out
 
 

@@ -54,10 +54,12 @@ def test_wrapper_argtypes_match_the_c_parameters(source, name):
 
 
 def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
-    """chip_smoke's build phase fails when any instance of a vector MSDA
-    kernel (plain/masked or factored) has a stack frame or spills, or is
-    missing from the report; it reads them per kernel from the report,
-    anonymous-namespace kernels included."""
+    """chip_smoke's build phase fails when any instance of a vector kernel
+    (the plain/masked and factored MSDA forwards, the factored MSDA
+    backward's privatizing kernel, the DCN backward's quad d-input kernel)
+    has a
+    stack frame or spills, or is missing from the report; it reads them per
+    kernel from the report, anonymous-namespace kernels included."""
     import chip_smoke
 
     report = "\n".join([
@@ -72,28 +74,44 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 56 registers, used 1 barriers, 224 bytes smem",
         "ptxas info    : Function properties for "
+        "_Z29msda_bwd_factored_priv_kernelI13__nv_bfloat16Li8EEvPKT_PKfS5_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 1 barriers, 224 bytes smem",
+        "ptxas info    : Function properties for "
+        "_ZN43_GLOBAL__N__b68f9870_10_dcn_fwd_cu_b4b4a25017dcn_dinput_kernel"
+        "IfEEvPKT_PKfS5_S3_PfS6_S6_iiiiiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 123 registers, used 0 barriers",
+        "ptxas info    : Function properties for "
         "_ZN12_GLOBAL__N_114dcn_fwd_kernelIfLi64ELi256ELb1EEEvPKT_",
         "    8 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
     ])
-    fac, vec, dcn = chip_smoke.ptxas_kernels(report)
+    fac, vec, priv, quad, dcn = chip_smoke.ptxas_kernels(report)
     assert (fac["kernel"], fac["registers"], fac["smem_bytes"],
             fac["stack_bytes"], fac["spill_stores"]) == (
         "msda_factored_vec_kernel", 79, 224, 0, 0)
     assert (vec["kernel"], vec["registers"], vec["stack_bytes"],
             vec["spill_loads"]) == ("msda_vec_kernel", 56, 0, 0)
+    assert (priv["kernel"], priv["registers"], priv["stack_bytes"]) == (
+        "msda_bwd_factored_priv_kernel", 90, 0)
+    assert (quad["kernel"], quad["registers"], quad["spill_loads"]) == (
+        "dcn_dinput_kernel", 123, 0)
     assert (dcn["kernel"], dcn["stack_bytes"], dcn["spill_loads"]) == (
         "dcn_fwd_kernel", 8, 32)
-    assert set(chip_smoke.VECTOR_KERNELS) == {fac["kernel"], vec["kernel"]}
-    chip_smoke.check_vector_kernels([fac, vec, dcn])
-    for bad in (dict(fac, stack_bytes=8), dict(fac, spill_loads=4),
-                dict(vec, stack_bytes=16), dict(vec, spill_stores=4)):
-        others = [k for k in (fac, vec) if k["kernel"] != bad["kernel"]]
-        with pytest.raises(AssertionError, match=bad["kernel"]):
-            chip_smoke.check_vector_kernels([bad, *others, dcn])
-        # one spilling instance fails even beside a clean one of its kernel
-        with pytest.raises(AssertionError, match=bad["kernel"]):
-            chip_smoke.check_vector_kernels([fac, vec, bad, dcn])
-    for present in ([vec, dcn], [fac, dcn]):  # a kernel missing from the report
-        with pytest.raises(AssertionError):
-            chip_smoke.check_vector_kernels(present)
+    clean = [fac, vec, priv, quad]
+    assert set(chip_smoke.VECTOR_KERNELS) == {k["kernel"] for k in clean}
+    chip_smoke.check_vector_kernels([*clean, dcn])
+    for k in clean:
+        for bad in (dict(k, stack_bytes=8), dict(k, spill_loads=4),
+                    dict(k, spill_stores=4)):
+            others = [o for o in clean if o["kernel"] != bad["kernel"]]
+            with pytest.raises(AssertionError, match=bad["kernel"]):
+                chip_smoke.check_vector_kernels([bad, *others, dcn])
+            # one spilling instance fails even beside a clean one of its kernel
+            with pytest.raises(AssertionError, match=bad["kernel"]):
+                chip_smoke.check_vector_kernels([*clean, bad, dcn])
+        # a kernel missing from the report
+        with pytest.raises(AssertionError, match=k["kernel"]):
+            chip_smoke.check_vector_kernels(
+                [o for o in clean if o is not k] + [dcn])
