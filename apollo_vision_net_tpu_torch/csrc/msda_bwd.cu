@@ -29,25 +29,60 @@
 // (B, Q, H, L, P) f32; tile_mask (B, ceil(Q / q_tile)) int32 or null;
 // grad_out (B, Q, H * D) in value's dtype; grad_value (B, V, H, D) in
 // value's dtype; grad_loc and grad_attn f32 like loc and attn. All
-// contiguous.
+// contiguous. An item is a (batch, query, head), item = (b * Q + q) * H + h;
+// a row is a (batch, cell, head) of value, row = (b * V + cell) * H + h.
 //
-// Design (simple first version):
-//   1. The entry zero-fills an f32 scratch of value's shape
-//      (cudaMemsetAsync); grad_value is accumulated there with atomicAdd
-//      and, for bf16 value, cast once into grad_value by a second kernel.
-//      The JAX VJP also accumulates in f32 and casts at the boundary.
-//   2. One warp per (batch, query, head) item, 4 warps a block. Lane s
-//      forms the corners, bilinear weights and fractions of sample s (in
-//      rounds of 32 samples over the head's L * P) in registers.
-//   3. The warp walks the samples one at a time: it takes the sample's
-//      corner offsets and weights from the owner lane with __shfl_sync;
-//      for each in-grid corner the lanes hold the head's channels (lane c
-//      channel c when D <= 32, the "lane_per_channel" variant; chunks of 32
-//      channels otherwise, the "chunked" variant), read the corner row and
-//      g, add a * cw * g to the scratch row with atomicAdd and reduce
-//      <g, v> across the lanes with __shfl_xor_sync. The owner lane keeps
-//      the four dot products of its sample.
-//   4. Each lane writes its sample's grad_loc and grad_attn.
+// What bounds msda_bwd on the H100: as a function, bytes (grad_out, loc
+// and attn read once, the touched value rows read once, the three
+// gradients written once): 0.055 ms bf16 at the base TSA (2 x 40,000
+// queries, H = 8, D = 32, L * P = 4 over 200 x 200). The work is 16 corner
+// rows of D channels per item, each read (a dot product with g) and added
+// to (a * cw * g): 10.24M rows at the base TSA. Measured (PERF.md §6, bf16,
+// NVIDIA H100 80GB HBM3, 700 W):
+//   - The first design (a warp per item, L * P = 4 lanes of 32 busy, one
+//     corner row in flight, a scalar f32 atomicAdd a channel into an f32
+//     scratch that a memset clears and a kernel casts) ran 0.886 ms at the
+//     base TSA, 0.746 without its adds: bound by latency, not the adds; at
+//     the base decoders the scratch's memset and cast were 0.047 of 0.070.
+//   - The vector kernel below with 16-byte f32 atomicAdds into the scratch
+//     ran 0.534 (its adds 0.28: ~3e11 16-byte atomics a second); a block
+//     summing a window of rows around a tile of TSA queries through a
+//     counting sort in shared memory ran 0.547 (two blocks an SM, barriers);
+//     the gather below 0.37, and 0.02 at the base decoders (no scratch).
+//
+// Design of msda_bwd's vector plan, "gather" (D = 4 G, G = 1, 2, 4 or 8,
+// value and grad_out aligned to 4 channels):
+//   1. Several items a warp: lane s owns sample s % S of item s / S, with
+//      S = L * P rounded up to a power of two (at least 4; rounds of 32
+//      samples of one item when L * P > 32), so a warp serves 32 / S items
+//      (8 at L * P = 4, 4 at L * P = 8). Each lane forms its sample's
+//      corners and weights; a masked tile's items own nothing and write
+//      zero gradients, per item, so a warp may straddle tiles; a warp with
+//      no active item only writes zeros.
+//   2. G lanes hold one corner row, 4 channels a lane (round_dots, as the
+//      factored kernel's round): for each corner the group takes the rows
+//      of its own G lanes' samples, keeps a batch of loads in flight (64
+//      bytes a lane: a corner's rows at bf16 D = 32, half of them in f32)
+//      before it uses any and reduce-scatters the G partial dot products
+//      (group_reduce_scatter) so that each owner lane ends with its own
+//      dot. A group's lanes span at most two items, so a lane keeps two
+//      grad_out rows' channels.
+//   3. grad_value without float atomics or a scratch: the owner lane of
+//      each in-grid corner pushes the corner's fixed slot onto its value
+//      row's list with one integer atomicExch before the dots, and stores
+//      the slot's (link, weight) after them (the exchange's return is
+//      waited on there). A second kernel (msda_bwd_gather_kernel) walks
+//      each row's list, sums weight x grad_out row in f32 registers and
+//      writes the row in value's dtype, zeros included (the JAX VJP also
+//      sums in f32 and casts at the boundary). The lists group the slots by
+//      row as a counting sort would, without the global scan a sort needs.
+//      At the base TSA the exchanges cost ~0.08 ms and the row pass ~0.13
+//      (a chain of dependent loads and a grad_out row re-read per corner).
+// The general kernel (any D or alignment; msda_bwd_scalar_kernel): one
+// warp per item, lane s forming sample s; the warp walks the samples, the
+// lanes the channels of each corner row (chunks of 32), each row's load
+// used at once, a shuffle reduction a row and a scalar f32 atomicAdd a
+// channel into an f32 scratch, cast once for bf16.
 // The level table (w, h, first cell) is staged in shared memory once per
 // block; the corners are formed by msda_common.cuh's bilinear_at, as the
 // forward forms them.
@@ -61,7 +96,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-constexpr int kBwdWarps = 4;  // warps per block, one (batch, query, head) each
+constexpr int kBwdWarps = 4;  // warps a block: msda_bwd's, the general kernels
+constexpr int kGatherThreads = 256;  // threads per block of the gather kernel
 
 // The gradients of one sample from its corners (c) and the dot products
 // dot[k] = <g, value[corner k]>: d attn, and d (lx, ly) of its normalized
@@ -88,15 +124,300 @@ __device__ __forceinline__ SampleGrad sample_grad(const Bilinear4& c,
   return g;
 }
 
+// Four channels as f32, from one 8-byte (bf16) or 16-byte (f32) load.
+__device__ __forceinline__ void load4(float* f, const __nv_bfloat16* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  f[0] = __uint_as_float(v.x << 16);
+  f[1] = __uint_as_float(v.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.y << 16);
+  f[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load4(float* f, const float* p) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+// Four f32 channels stored in one 8-byte (bf16, rounded once) or 16-byte
+// (f32) store.
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* f) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+  uint2 v;
+  v.x = *reinterpret_cast<const unsigned*>(&lo);
+  v.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
+}
+__device__ __forceinline__ void store4(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+// Recursive-halving reduce-scatter over the G lanes of a group: lane `sub`
+// holds G partial sums p[0..G-1] (one per row) and ends with the group's
+// total of row `sub` in p[0]. G - 1 shuffles.
+template <int G>
+__device__ __forceinline__ void group_reduce_scatter(float (&p)[G], int sub) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m >>= 1) {
+    const bool upper = (sub & m) != 0;
+#pragma unroll
+    for (int j = 0; j < m; ++j) {
+      const float send = upper ? p[j] : p[j + m];
+      const float keep = upper ? p[j + m] : p[j];
+      p[j] = keep + __shfl_xor_sync(FULL_MASK, send, m);
+    }
+  }
+}
+
+// Four channels of value as loaded (8 bytes of bf16, 16 of f32), kept raw
+// while in flight, and their dot product with g in f32.
+__device__ __forceinline__ uint2 load_raw4(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 load_raw4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float dot4(const float (&g)[4], uint2 v) {
+  return g[0] * __uint_as_float(v.x << 16) +
+         g[1] * __uint_as_float(v.x & 0xffff0000u) +
+         g[2] * __uint_as_float(v.y << 16) +
+         g[3] * __uint_as_float(v.y & 0xffff0000u);
+}
+__device__ __forceinline__ float dot4(const float (&g)[4], float4 v) {
+  return g[0] * v.x + g[1] * v.y + g[2] * v.z + g[3] * v.w;
+}
+
+// Rows a lane has in flight: 64 bytes of raw loads (8 in bf16, 4 in f32).
+template <typename T, int G>
+struct FactoredBwdBatch {
+  static constexpr int kRaw = 4 * (int)sizeof(T);
+  static constexpr int value = G < 64 / kRaw ? G : 64 / kRaw;
+};
+
+// The dot products of one round of msda_bwd's vector kernel: lane s owns
+// a sample with corners c and row offset `base` (corner k's row at element
+// base + c.idx[k]; nothing outside the grid). The G lanes of a group hold
+// a corner row, 4 channels a lane (vb: the lane's channels of element 0),
+// and take the rows of their own G lanes' samples in turn, a batch of
+// loads in flight before any is used (FactoredBwdBatch rows of a corner,
+// or several corners' rows when one corner's take less than 64 bytes);
+// then each corner's G partial dot products (with grad_out channels
+// g[t < G / 2 ? 0 : 1] for the row of lane grp * G + t) are
+// reduce-scattered so that each owner lane ends with its own dot. Reads
+// only: the second pass gathers the rows' grad_value (the factored
+// round adds to them as it goes).
+template <typename T, int G>
+__device__ __forceinline__ void round_dots(const T* __restrict__ vb,
+                                           const Bilinear4& c, int base,
+                                           const float (&g)[2][4], int lane,
+                                           float (&dot)[4]) {
+  constexpr int SB = FactoredBwdBatch<T, G>::value;  // steps a batch
+  // corners a batch: as many as 64 bytes of rows hold, 1 to 4
+  constexpr int fit = 64 / (FactoredBwdBatch<T, G>::kRaw * G);
+  constexpr int KB = fit < 1 ? 1 : fit > 4 ? 4 : fit;
+  using Raw = decltype(load_raw4(vb));
+  const int grp = lane / G, sub = lane % G;
+#pragma unroll
+  for (int k0 = 0; k0 < 4; k0 += KB) {
+    float pd[KB][G];
+#pragma unroll
+    for (int t0 = 0; t0 < G; t0 += SB) {
+      int id[KB][SB];
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        const int k = k0 + kk;
+        const int tgt = c.idx[k] < 0 ? -1 : base + c.idx[k];
+#pragma unroll
+        for (int t = 0; t < SB; ++t) {
+          id[kk][t] = __shfl_sync(FULL_MASK, tgt, grp * G + t0 + t);
+        }
+      }
+      Raw v[KB][SB];
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+#pragma unroll
+        for (int t = 0; t < SB; ++t) {  // the batch's loads in flight
+          v[kk][t] = id[kk][t] >= 0 ? load_raw4(vb + id[kk][t]) : Raw{};
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+#pragma unroll
+        for (int t = 0; t < SB; ++t) {
+          pd[kk][t0 + t] = dot4(g[t0 + t < G / 2 ? 0 : 1], v[kk][t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      group_reduce_scatter<G>(pd[kk], sub);
+      dot[k0 + kk] = pd[kk][0];
+    }
+  }
+}
+
+// ------------------------------------------------------------ msda_bwd
+
+// The vector kernel's first pass (design notes 1-3 above): the dots, d loc
+// and d attn of every sample, and each in-grid corner's slot pushed onto
+// its row's list, row_head[row] (read by msda_bwd_gather_kernel). s_log:
+// log2 of the lane slot of an item (S); a warp takes 32 / S items.
+template <typename T, int G>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+msda_bwd_vec_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                    const float* __restrict__ attn,
+                    const int* __restrict__ tile_mask,
+                    const T* __restrict__ grad_out, int* __restrict__ row_head,
+                    int2* __restrict__ links, float* __restrict__ grad_loc,
+                    float* __restrict__ grad_attn, int n_items, int V, int H,
+                    int Q, int P, int LP, int s_log, int q_tile, int n_tiles,
+                    MsdaLevels lv) {
+  constexpr int D = 4 * G;
+  __shared__ SharedLevels sl;
+  stage_levels(sl, lv);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int S = 1 << s_log;
+  const int item0 =
+      (blockIdx.x * kBwdWarps + warp) * (32 >> s_log);  // the warp's first
+  if (item0 >= n_items) return;  // the same for the whole warp
+  const int grp = lane / G, sub = lane % G;
+  const int row = H * D;  // elements between value cells
+
+  // the lane's item (the same for the S lanes of its slot)
+  const int item = item0 + (lane >> s_log);
+  const int bq = item / H, hh = item - bq * H;
+  const int b = bq / Q;
+  bool on = item < n_items;
+  if (on && tile_mask != nullptr) {
+    on = __ldg(tile_mask + (int64_t)b * n_tiles + (bq - b * Q) / q_tile) != 0;
+  }
+  float* glq = grad_loc + (int64_t)item * LP * 2;
+  float* gaq = grad_attn + (int64_t)item * LP;
+  if (!__any_sync(FULL_MASK, on)) {  // masked tiles or the tail: zeros
+    for (int s = lane & (S - 1); item < n_items && s < LP; s += S) {
+      glq[2 * s] = 0.f;
+      glq[2 * s + 1] = 0.f;
+      gaq[s] = 0.f;
+    }
+    return;
+  }
+  // the grad_out channels of the group's two halves' items (one item
+  // unless S < G); zeros for an item that is masked or past the end
+  float g[2][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int src = grp * G + half * (G / 2);
+    const bool src_on = __shfl_sync(FULL_MASK, on, src);
+    const int src_item = item0 + (src >> s_log);
+    if (src_on) {
+      load4(g[half], grad_out + (int64_t)src_item * D + sub * 4);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) g[half][j] = 0.f;
+    }
+  }
+  const int base = b * V * row + hh * D;  // the item's rows: base + cell * row
+  const float* lq = loc + (int64_t)item * LP * 2;
+  const float* aq = attn + (int64_t)item * LP;
+
+  for (int r0 = 0; r0 < LP; r0 += S) {  // several rounds only when S = 32
+    const int s = r0 + (lane & (S - 1));  // the lane's sample
+    const bool own = on && s < LP;
+    Bilinear4 c = {{-1, -1, -1, -1}, {0.f, 0.f, 0.f, 0.f}, 0.f, 0.f};
+    float a = 0.f, wl = 0.f, hl = 0.f;
+    if (own) {
+      const int l = s / P;
+      wl = sl.whi[l].x;
+      hl = sl.whi[l].y;
+      a = __ldg(aq + s);
+      c = bilinear_at(sl, l, __ldg(lq + 2 * s), __ldg(lq + 2 * s + 1), row);
+    }
+    // push each in-grid corner's slot first; store its link (which waits
+    // on the exchange) after the dots
+    const int slot = (item * LP + s) * 4;
+    int prev[4] = {-1, -1, -1, -1};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c.idx[k] >= 0) {
+        prev[k] = atomicExch(row_head + (base + c.idx[k]) / D, slot + k);
+      }
+    }
+    float dot[4];
+    round_dots<T, G>(value + sub * 4, c, base, g, lane, dot);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c.idx[k] >= 0) {
+        links[slot + k] = make_int2(prev[k], __float_as_int(a * c.cw[k]));
+      }
+    }
+    if (own) {
+      const SampleGrad sg = sample_grad(c, dot, a, wl, hl);
+      glq[2 * s] = sg.lx;
+      glq[2 * s + 1] = sg.ly;
+      gaq[s] = sg.attn;
+    } else if (item < n_items && s < LP) {  // a masked tile's sample
+      glq[2 * s] = 0.f;
+      glq[2 * s + 1] = 0.f;
+      gaq[s] = 0.f;
+    }
+  }
+}
+
+// The second pass: a thread takes C = min(D, 8) channels of a value row
+// (D / C threads a row, rows in memory order), walks the row's list of
+// corner slots, sums weight x the slot's grad_out channels (item = slot /
+// (4 L P)) in f32 and writes them in value's dtype (zeros for a row no
+// sample touched).
+template <typename T, int G>
+__global__ void __launch_bounds__(kGatherThreads)
+msda_bwd_gather_kernel(const T* __restrict__ grad_out,
+                       const int* __restrict__ row_head,
+                       const int2* __restrict__ links,
+                       T* __restrict__ grad_value, int64_t n_rows,
+                       int slots_per_item) {
+  constexpr int D = 4 * G;
+  constexpr int C = D < 8 ? D : 8;  // channels a thread
+  constexpr int PARTS = D / C;      // threads a row
+  const int64_t gid = (int64_t)blockIdx.x * kGatherThreads + threadIdx.x;
+  const int64_t r = gid / PARTS;
+  const int c0 = (int)(gid % PARTS) * C;
+  if (r >= n_rows) return;
+  float acc[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) acc[j] = 0.f;
+  for (int s = __ldg(row_head + r); s >= 0;) {
+    const int2 e = __ldg(links + s);
+    const T* gq = grad_out + (int64_t)(s / slots_per_item) * D + c0;
+    float gv[C];
+#pragma unroll
+    for (int j = 0; j < C; j += 4) load4(gv + j, gq + j);
+    const float w = __int_as_float(e.y);
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[j] = fmaf(w, gv[j], acc[j]);
+    s = e.x;
+  }
+#pragma unroll
+  for (int j = 0; j < C; j += 4) store4(grad_value + r * D + c0 + j, acc + j);
+}
+
+// The general kernel: one warp per item, any D and alignment. kOnePass:
+// lane c holds channel c (D <= 32); else the lanes walk the channels in
+// chunks of 32.
 template <typename T, bool kOnePass>
 __global__ void __launch_bounds__(kBwdWarps * 32)
-msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
-                const float* __restrict__ attn,
-                const int* __restrict__ tile_mask,
-                const T* __restrict__ grad_out, float* __restrict__ grad_value,
-                float* __restrict__ grad_loc, float* __restrict__ grad_attn,
-                int B, int V, int H, int D, int Q, int P, int LP, int q_tile,
-                int n_tiles, MsdaLevels lv) {
+msda_bwd_scalar_kernel(const T* __restrict__ value,
+                       const float* __restrict__ loc,
+                       const float* __restrict__ attn,
+                       const int* __restrict__ tile_mask,
+                       const T* __restrict__ grad_out,
+                       float* __restrict__ grad_value,
+                       float* __restrict__ grad_loc,
+                       float* __restrict__ grad_attn, int B, int V, int H,
+                       int D, int Q, int P, int LP, int q_tile, int n_tiles,
+                       MsdaLevels lv) {
   __shared__ SharedLevels sl;
   stage_levels(sl, lv);
 
@@ -170,68 +491,155 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
+// log2 of the lane slot of an item in msda_bwd_vec_kernel: L * P rounded
+// up to a power of two, at least 4 (so that a group of G <= 8 lanes spans
+// at most two items) and at most 32 (rounds of 32 samples beyond).
+// ops/msda_cuda.py bwd_items_per_warp mirrors it (BWD_SLOT_MIN,
+// BWD_SLOT_MAX).
+constexpr int kSlotLog2Min = 2, kSlotLog2Max = 5;
+
+static inline int bwd_slot_log2(int LP) {
+  int s = kSlotLog2Min;
+  while (s < kSlotLog2Max && (1 << s) < LP) ++s;
+  return s;
+}
+
+// The plans of msda_bwd (ops/msda_cuda.py BWD_VARIANTS and bwd_plan).
+constexpr int kPlanGeneral = 0, kPlanGather = 1;
+
+template <typename T, int G>
+static void launch_gather(cudaStream_t s, const void* value, const float* loc,
+                          const float* attn, const int* tile_mask,
+                          const void* grad_out, void* grad_value,
+                          int* row_head, int2* links, float* grad_loc,
+                          float* grad_attn, int B, int V, int H, int Q, int P,
+                          int LP, int q_tile, int n_tiles,
+                          const MsdaLevels& lv) {
+  const int s_log = bwd_slot_log2(LP);
+  const int n_items = B * Q * H;
+  const int per_block = kBwdWarps * (32 >> s_log);
+  msda_bwd_vec_kernel<T, G>
+      <<<(unsigned)((n_items + per_block - 1) / per_block), kBwdWarps * 32, 0,
+         s>>>((const T*)value, loc, attn, tile_mask, (const T*)grad_out,
+              row_head, links, grad_loc, grad_attn, n_items, V, H, Q, P, LP,
+              s_log, q_tile, n_tiles, lv);
+  const int64_t n_rows = (int64_t)B * V * H;
+  const int64_t threads = n_rows * (G > 2 ? G / 2 : 1);  // D / min(D, 8) a row
+  msda_bwd_gather_kernel<T, G>
+      <<<(unsigned)((threads + kGatherThreads - 1) / kGatherThreads),
+         kGatherThreads, 0, s>>>((const T*)grad_out, row_head, links,
+                                 (T*)grad_value, n_rows, 4 * LP);
+}
+
 template <typename T>
-static int launch_bwd(cudaStream_t s, const void* value, const float* loc,
-                      const float* attn, const int* tile_mask,
-                      const void* grad_out, float* grad_value, float* grad_loc,
-                      float* grad_attn, int B, int V, int H, int D, int Q,
-                      int P, int LP, int q_tile, int n_tiles,
-                      const MsdaLevels& lv) {
-  const unsigned grid =
-      (unsigned)(((int64_t)B * Q * H + kBwdWarps - 1) / kBwdWarps);
-  if (D <= 32) {
-    msda_bwd_kernel<T, true><<<grid, kBwdWarps * 32, 0, s>>>(
-        (const T*)value, loc, attn, tile_mask, (const T*)grad_out, grad_value,
-        grad_loc, grad_attn, B, V, H, D, Q, P, LP, q_tile, n_tiles, lv);
-    return 1;
+static void launch_bwd(cudaStream_t s, int plan, const void* value,
+                       const float* loc, const float* attn,
+                       const int* tile_mask, const void* grad_out,
+                       float* grad_value_f32, void* grad_value, int* row_head,
+                       int2* links, float* grad_loc, float* grad_attn, int B,
+                       int V, int H, int D, int Q, int P, int LP, int q_tile,
+                       int n_tiles, const MsdaLevels& lv) {
+  if (plan == kPlanGeneral) {
+    const unsigned grid =
+        (unsigned)(((int64_t)B * Q * H + kBwdWarps - 1) / kBwdWarps);
+    if (D <= 32) {
+      msda_bwd_scalar_kernel<T, true><<<grid, kBwdWarps * 32, 0, s>>>(
+          (const T*)value, loc, attn, tile_mask, (const T*)grad_out,
+          grad_value_f32, grad_loc, grad_attn, B, V, H, D, Q, P, LP, q_tile,
+          n_tiles, lv);
+    } else {
+      msda_bwd_scalar_kernel<T, false><<<grid, kBwdWarps * 32, 0, s>>>(
+          (const T*)value, loc, attn, tile_mask, (const T*)grad_out,
+          grad_value_f32, grad_loc, grad_attn, B, V, H, D, Q, P, LP, q_tile,
+          n_tiles, lv);
+    }
+    return;
   }
-  msda_bwd_kernel<T, false><<<grid, kBwdWarps * 32, 0, s>>>(
-      (const T*)value, loc, attn, tile_mask, (const T*)grad_out, grad_value,
-      grad_loc, grad_attn, B, V, H, D, Q, P, LP, q_tile, n_tiles, lv);
-  return 0;
+#define MSDA_BWD_GATHER(G_)                                                   \
+  launch_gather<T, G_>(s, value, loc, attn, tile_mask, grad_out, grad_value,  \
+                       row_head, links, grad_loc, grad_attn, B, V, H, Q, P,   \
+                       LP, q_tile, n_tiles, lv)
+  switch (D / 4) {
+    case 8: MSDA_BWD_GATHER(8); break;
+    case 4: MSDA_BWD_GATHER(4); break;
+    case 2: MSDA_BWD_GATHER(2); break;
+    default: MSDA_BWD_GATHER(1); break;
+  }
+#undef MSDA_BWD_GATHER
 }
 
 // Returns 0 on success, else a cudaError_t code. shapes points to 2 * L host
 // ints (h0, w0, h1, w1, ...); tile_mask may be null; dtype 0 = f32, 1 =
-// bf16. grad_value_f32 is the f32 scratch of value's shape (zero-filled
-// here); for f32 value it is grad_value itself. *variant is set to 1 when
-// the lane-per-channel variant ran (D <= 32), 0 when the chunked one did.
+// bf16. plan (ops/msda_cuda.py bwd_plan): 1 "gather" (D = 4, 8, 16 or 32,
+// value and grad_out aligned to 4 channels, B * V * H * D and the
+// B * Q * H * L * P * 4 corner slots below 2^31), 0 "general"; a plan the
+// inputs do not allow is refused. grad_value_f32 is the general plan's f32
+// scratch of value's shape (zero-filled here; grad_value itself for f32
+// value), null for gather; row_head (B V H ints, set to -1 here) and
+// slot_links (B Q H L P 4 int pairs) are the gather plan's lists, null for
+// general. *variant is set to the plan that ran.
 extern "C" int msda_bwd(const void* value, int dtype, const float* loc,
                         const float* attn, const int* tile_mask,
                         const void* grad_out, float* grad_value_f32,
                         void* grad_value, float* grad_loc, float* grad_attn,
-                        int B, int V, int H, int D, int Q, int L, int P,
-                        const int* shapes, int q_tile, void* stream,
-                        int* variant) {
+                        int* row_head, int* slot_links, int B, int V, int H,
+                        int D, int Q, int L, int P, const int* shapes,
+                        int q_tile, int plan, void* stream, int* variant) {
   MsdaLevels lv;
   if (q_tile < 1 || D < 1 || P < 1 || (int64_t)V * H * D > INT32_MAX ||
-      (int64_t)B * Q * H > INT32_MAX - kBwdWarps) {
+      (int64_t)B * Q * H > INT32_MAX - 32 * kBwdWarps ||
+      (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const int err = fill_levels(&lv, L, shapes, V);
   if (err != 0) return err;
-  cudaStream_t s = (cudaStream_t)stream;
+  const int LP = L * P;
   const int64_t n_value = (int64_t)B * V * H * D;
-  if (n_value > 0) {
+  if (plan == kPlanGather) {
+    const size_t align = 4 * (dtype == 0 ? sizeof(float) : sizeof(uint16_t));
+    const bool ok =
+        (D == 4 || D == 8 || D == 16 || D == 32) &&
+        (((uintptr_t)value | (uintptr_t)grad_out) % align) == 0 &&
+        n_value <= INT32_MAX && (int64_t)B * Q * H * LP * 4 <= INT32_MAX &&
+        row_head != nullptr && slot_links != nullptr;
+    if (!ok) return (int)cudaErrorInvalidValue;
+  } else if (plan != kPlanGeneral || grad_value_f32 == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (plan == kPlanGather) {
+    const int64_t n_rows = (int64_t)B * V * H;
+    if (n_rows > 0) {
+      const cudaError_t e =
+          cudaMemsetAsync(row_head, 0xff, n_rows * sizeof(int), s);
+      if (e != cudaSuccess) return (int)e;
+    }
+  } else if (n_value > 0) {
     const cudaError_t e =
         cudaMemsetAsync(grad_value_f32, 0, n_value * sizeof(float), s);
     if (e != cudaSuccess) return (int)e;
   }
   const int n_tiles = (Q + q_tile - 1) / q_tile;
   if ((int64_t)B * Q * H > 0) {
+    int2* links = reinterpret_cast<int2*>(slot_links);
     if (dtype == 0) {
-      *variant = launch_bwd<float>(s, value, loc, attn, tile_mask, grad_out,
-                                   grad_value_f32, grad_loc, grad_attn, B, V,
-                                   H, D, Q, P, L * P, q_tile, n_tiles, lv);
-    } else if (dtype == 1) {
-      *variant = launch_bwd<__nv_bfloat16>(
-          s, value, loc, attn, tile_mask, grad_out, grad_value_f32, grad_loc,
-          grad_attn, B, V, H, D, Q, P, L * P, q_tile, n_tiles, lv);
+      launch_bwd<float>(s, plan, value, loc, attn, tile_mask, grad_out,
+                        grad_value_f32, grad_value, row_head, links, grad_loc,
+                        grad_attn, B, V, H, D, Q, P, LP, q_tile, n_tiles, lv);
     } else {
-      return (int)cudaErrorInvalidValue;
+      launch_bwd<__nv_bfloat16>(s, plan, value, loc, attn, tile_mask,
+                                grad_out, grad_value_f32, grad_value,
+                                row_head, links, grad_loc, grad_attn, B, V, H,
+                                D, Q, P, LP, q_tile, n_tiles, lv);
     }
+    *variant = plan;
+  } else if (plan == kPlanGather && n_value > 0) {
+    // no item: every row is zero
+    const cudaError_t e = cudaMemsetAsync(
+        grad_value, 0, n_value * (dtype == 0 ? 4 : 2), s);
+    if (e != cudaSuccess) return (int)e;
   }
-  if (dtype == 1 && n_value > 0) {
+  if (plan == kPlanGeneral && dtype == 1 && n_value > 0) {
     const int64_t blocks = (n_value + 255) / 256;
     cast_bf16_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
                        s>>>(grad_value_f32, (__nv_bfloat16*)grad_value,
@@ -322,7 +730,7 @@ extern "C" int msda_bwd(const void* value, int dtype, const float* loc,
 // geometry and need none.
 // General variant (msda_bwd_factored_scalar_kernel; any D or alignment):
 // one warp per (bs, query, head), the lanes walking the channels of each
-// (sample, corner) one at a time as msda_bwd's chunked variant, every add a
+// (sample, corner) one at a time as msda_bwd's general kernel, every add a
 // global atomic, d off and d attn summed over the cameras in registers.
 
 // The shared memory a privatizing block may take (two blocks an SM) and the
@@ -332,22 +740,6 @@ extern "C" int msda_bwd(const void* value, int dtype, const float* loc,
 constexpr int kPrivMaxBytes = 100 * 1024;
 constexpr int kPrivRun = 128;
 constexpr int kPrivWarps = 8;  // warps per block of the privatizing kernel
-
-// Four channels as f32, from one 8-byte (bf16) or 16-byte (f32) load.
-__device__ __forceinline__ void load4(float* f, const __nv_bfloat16* p) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  f[0] = __uint_as_float(v.x << 16);
-  f[1] = __uint_as_float(v.x & 0xffff0000u);
-  f[2] = __uint_as_float(v.y << 16);
-  f[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-__device__ __forceinline__ void load4(float* f, const float* p) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
-}
 
 // The (bs, query, head) item of a warp (item = (bs * Q + q) * H + hh).
 struct FactoredBwdItem {
@@ -376,48 +768,6 @@ __device__ __forceinline__ void add_loc_grad(const SampleGrad& sg,
     atomicAdd(gref + 1, sg.ly);
   }
 }
-
-// Recursive-halving reduce-scatter over the G lanes of a group: lane `sub`
-// holds G partial sums p[0..G-1] (one per row) and ends with the group's
-// total of row `sub` in p[0]. G - 1 shuffles.
-template <int G>
-__device__ __forceinline__ void group_reduce_scatter(float (&p)[G], int sub) {
-#pragma unroll
-  for (int m = G / 2; m >= 1; m >>= 1) {
-    const bool upper = (sub & m) != 0;
-#pragma unroll
-    for (int j = 0; j < m; ++j) {
-      const float send = upper ? p[j] : p[j + m];
-      const float keep = upper ? p[j + m] : p[j];
-      p[j] = keep + __shfl_xor_sync(FULL_MASK, send, m);
-    }
-  }
-}
-
-// Four channels of value as loaded (8 bytes of bf16, 16 of f32), kept raw
-// while in flight, and their dot product with g in f32.
-__device__ __forceinline__ uint2 load_raw4(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const uint2*>(p));
-}
-__device__ __forceinline__ float4 load_raw4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float dot4(const float (&g)[4], uint2 v) {
-  return g[0] * __uint_as_float(v.x << 16) +
-         g[1] * __uint_as_float(v.x & 0xffff0000u) +
-         g[2] * __uint_as_float(v.y << 16) +
-         g[3] * __uint_as_float(v.y & 0xffff0000u);
-}
-__device__ __forceinline__ float dot4(const float (&g)[4], float4 v) {
-  return g[0] * v.x + g[1] * v.y + g[2] * v.z + g[3] * v.w;
-}
-
-// Rows a lane has in flight: 64 bytes of raw loads (8 in bf16, 4 in f32).
-template <typename T, int G>
-struct FactoredBwdBatch {
-  static constexpr int kRaw = 4 * (int)sizeof(T);
-  static constexpr int value = G < 64 / kRaw ? G : 64 / kRaw;
-};
 
 // One round of one (camera, query, head) in the vector variant: lane s owns
 // the sample whose corners are c (row 1: cells, -1 outside the grid), weight

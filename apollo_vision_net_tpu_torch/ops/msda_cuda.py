@@ -24,8 +24,12 @@ element size a power-of-two multiple of 16 bytes, aligned rows) or
 ``general`` (scalar channels, any D). ``launches_bwd_plain`` and
 ``launches_bwd_masked`` count the backward's launches without and with a
 tile mask, and ``launches_bwd_plain_by_variant`` /
-``launches_bwd_masked_by_variant`` split them by ``BWD_VARIANTS``:
-``lane_per_channel`` (D <= 32) or ``chunked``. ``launches_bwd_factored``
+``launches_bwd_masked_by_variant`` split them by the plan that ran
+(``BWD_VARIANTS``, chosen by ``bwd_plan``): ``gather`` (the vector
+kernel, several items a warp, pushing each corner onto its row's lists,
+then a pass over the rows that sums them and writes grad_value in value's
+dtype) or ``general`` (any head width or alignment: a warp per item, f32
+atomics into a scratch). ``launches_bwd_factored``
 counts the factored backward's launches and
 ``launches_bwd_factored_by_variant`` splits them by
 ``BWD_FACTORED_VARIANTS``: ``privatized`` (the vector kernel with the
@@ -57,7 +61,7 @@ VARIANTS = {1: "vector", 0: "general"}
 launches_plain_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 launches_masked_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 launches_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
-BWD_VARIANTS = {1: "lane_per_channel", 0: "chunked"}
+BWD_VARIANTS = {1: "gather", 0: "general"}
 launches_bwd_plain_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
 launches_bwd_masked_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
 BWD_FACTORED_VARIANTS = {2: "privatized", 1: "vector", 0: "general"}
@@ -83,10 +87,10 @@ ARGTYPES = {
     "msda_fwd_factored": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P, _I, _P, _P],
     # value, dtype, loc, attn, tile_mask, grad_out, grad_value_f32,
-    # grad_value, grad_loc, grad_attn, B, V, H, D, Q, L, P, shapes, q_tile,
-    # stream, variant
-    "msda_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 _I, _I, _P, _I, _P, _P],
+    # grad_value, grad_loc, grad_attn, row_head, slot_links, B, V, H, D, Q,
+    # L, P, shapes, q_tile, plan, stream, variant
+    "msda_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                 _I, _I, _I, _I, _P, _I, _I, _P, _P],
     # value, dtype, ref, off, attn, tile_mask, grad_out, grad_value_f32,
     # grad_value, grad_ref, grad_off, grad_attn, B, N, V, H, D, Q, L, P,
     # shapes, q_tile, private_from, stream, variant
@@ -263,6 +267,51 @@ def msda_fwd_factored(
     return out
 
 
+# msda_bwd's vector kernel: warps a block, the head widths it takes (D = 4
+# G, G = 1, 2, 4, 8) and the bounds of an item's lane slot (csrc/
+# msda_bwd.cu kBwdWarps, kSlotLog2Min, kSlotLog2Max)
+BWD_VEC_WARPS = 4
+BWD_VECTOR_WIDTHS = (4, 8, 16, 32)
+BWD_SLOT_MIN, BWD_SLOT_MAX = 4, 32
+_INT32_MAX = 2**31 - 1
+
+
+def bwd_items_per_warp(lp: int) -> int:
+    """Items (batch, query, head) a warp of msda_bwd's vector kernel takes:
+    32 over the lane slot of an item, L·P rounded up to a power of two
+    between BWD_SLOT_MIN and BWD_SLOT_MAX (an item of more samples takes
+    rounds of 32; csrc/msda_bwd.cu bwd_slot_log2)."""
+    slot = BWD_SLOT_MIN
+    while slot < BWD_SLOT_MAX and slot < lp:
+        slot *= 2
+    return 32 // slot
+
+
+def bwd_aligned(value: torch.Tensor, grad_out: torch.Tensor) -> bool:
+    """Whether value and grad_out start on a 4-channel boundary, as
+    msda_bwd's vector kernel loads them."""
+    align = 4 * value.element_size()
+    return value.data_ptr() % align == 0 and grad_out.data_ptr() % align == 0
+
+
+def bwd_gather_scratch(B: int, V: int, H: int, Q: int, lp: int) -> dict:
+    """int32 elements of the gather plan's lists: a head for each value
+    row (``row_head``, B·V·H) and a (link, weight) pair for each corner of
+    each sample (``slot_links``, 2·B·Q·H·L·P·4)."""
+    return {"row_head": B * V * H, "slot_links": 2 * B * Q * H * lp * 4}
+
+
+def bwd_plan(B: int, V: int, H: int, D: int, Q: int, lp: int,
+             aligned: bool = True) -> int:
+    """The plan of a msda_bwd call (a key of BWD_VARIANTS; the C entry
+    refuses one its inputs do not allow): "gather" for D = 4, 8, 16 or 32
+    with aligned rows, value offsets and corner slots below 2^31; else
+    "general"."""
+    ok = (D in BWD_VECTOR_WIDTHS and aligned
+          and B * V * H * D <= _INT32_MAX and B * Q * H * lp * 4 <= _INT32_MAX)
+    return 1 if ok else 0
+
+
 def msda_bwd(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -276,7 +325,8 @@ def msda_bwd(
     """The gradient of ``msda_fwd`` at (value, loc, attn) for ``grad_out``
     (B, Q, H * D) in value's dtype -> (grad_value (B, V, H, D) in value's
     dtype, grad_loc (B, Q, H, L, P, 2) f32, grad_attn (B, Q, H, L, P) f32).
-    grad_value is accumulated in an f32 scratch and cast once."""
+    grad_value is summed in f32 and rounded once: in registers over each
+    row's lists (gather plan) or in an f32 scratch (general)."""
     global launches_bwd_plain, launches_bwd_masked
     if value.device.type != "cuda":
         raise ValueError(f"msda_bwd launches on CUDA tensors, got {value.device}")
@@ -297,21 +347,34 @@ def msda_bwd(
         _check("tile_mask", tile_mask, (B, (Q + q_tile - 1) // q_tile),
                (torch.int32,), dev)
     lib = _lib(BWD_SOURCE)
-    grad_value_f32 = torch.empty((B, V, H, D), dtype=torch.float32, device=dev)
-    grad_value = (grad_value_f32 if value.dtype == torch.float32
-                  else torch.empty_like(value))
+    plan = bwd_plan(B, V, H, D, Q, L * P, bwd_aligned(value, grad_out))
+    row_head = slot_links = grad_value_f32 = None
+    if BWD_VARIANTS[plan] == "gather":
+        grad_value = torch.empty_like(value)
+        sizes = bwd_gather_scratch(B, V, H, Q, L * P)
+        row_head = torch.empty(sizes["row_head"], dtype=torch.int32, device=dev)
+        slot_links = torch.empty(sizes["slot_links"], dtype=torch.int32,
+                                 device=dev)
+    else:
+        grad_value_f32 = torch.empty((B, V, H, D), dtype=torch.float32,
+                                     device=dev)
+        grad_value = (grad_value_f32 if value.dtype == torch.float32
+                      else torch.empty_like(value))
     grad_loc = torch.empty_like(sampling_locations)
     grad_attn = torch.empty_like(attention_weights)
     shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
     stream = torch.cuda.current_stream(dev).cuda_stream
     variant = (ctypes.c_int * 1)(-1)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     err = lib.msda_bwd(
         value.data_ptr(), _DTYPES[value.dtype], sampling_locations.data_ptr(),
-        attention_weights.data_ptr(),
-        tile_mask.data_ptr() if tile_mask is not None else None,
-        grad_out.data_ptr(), grad_value_f32.data_ptr(), grad_value.data_ptr(),
-        grad_loc.data_ptr(), grad_attn.data_ptr(), B, V, H, D, Q, L, P,
-        shapes, q_tile, stream, variant)
+        attention_weights.data_ptr(), ptr(tile_mask), grad_out.data_ptr(),
+        ptr(grad_value_f32), grad_value.data_ptr(), grad_loc.data_ptr(),
+        grad_attn.data_ptr(), ptr(row_head), ptr(slot_links), B, V, H, D, Q,
+        L, P, shapes, q_tile, plan, stream, variant)
     if err != 0:
         raise RuntimeError(f"msda_bwd kernel launch failed: CUDA error {err}")
     if tile_mask is None:

@@ -98,7 +98,7 @@ Phases, each printing JSON lines:
                steps with exact launch counts per step (forward 30 plain,
                18 factored, 78 DCN; backward 18 msda_bwd, 6
                msda_bwd_factored, 26 dcn_bwd; on their vector,
-               lane_per_channel, privatized and quad variants), loss
+               gather, privatized and quad variants), loss
                terms finite and moving;
                the f32 step at 1 encoder and 2 + 2 decoder layers
                (BASE_CMP_SIZES) against plain versions beside the witnesses,
@@ -113,8 +113,11 @@ Phases, each printing JSON lines:
                memory and a profile.
 The kernels phase also holds the backwards against autograd through their
 plain versions: ``msda_bwd`` (plain and masked) at the flagship's four
-MSDA shapes, the det+occ train step's 9,900-query decoder and the base
-TSA over 200x200 and both base decoders; ``msda_bwd_factored`` at the base
+MSDA shapes, the det+occ train step's 9,900-query decoder, the base
+TSA over 200x200 and both base decoders, and the MSDA edge shapes (the
+gather and general plans: L·P of 3 to 64 an item, tiles that a warp's
+items straddle, D = 4 to 64, a misaligned value, a hot row);
+``msda_bwd_factored`` at the base
 SCA shape (the full shape, ~35 GB of plain autograd), the same geometry
 with 16-channel heads and with its first level alone (no level private),
 and the factored edge shapes (tail tiles, random masks, a misaligned
@@ -365,6 +368,7 @@ ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
                 "msda_bwd_factored": "msda_bwd.cu", "dcn_bwd": "dcn_bwd.cuh"}
 # kernels whose every instance must build without a stack frame or spills
 VECTOR_KERNELS = ("msda_vec_kernel", "msda_factored_vec_kernel",
+                  "msda_bwd_vec_kernel", "msda_bwd_gather_kernel",
                   "msda_bwd_factored_priv_kernel", "dcn_dinput_kernel")
 
 
@@ -774,19 +778,27 @@ def base_factored_bwd_cases(sca):
 
 
 def msda_edge_pair(name, g, dev, *, B, H, D, Q, P, shapes, q_tile, variant,
-                   misaligned=False):
+                   misaligned=False, bwd_variant=None, hot=None):
     """One plain and one masked MSDA call on the same inputs: locations
     spread past the grid ([-0.2, 1.2]), random weights, a random tile mask
-    with a tail tile when q_tile does not divide Q. ``variant`` and
-    ``misaligned`` as in ``factored_case``."""
+    with a tail tile when q_tile does not divide Q. ``variant``,
+    ``bwd_variant`` (the plan msda_bwd must take) and ``misaligned`` as in
+    ``factored_case``; ``hot`` = (x, y) puts every sample of every query at
+    the centre of that cell of the first level (its whole weight on one
+    corner row)."""
     L, V = len(shapes), sum(h * w for h, w in shapes)
     value = torch.randn((B, V, H, D), generator=g, device=dev)
     loc = torch.rand((B, Q, H, L, P, 2), generator=g, device=dev) * 1.4 - 0.2
+    if hot is not None:
+        h0, w0 = shapes[0]
+        loc[..., 0] = (hot[0] + 0.5) / w0
+        loc[..., 1] = (hot[1] + 0.5) / h0
     attn = torch.rand((B, Q, H, L, P), generator=g, device=dev)
     n_tiles = (Q + q_tile - 1) // q_tile
     tm = (torch.rand((B, n_tiles), generator=g, device=dev) > 0.4).to(torch.int32)
     common = dict(kind="msda", value=value, shapes=shapes, loc=loc, attn=attn,
-                  q_tile=q_tile, variant=variant, misaligned=misaligned)
+                  q_tile=q_tile, variant=variant, misaligned=misaligned,
+                  bwd_variant=bwd_variant)
     return [dict(name=name, tile_mask=None, **common),
             dict(name=name + "_masked", tile_mask=tm, **common)]
 
@@ -796,35 +808,66 @@ def msda_edge_cases(dev):
     not reach, each on the variant it targets: H·L·P below, at and above
     one warp (12, 32, 64, 96, 256), D = 4, 16, 32, 40 and 64, L = 1-4, Q
     off the tile, locations outside the grid and a misaligned value row;
-    then the factored entry with N = 3 cameras and a tail tile."""
+    then the factored entry with N = 3 cameras and a tail tile; then the
+    shapes of msda_bwd's vector kernel (``bwd_variant``, the plan it must
+    take): L·P = 3, 5, 12 and 64 an item (8, 4, 2 and 1 items a warp, the
+    last in rounds of 32 samples), B·Q·H not a multiple of the items a warp
+    takes, tiles of 3 or 4 queries so that a warp's items straddle masked,
+    unmasked and tail tiles, D = 8, and a hot row: every sample of 500
+    queries on one corner of one cell."""
     g = torch.Generator(device=dev).manual_seed(1)
     vec = {"float32": "vector", "bfloat16": "vector"}
     gen = {"float32": "general", "bfloat16": "general"}
+    gat = {"float32": "gather", "bfloat16": "gather"}
     return [
         *msda_edge_pair("edge_D4", g, dev, B=2, H=4, D=4, Q=37, P=5,
                         shapes=((6, 9), (3, 5)), q_tile=32,
-                        variant={"float32": "vector", "bfloat16": "general"}),
+                        variant={"float32": "vector", "bfloat16": "general"},
+                        bwd_variant=gat),
         *msda_edge_pair("edge_D40", g, dev, B=1, H=2, D=40, Q=70, P=3,
-                        shapes=((7, 5),), q_tile=32, variant=gen),
+                        shapes=((7, 5),), q_tile=32, variant=gen,
+                        bwd_variant=gen),
         *msda_edge_pair("edge_msda_HLP12_D16", g, dev, B=2, H=2, D=16, Q=45,
-                        P=3, shapes=((6, 9), (3, 5)), q_tile=16, variant=vec),
+                        P=3, shapes=((6, 9), (3, 5)), q_tile=16, variant=vec,
+                        bwd_variant=gat),
         *msda_edge_pair("edge_msda_HLP32_D32", g, dev, B=2, H=8, D=32, Q=70,
-                        P=4, shapes=((9, 11),), q_tile=32, variant=vec),
+                        P=4, shapes=((9, 11),), q_tile=32, variant=vec,
+                        bwd_variant=gat),
         *msda_edge_pair("edge_msda_HLP64_D32", g, dev, B=3, H=8, D=32, Q=100,
-                        P=8, shapes=((5, 8),), q_tile=32, variant=vec),
+                        P=8, shapes=((5, 8),), q_tile=32, variant=vec,
+                        bwd_variant=gat),
         *msda_edge_pair("edge_msda_L3_HLP96_D64", g, dev, B=1, H=4, D=64, Q=50,
                         P=8, shapes=((7, 9), (4, 5), (2, 3)), q_tile=16,
-                        variant=vec),
+                        variant=vec, bwd_variant=gen),
         *msda_edge_pair("edge_msda_L4_HLP256_D32", g, dev, B=2, H=8, D=32,
                         Q=200, P=8, shapes=((9, 13), (5, 7), (3, 4), (1, 1)),
-                        q_tile=128, variant=vec),
+                        q_tile=128, variant=vec, bwd_variant=gat),
         *msda_edge_pair("edge_msda_L2_D40", g, dev, B=2, H=3, D=40, Q=33, P=4,
-                        shapes=((6, 7), (3, 4)), q_tile=8, variant=gen),
+                        shapes=((6, 7), (3, 4)), q_tile=8, variant=gen,
+                        bwd_variant=gen),
         *msda_edge_pair("edge_msda_misaligned", g, dev, B=1, H=4, D=32, Q=40,
                         P=4, shapes=((6, 8), (3, 4)), q_tile=16, variant=gen,
-                        misaligned=True),
+                        misaligned=True, bwd_variant=gen),
         factored_case("edge_factored", g, dev, Bs=2, N=3, H=4, D=24, Q=150,
                       P=4, shapes=((9, 11), (5, 6), (3, 3)), q_tile=64),
+        *msda_edge_pair("edge_bwd_LP3_D16", g, dev, B=2, H=3, D=16, Q=37, P=3,
+                        shapes=((6, 9),), q_tile=4, variant=None,
+                        bwd_variant=gat),
+        *msda_edge_pair("edge_bwd_LP5_D32", g, dev, B=1, H=8, D=32, Q=45, P=5,
+                        shapes=((5, 7),), q_tile=4, variant=None,
+                        bwd_variant=gat),
+        *msda_edge_pair("edge_bwd_LP12_D8", g, dev, B=2, H=2, D=8, Q=29, P=4,
+                        shapes=((7, 9), (4, 5), (2, 3)), q_tile=8,
+                        variant=None, bwd_variant=gat),
+        *msda_edge_pair("edge_bwd_LP64_D32", g, dev, B=1, H=2, D=32, Q=20,
+                        P=32, shapes=((6, 7), (3, 4)), q_tile=8, variant=None,
+                        bwd_variant=gat),
+        *msda_edge_pair("edge_bwd_items_tail_D4", g, dev, B=1, H=3, D=4, Q=37,
+                        P=4, shapes=((5, 6),), q_tile=3, variant=None,
+                        bwd_variant=gat),
+        *msda_edge_pair("edge_bwd_hot_row", g, dev, B=1, H=2, D=32, Q=500,
+                        P=4, shapes=((8, 8),), q_tile=32, variant=None,
+                        bwd_variant=gat, hot=(3, 5)),
     ]
 
 
@@ -1006,7 +1049,8 @@ def bind_bwd(case, dtype, seed=0):
     Returns (kernel, plain, bound, gradient names, tolerances, expected
     variant or None). The plain version is timed eagerly with CUDA events
     (autograd is not captured in a graph here)."""
-    value = case["value"].to(dtype).contiguous()
+    shift = misaligned if case.get("misaligned") else (lambda t: t)
+    value = shift(case["value"].to(dtype).contiguous())
     loc, attn, shapes = case["loc"], case["attn"], case["shapes"]
     kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
     B, _, H, D = value.shape
@@ -1024,7 +1068,21 @@ def bind_bwd(case, dtype, seed=0):
             lambda: msda_bwd_bound(value, shapes, loc, attn, kw["tile_mask"],
                                    kw["q_tile"]),
             ("grad_value", "grad_loc", "grad_attn"),
-            BWD_REL_TOL[str(dtype).replace("torch.", "")], None)
+            BWD_REL_TOL[str(dtype).replace("torch.", "")],
+            msda_bwd_variant(case, dtype))
+
+
+def msda_bwd_variant(case, dtype):
+    """The plan msda_bwd must take on a case: the one it names
+    (``bwd_variant``), else ``msda_cuda.bwd_plan``'s on its shapes with
+    value aligned unless the case shifts it."""
+    dname = str(dtype).replace("torch.", "")
+    if case.get("bwd_variant"):
+        return case["bwd_variant"][dname]
+    B, V, H, D = case["value"].shape
+    _, Q, _, L, P, _ = case["loc"].shape
+    return msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(
+        B, V, H, D, Q, L * P, aligned=not case.get("misaligned"))]
 
 
 def factored_bwd_variant(D, misaligned_value, shapes, P):
@@ -1103,9 +1161,12 @@ def msda_bwd_bound(value, shapes, loc, attn, tile_mask, q_tile):
     samples touch read once, grad_value written once in value's dtype,
     grad_loc and grad_attn written; per sample and corner a D-long dot
     product and a D-long scaled add (4·D flops). Returns (ms, bound_by,
-    design_bytes): the last is what the kernel's own design moves besides,
-    and is not in the bound: the f32 scratch zero-filled, every touched
-    row's f32 read-modify-write, and for bf16 the scratch read and cast."""
+    design_bytes): the last is what the plan that runs moves besides, and
+    is not in the bound: for "gather" the row lists (a row's head set and
+    read, a (link, weight) pair a corner written and read) and a
+    grad_out row re-read for every corner; for "general" the f32 scratch
+    zero-filled, every corner row's f32 read-modify-write and for bf16 the
+    scratch read and cast."""
     B, V, H, D = value.shape
     _, Q, _, L, P, _ = loc.shape
     elem = value.element_size()
@@ -1115,13 +1176,18 @@ def msda_bwd_bound(value, shapes, loc, attn, tile_mask, q_tile):
         active_q = int((tile_mask.to(torch.int64) * sizes).sum())
     rows = touched_value_bytes(value, shapes, loc, tile_mask, q_tile) // (D * elem)
     n_value = B * V * H * D
+    corners = active_q * H * L * P * 4
     nbytes = (active_q * H * D * elem                # grad_out
               + active_q * H * L * P * 3 * 4         # loc and attn read
               + rows * D * elem                      # touched value rows
               + n_value * elem                       # grad_value written
               + B * Q * H * L * P * 3 * 4)           # grad_loc, grad_attn
-    design = n_value * 4 + rows * D * 8 + (n_value * 4 if elem == 2 else 0)
-    ms, by = _bound(nbytes, active_q * H * L * P * 4 * 4 * D / F32_FLOP_PER_S)
+    aligned = value.data_ptr() % (4 * elem) == 0
+    if msda_cuda.bwd_plan(B, V, H, D, Q, L * P, aligned):
+        design = B * V * H * 4 * 2 + corners * (8 * 2 + D * elem)
+    else:
+        design = n_value * 4 + corners * D * 8 + (n_value * 4 if elem == 2 else 0)
+    ms, by = _bound(nbytes, corners * 4 * D / F32_FLOP_PER_S)
     return ms, by, design
 
 
@@ -1329,7 +1395,7 @@ def phase_kernels(dev):
     rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev) + base
                      + base_factored_bwd_cases(next(
                          c for c in base if c["name"] == "sca_base_factored"))
-                     + msda_edge_cases(dev)[-1:] + factored_edge_cases(dev)
+                     + msda_edge_cases(dev) + factored_edge_cases(dev)
                      + dcn_cases(dev))
     torch.cuda.empty_cache()
     reset_launch_counts()
@@ -1673,8 +1739,7 @@ def dcn_blocks(cfg) -> int:
 
 
 # the variant each entry takes on the main paths where it is not "vector"
-MAIN_PATH_VARIANT = {"msda_bwd": "lane_per_channel",
-                     "msda_bwd_masked": "lane_per_channel",
+MAIN_PATH_VARIANT = {"msda_bwd": "gather", "msda_bwd_masked": "gather",
                      "msda_bwd_factored": "privatized", "dcn_bwd": "quad"}
 
 

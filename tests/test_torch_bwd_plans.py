@@ -1,7 +1,11 @@
-"""The host-side choices of the factored-MSDA backward kernel and the
-backward variants that chip_smoke.py expects, checked on the CPU (the
-kernels themselves run only on the card).
+"""The host-side choices of the MSDA backward kernels and the backward
+variants that chip_smoke.py expects, checked on the CPU (the kernels
+themselves run only on the card).
 
+- ``msda_cuda.bwd_plan``, ``bwd_items_per_warp`` and
+  ``bwd_gather_scratch``: the plan of ``msda_bwd`` (gather or general),
+  the items a warp of its vector kernel takes and the sizes of the gather
+  plan's lists, against the rules csrc/msda_bwd.cu holds.
 - ``msda_cuda.factored_bwd_plan``: which levels' grad_value rows the vector
   kernel of ``msda_bwd_factored`` sums in shared memory, at the base SCA
   shape (levels 2-3 of the 4-level FPN) and at edge shapes (every level,
@@ -16,8 +20,22 @@ from pathlib import Path
 import pytest
 import torch
 
-from apollo_vision_net_tpu_torch.configs import bev_base_det_map, bev_base_occ
+from apollo_vision_net_tpu_torch.configs import (
+    bev_base_det_map,
+    bev_base_occ,
+    bev_tiny_det_map_apollo,
+    bev_tiny_det_occ_apollo,
+)
 from apollo_vision_net_tpu_torch.ops import dcn_cuda, msda_cuda
+
+BWD_SRC = (Path(msda_cuda.__file__).resolve().parent.parent / "csrc"
+           / "msda_bwd.cu")
+
+
+def c_const(name):
+    """A constexpr int of csrc/msda_bwd.cu (a product of literals)."""
+    m = re.search(rf"\b{name} = ([^,;]+)[,;]", BWD_SRC.read_text())
+    return eval(m.group(1), {})
 
 
 def fpn_shapes(cfg):
@@ -105,15 +123,8 @@ def test_factored_bwd_run_is_the_block_size_whatever_the_levels(shapes, D, P):
     budget that csrc/msda_bwd.cu holds as kPrivRun and kPrivMaxBytes (its
     entry refuses a plan beyond them); the plan's shared memory stays within
     the budget, and with 16-bit list indices."""
-    src = (Path(msda_cuda.__file__).resolve().parent.parent / "csrc"
-           / "msda_bwd.cu").read_text()
-
-    def const(name):
-        expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
-        return eval(expr, {})  # a product of integer literals
-
-    assert const("kPrivRun") == msda_cuda.FACTORED_BWD_RUN == 128
-    assert const("kPrivMaxBytes") == msda_cuda.FACTORED_BWD_PRIVATE_BYTES
+    assert c_const("kPrivRun") == msda_cuda.FACTORED_BWD_RUN == 128
+    assert c_const("kPrivMaxBytes") == msda_cuda.FACTORED_BWD_PRIVATE_BYTES
     private_from = msda_cuda.factored_bwd_plan(shapes, D, P)
     run = msda_cuda.FACTORED_BWD_RUN
     sp = (len(shapes) - private_from) * P
@@ -133,8 +144,17 @@ def test_chip_smoke_expects_the_new_variants_on_the_main_paths():
     assert per_step["dcn_bwd"] == per_step["dcn_bwd.quad"] == 26
     assert per_step["msda_bwd_factored.vector"] == 0
     occ = chip_smoke.train_launches_per_step(bev_base_occ())
-    assert (occ["msda_bwd.lane_per_channel"], occ["msda_bwd_factored.privatized"],
+    assert (occ["msda_bwd.gather"], occ["msda_bwd_factored.privatized"],
             occ["dcn_bwd.quad"]) == (12, 6, 26)
+    assert per_step["msda_bwd"] == per_step["msda_bwd.gather"] == 18
+    assert per_step["msda_bwd.general"] == 0
+    # the flagship and det+occ steps: TSA and decoders plain, SCA masked
+    for config, plain in ((bev_tiny_det_map_apollo, 15),
+                          (bev_tiny_det_occ_apollo, 9)):
+        n = chip_smoke.train_launches_per_step(config())
+        assert n["msda_bwd"] == n["msda_bwd.gather"] == plain
+        assert n["msda_bwd_masked"] == n["msda_bwd_masked.gather"] == 3
+    assert set(msda_cuda.BWD_VARIANTS.values()) == {"gather", "general"}
     assert chip_smoke.factored_bwd_variant(
         32, False, fpn_shapes(bev_base_det_map()), 8) == "privatized"
     # D = 4 G (G = 1, 2, 4, 8) takes the privatizing kernel, other head
@@ -187,3 +207,104 @@ def test_chip_smoke_edge_cases_target_each_backward_variant():
         # most samples land more than 16 pixels from their tap
         assert float((far["offset"].abs() > 16).float().mean()) > 0.5
 
+
+
+# ------------------------------------------------------------- msda_bwd
+
+def test_bwd_items_per_warp_follows_the_c_slot_rule():
+    """A warp of msda_bwd's vector kernel takes 32 / S items, S = L·P
+    rounded up to a power of two within [2^kSlotLog2Min, 2^kSlotLog2Max]:
+    8 items at L·P = 4 (TSA, decoders), 4 at 8 (SCA), one item in rounds
+    of 32 samples beyond 32."""
+    assert 1 << c_const("kSlotLog2Min") == msda_cuda.BWD_SLOT_MIN == 4
+    assert 1 << c_const("kSlotLog2Max") == msda_cuda.BWD_SLOT_MAX == 32
+    assert c_const("kBwdWarps") == msda_cuda.BWD_VEC_WARPS
+    table = {1: 8, 2: 8, 3: 8, 4: 8, 5: 4, 8: 4, 9: 2, 12: 2, 16: 2, 17: 1,
+             32: 1, 33: 1, 64: 1}
+    assert {lp: msda_cuda.bwd_items_per_warp(lp) for lp in table} == table
+    # a group of G <= 8 lanes (G / 2 <= 4 <= S) spans at most two items
+    for lp in table:
+        slot = 32 // msda_cuda.bwd_items_per_warp(lp)
+        assert slot >= 8 // 2 and slot >= min(lp, 32)
+
+
+def test_bwd_plan_takes_gather_at_every_main_shape():
+    """The TSA, decoder and single-level SCA calls of the four configs
+    (B, V, H, D, Q, L·P) take the gather plan; other head widths, a
+    misaligned row and corner slots past 2^31 take the general one, as the
+    C entry's checks (the widths below) demand."""
+    text = BWD_SRC.read_text()
+    widths = tuple(int(w) for w in re.findall(
+        r"D == (\d+)", re.search(r"\(D == 4 \|\|[^)]*\)", text).group()))
+    assert widths == msda_cuda.BWD_VECTOR_WIDTHS == (4, 8, 16, 32)
+    main = [(2, 40000, 8, 32, 40000, 4),     # base TSA
+            (1, 40000, 8, 32, 900, 4),       # base det decoder
+            (1, 40000, 8, 32, 1000, 4),      # base map decoder
+            (2, 2500, 8, 32, 2500, 4),       # flagship TSA
+            (6, 1500, 8, 32, 2500, 8),       # flagship SCA (masked)
+            (1, 2500, 8, 32, 900, 4),        # flagship det decoder
+            (1, 2500, 8, 32, 9900, 4)]       # det+occ train decoder
+    for shape in main:
+        assert msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(*shape)] == "gather"
+    for D in (12, 40, 64, 2):
+        assert msda_cuda.bwd_plan(1, 100, 2, D, 10, 4) == 0
+    assert msda_cuda.bwd_plan(1, 100, 2, 32, 10, 4, aligned=False) == 0
+    # 2^31 corner slots or value elements
+    assert msda_cuda.bwd_plan(1, 100, 8, 32, 2**24, 4) == 0
+    assert msda_cuda.bwd_plan(1, 100, 8, 32, 2**24 - 1, 4) == 1
+    assert msda_cuda.bwd_plan(64, 2**20, 8, 32, 10, 4) == 0
+
+
+def test_bwd_gather_scratch_sizes():
+    """The gather plan's lists at the base TSA: a head for each value row
+    (2 x 40,000 cells x 8 heads: 2.56 MB) and a (link, weight) pair for
+    each of 16 corners of 2 x 40,000 x 8 items (82 MB); the C entry sets
+    the B V H heads to -1 and reads the pairs as int2."""
+    sizes = msda_cuda.bwd_gather_scratch(2, 40000, 8, 40000, 4)
+    assert sizes == {"row_head": 640_000, "slot_links": 20_480_000}
+    assert sizes["row_head"] * 4 == 2_560_000
+    assert sizes["slot_links"] * 4 == 81_920_000
+    text = BWD_SRC.read_text()
+    assert "cudaMemsetAsync(row_head, 0xff, n_rows * sizeof(int), s)" in text
+    assert "reinterpret_cast<int2*>(slot_links)" in text
+
+
+def test_chip_smoke_msda_edge_cases_reach_each_backward_shape():
+    """chip_smoke's MSDA edge cases reach both msda_bwd plans, 8, 4, 2 and
+    1 items a warp (L·P = 3, 4, 5, 8, 12, 64), B·Q·H off a multiple of the
+    items a warp takes, warps whose items straddle masked, unmasked and
+    tail tiles, D = 4, 8, 16, 32, 40, 64, a misaligned value and a hot row;
+    each row names the plan it must take, which ``bwd_plan`` gives."""
+    import chip_smoke
+
+    dev = torch.device("cpu")
+    cases = [c for c in chip_smoke.msda_edge_cases(dev) if c["kind"] == "msda"]
+    seen = set()
+    per_warp, straddle, tail = set(), False, False
+    for c in cases:
+        B, V, H, D = c["value"].shape
+        _, Q, _, L, P, _ = c["loc"].shape
+        for dt in (torch.float32, torch.bfloat16):
+            want = chip_smoke.bind_bwd(c, dt)[-1]
+            plan = msda_cuda.bwd_plan(B, V, H, D, Q, L * P,
+                                      aligned=not c.get("misaligned"))
+            assert want == msda_cuda.BWD_VARIANTS[plan], c["name"]
+            seen.add(want)
+        if want == "gather":
+            k = msda_cuda.bwd_items_per_warp(L * P)
+            per_warp.add(k)
+            tail |= (B * Q * H) % k != 0
+            if c["tile_mask"] is not None:
+                tm = c["tile_mask"]
+                # a warp's items cross a tile edge, with a mixed mask
+                straddle |= ((c["q_tile"] * H) % k != 0
+                             and bool(tm.any()) and not bool(tm.all()))
+    assert seen == {"gather", "general"}
+    assert per_warp == {8, 4, 2, 1}
+    assert tail and straddle
+    widths = {c["value"].shape[-1] for c in cases}
+    assert {4, 8, 16, 32, 40, 64} <= widths
+    assert any(c.get("misaligned") for c in cases)
+    hot = next(c for c in cases if c["name"] == "edge_bwd_hot_row")
+    loc = hot["loc"].reshape(-1, 2)
+    assert bool((loc == loc[0]).all())  # every sample on one point

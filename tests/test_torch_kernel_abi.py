@@ -39,7 +39,10 @@ def test_every_entry_point_has_a_wrapper_signature():
     ("msda_fwd.cu", "msda_fwd"),
     ("msda_fwd.cu", "msda_fwd_factored"),
     ("msda_bwd.cu", "msda_bwd"),
+    ("msda_bwd.cu", "msda_bwd_factored"),
     ("dcn_fwd.cu", "dcn_fwd"),
+    ("dcn_fwd.cu", "dcn_bwd_im2col"),
+    ("dcn_fwd.cu", "dcn_bwd_col2im"),
 ])
 def test_wrapper_argtypes_match_the_c_parameters(source, name):
     params = c_entries(source)[name]
@@ -55,9 +58,9 @@ def test_wrapper_argtypes_match_the_c_parameters(source, name):
 
 def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
     """chip_smoke's build phase fails when any instance of a vector kernel
-    (the plain/masked and factored MSDA forwards, the factored MSDA
-    backward's privatizing kernel, the DCN backward's quad d-input kernel)
-    has a
+    (the plain/masked and factored MSDA forwards, the plain/masked MSDA
+    backward's vector and gather kernels, the factored MSDA backward's
+    privatizing kernel, the DCN backward's quad d-input kernel) has a
     stack frame or spills, or is missing from the report; it reads them per
     kernel from the report, anonymous-namespace kernels included."""
     import chip_smoke
@@ -78,6 +81,14 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 90 registers, used 1 barriers, 224 bytes smem",
         "ptxas info    : Function properties for "
+        "_Z19msda_bwd_vec_kernelI13__nv_bfloat16Li8ELb1EEvPKT_PKfS5_PKiS3_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers, 224 bytes smem",
+        "ptxas info    : Function properties for "
+        "_Z22msda_bwd_gather_kernelIfLi8EEvPKT_PKiPK4int2PS0_ii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 24 registers, used 0 barriers",
+        "ptxas info    : Function properties for "
         "_ZN43_GLOBAL__N__b68f9870_10_dcn_fwd_cu_b4b4a25017dcn_dinput_kernel"
         "IfEEvPKT_PKfS5_S3_PfS6_S6_iiiiiii",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -87,7 +98,7 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "    8 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
     ])
-    fac, vec, priv, quad, dcn = chip_smoke.ptxas_kernels(report)
+    fac, vec, priv, bvec, gather, quad, dcn = chip_smoke.ptxas_kernels(report)
     assert (fac["kernel"], fac["registers"], fac["smem_bytes"],
             fac["stack_bytes"], fac["spill_stores"]) == (
         "msda_factored_vec_kernel", 79, 224, 0, 0)
@@ -95,11 +106,15 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
             vec["spill_loads"]) == ("msda_vec_kernel", 56, 0, 0)
     assert (priv["kernel"], priv["registers"], priv["stack_bytes"]) == (
         "msda_bwd_factored_priv_kernel", 90, 0)
+    assert (bvec["kernel"], bvec["registers"], bvec["stack_bytes"]) == (
+        "msda_bwd_vec_kernel", 72, 0)
+    assert (gather["kernel"], gather["registers"], gather["spill_stores"]) == (
+        "msda_bwd_gather_kernel", 24, 0)
     assert (quad["kernel"], quad["registers"], quad["spill_loads"]) == (
         "dcn_dinput_kernel", 123, 0)
     assert (dcn["kernel"], dcn["stack_bytes"], dcn["spill_loads"]) == (
         "dcn_fwd_kernel", 8, 32)
-    clean = [fac, vec, priv, quad]
+    clean = [fac, vec, priv, bvec, gather, quad]
     assert set(chip_smoke.VECTOR_KERNELS) == {k["kernel"] for k in clean}
     chip_smoke.check_vector_kernels([*clean, dcn])
     for k in clean:

@@ -256,25 +256,64 @@ def test_large_grid_tsa_is_exact(reference):
 
 # ------------------------------------------------------------- backward
 
+def _tsa_grid_inputs(seed, B=2, H=2, D=8, P=4, hw=(20, 20), hot=False):
+    """msda_bwd's main geometry on a small grid: one query per cell
+    sampling ~2 cells around its own (TSA), or every sample of every query
+    at the centre of one cell (a hot row: the whole weight on one corner
+    row)."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    Q = h * w
+    value = rng.standard_normal((B, Q, H, D)).astype(np.float32)
+    ys, xs = np.divmod(np.arange(Q), w)
+    centre = np.stack([(xs + 0.5) / w, (ys + 0.5) / h], -1)
+    if hot:
+        centre[:] = [(3 + 0.5) / w, (5 + 0.5) / h]
+        locs = np.broadcast_to(centre[None, :, None, None, None],
+                               (B, Q, H, 1, P, 2))
+    else:
+        off = rng.standard_normal((B, Q, H, 1, P, 2)) * 2.0 / np.array([w, h])
+        locs = centre[None, :, None, None, None] + off
+    attn = rng.random((B, Q, H, 1, P)).astype(np.float32)
+    return value, ((h, w),), np.ascontiguousarray(locs, np.float32), attn
+
+
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("shapes", [((7, 5),), ((6, 9), (3, 5))])
+@pytest.mark.parametrize("shapes", [((7, 5),), ((6, 9), (3, 5)),
+                                    pytest.param("tsa_20x20", id="tsa_20x20"),
+                                    pytest.param("hot_row", id="hot_row")])
 def test_plain_backward_matches_jax_vjp(shapes, masked):
     """Autograd through ms_deform_attn_ref (the plain version of msda_bwd)
     against jax.vjp of ms_deform_attn_xla, which is the backward of every
-    Pallas MSDA kernel (msda_pallas.py:1468-1484). With a tile mask the JAX
-    backward runs unmasked on a cotangent zeroed on the masked queries, as
-    the caller's zeroed output gives it. f32 sums in other orders: 1e-5
+    Pallas MSDA kernel (msda_pallas.py:1468-1484), on random locations over
+    one and two levels, on the TSA geometry the kernel is shaped for (L·P =
+    4 on a 20x20 grid, B = 2, a query per cell) and on a hot row (every
+    sample on one corner of one cell). With a tile mask the JAX backward
+    runs unmasked on a cotangent zeroed on the masked queries, as the
+    caller's zeroed output gives it. f32 sums in other orders: 1e-5
     relative to each gradient's largest magnitude (locations scale by the
     level's w and h)."""
     import jax
 
-    value, shapes, locs, attn = make_inputs(7, B=2, H=2, D=8, Q=70, P=4,
-                                            shapes=shapes)
-    g = np.random.default_rng(8).standard_normal((2, 70, 16)).astype(np.float32)
-    tile_mask = np.array([[1, 0, 1], [0, 1, 1]], np.int32) if masked else None
+    if isinstance(shapes, str):
+        value, shapes, locs, attn = _tsa_grid_inputs(
+            11, hot=shapes == "hot_row")
+        B, Q = locs.shape[:2]
+        rng = np.random.default_rng(12)
+        g = rng.standard_normal((B, Q, 16)).astype(np.float32)
+        tile_mask = (rng.random((B, (Q + 31) // 32)) > 0.4).astype(np.int32)
+        tile_mask[0, 1] = tile_mask[1, 0] = 0  # checked below
+        tile_mask[0, 0] = tile_mask[1, 1] = 1
+    else:
+        value, shapes, locs, attn = make_inputs(7, B=2, H=2, D=8, Q=70, P=4,
+                                                shapes=shapes)
+        B, Q = 2, 70
+        g = np.random.default_rng(8).standard_normal((2, 70, 16)).astype(np.float32)
+        tile_mask = np.array([[1, 0, 1], [0, 1, 1]], np.int32)
+    tile_mask = tile_mask if masked else None
     g_jax = g
     if masked:
-        keep = np.repeat(tile_mask.astype(bool), 32, axis=1)[:, :70]
+        keep = np.repeat(tile_mask.astype(bool), 32, axis=1)[:, :Q]
         g_jax = g * keep[..., None]
     _, vjp = jax.vjp(lambda v, s, a: ms_deform_attn_xla(v, shapes, s, a),
                      value, locs, attn)
