@@ -27,6 +27,12 @@ torch key by joining its names with dots, after these rewrites:
   ResNet DCN weight ``conv2_dcn_weight`` (9, C, O), which the port keeps
   in the JAX layout.
 
+Modules that flax names explicitly keep their names: the occupancy
+head's ``occ_tsa_layer{i}`` (a ``BEVFormerLayer`` whose submodules are
+named as the encoder's scanned layer), ``occ_tsa_head``, ``flow_branches``,
+``forward_flow``, ``backward_flow`` and ``flow_fc`` (its ``Dense_i`` and
+``LayerNorm_i`` auto-named as in flax).
+
 Every flax leaf is used exactly once.
 """
 from __future__ import annotations

@@ -155,6 +155,32 @@ def bev_tiny_det_occ_apollo() -> ExperimentConfig:
     )
 
 
+def bev_tiny_det_occ_flow() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_det_occ_flow.py — det+occ with
+    the per-voxel flow branch (L1 on object voxels)."""
+    return ExperimentConfig(
+        name="bev_tiny_det_occ_flow",
+        model=ModelConfig(
+            bev_h=50, bev_w=50,
+            backbone_type="dla", backbone_out_indices=(3, 4, 5),
+            neck_type="secondfpn",
+            num_query=900 * 11, group_detr=11,
+            with_occupancy=True, predict_flow=True,
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def bev_tiny_det_occ_tsa_apollo() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_det_occ_tsa_apollo.py — the
+    apollo det+occ model with the extra occ-resolution deformable pass."""
+    base = bev_tiny_det_occ_apollo()
+    return dataclasses.replace(
+        base, name="bev_tiny_det_occ_tsa_apollo",
+        model=dataclasses.replace(base.model, occ_tsa=True),
+    )
+
+
 def bev_tiny_det_map_apollo() -> ExperimentConfig:
     """projects/configs/bevformer/bev_tiny_det_map_apollo.py — det+map:
     DLA-34 + SECONDFPNV2, 50×50 BEV, queue 3, 900 det queries, 50×20 map
@@ -200,6 +226,24 @@ def bev_smoke_det_map() -> ExperimentConfig:
             num_cams=2, img_shape=(64, 96), queue_length=2,
             with_map=True, num_map_vec=5, map_num_pts=4,
             map_decoder_layers=2,
+        ),
+        data=DataConfig(max_gt_boxes=8),
+        optim=OptimConfig(warmup_iters=2, total_steps=100),
+    )
+
+
+def bev_smoke_det_occ_flow() -> ExperimentConfig:
+    """CI-sized det+occ with the flow branch, multi-frame occ supervision
+    AND temporal flow aggregation (with_occupancy_flow)."""
+    return ExperimentConfig(
+        name="bev_smoke_det_occ_flow",
+        model=ModelConfig(
+            bev_h=8, bev_w=8, num_query=24, embed_dims=32,
+            encoder_layers=1, decoder_layers=2, feedforward_channels=64,
+            num_cams=2, img_shape=(64, 96), queue_length=2,
+            with_occupancy=True, occ_head_type="mlp",
+            occ_xdim=8, occ_ydim=8, occ_zdim=4, occ_dims=16,
+            predict_flow=True, with_occupancy_flow=True,
         ),
         data=DataConfig(max_gt_boxes=8),
         optim=OptimConfig(warmup_iters=2, total_steps=100),

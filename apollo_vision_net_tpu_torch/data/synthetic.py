@@ -3,7 +3,7 @@
 ``camera_ring_lidar2img`` and ``make_batch`` are copies of the JAX package's
 data/synthetic.py (a ring of forward-facing pinhole cameras, ego motion
 along +x), limited to the fields inference, the detection GT, the
-occupancy GT and the map GT use (the flow GT comes with ``predict_flow``).
+occupancy and flow GT and the map GT use.
 ``paint_gt`` paints class-coded cues of the GT into the images, and
 voxelizes the GT boxes into the occupancy GT, so that a small set is
 learnable for an overfit check. ``make_stream`` lays the same kind of data
@@ -103,7 +103,10 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
                ) -> Dict[str, np.ndarray]:
     """A (B, T = queue_length) batch of images, can_bus deltas, camera
     matrices, has_prev flags, padded detection GT and, with an occupancy
-    head, dense occupancy GT, with a map head, padded map GT; the same
+    head, dense occupancy GT (B, voxels), or (B, T, voxels) for every queue
+    frame with ``keep_bev_history`` or ``with_occupancy_flow``, and with
+    ``predict_flow`` the flow GT (..., voxels, 2) of the object voxels;
+    with a map head, padded map GT; the same
     arrays as the JAX package's make_batch for these keys and seed.
     ``paint_gt`` paints the GT boxes' centres and the map vectors' points
     into every frame and makes the occupancy GT the voxelized GT boxes
@@ -162,22 +165,31 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
         gt_mask=gt_mask,
     )
     if m.with_occupancy:
-        # the supervised frame's GT (multi-frame GT comes with
-        # keep_bev_history, which the port does not run)
         vox = m.occ_zdim * m.occ_xdim * m.occ_ydim
+        # multi-frame supervision: every queue frame gets occupancy GT
+        multi_frame = m.keep_bev_history or m.with_occupancy_flow
+        S = T if multi_frame else 1
         if paint_gt:
-            occ = np.stack([
+            occ1 = np.stack([
                 _boxes_to_occupancy(gt_boxes[b, :int(n_real[b])],
                                     gt_labels[b, :int(n_real[b])], m)
                 for b in range(B)])
+            occ = np.repeat(occ1[:, None], S, axis=1)
         else:
             # mostly free (= occupancy_classes), sparse semantic voxels
-            occ = np.full((B, vox), m.occupancy_classes, np.int32)
+            occ = np.full((B, S, vox), m.occupancy_classes, np.int32)
             n_occ = vox // 20
             for b in range(B):
-                idx = rng.choice(vox, n_occ, replace=False)
-                occ[b, idx] = rng.integers(0, m.occupancy_classes, n_occ)
-        batch["gt_occupancy"] = occ
+                for s in range(S):
+                    idx = rng.choice(vox, n_occ, replace=False)
+                    occ[b, s, idx] = rng.integers(0, m.occupancy_classes, n_occ)
+        batch["gt_occupancy"] = occ if multi_frame else occ[:, 0]
+        if m.predict_flow:
+            # foreground object classes carry a flow
+            flow = np.zeros((B, S, vox, 2), np.float32)
+            obj = occ < 10
+            flow[obj] = rng.normal(0, 1.5, (int(obj.sum()), 2))
+            batch["gt_flow"] = flow if multi_frame else flow[:, 0]
     if m.with_map:
         # Hungarian matching needs GT rows <= query columns
         max_vec = min(d.max_gt_boxes, m.num_map_vec)

@@ -5,8 +5,10 @@ BEVFormerOccupancyHeadApollo.loss, occupancy_head_apollo.py:506-653):
 the per-group Hungarian det loss of every decoder layer (at the indices that
 ``det_loss.solve`` gives, so that a fixed assignment can be passed in) and
 the occupancy losses on the head's last-layer voxel logits, focal (or
-CustomFocal with the radial BEV weight, or CE) + lovász + sem_scal + geo_scal.
-The flow branch (``predict_flow``) is not ported.
+CustomFocal with the radial BEV weight, or CE) + lovász + sem_scal + geo_scal,
+and with a flow branch the L1 flow loss on the object voxels. Predictions of
+every queue frame (B·S, voxels, ·) meet GT of shape (B, S, voxels, ·),
+both flattened in (b, s) order.
 
 The class weights and the radial weight are built once per class count,
 grid and device (``occ_loss_constants``), not copied from the host on
@@ -49,14 +51,20 @@ def det_occ_loss(outs: Dict[str, torch.Tensor], gt: DetGT,
                  num_classes: int = 10,
                  occ_loss_type: str = "CustomFocalLoss",
                  occ_grid_hw: Optional[Tuple[int, int]] = None,
-                 occ_zdim: int = 16) -> Dict[str, torch.Tensor]:
+                 occ_zdim: int = 16,
+                 flow_preds: Optional[torch.Tensor] = None,
+                 gt_flow: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
     """outs: the head's outputs (``all_cls_scores``, ``all_bbox_preds``,
-    ``occupancy_preds`` (B, voxels, C_occ)); gt_occupancy (B, voxels) with
-    ``occupancy_classes`` meaning free and 255 ignore; indices: the det
-    assignment from ``det_loss.solve`` over the groups. ``occ_grid_hw`` is
-    the (occ_y, occ_x) grid of the radial weight. -> the det terms,
+    ``occupancy_preds`` (B·S, voxels, C_occ)); gt_occupancy (B, voxels) or
+    (B, S, voxels) with ``occupancy_classes`` meaning free and 255 ignore;
+    indices: the det assignment from ``det_loss.solve`` over the groups.
+    ``occ_grid_hw`` is the (occ_y, occ_x) grid of the radial weight;
+    ``flow_preds`` (B·S, voxels, 2) and ``gt_flow`` (..., voxels, 2) add
+    ``loss_flow`` over the voxels labelled below 10. -> the det terms,
     ``loss_occupancy``, ``lovasz_softmax``, ``loss_sem_scal``,
-    ``loss_geo_scal`` and ``loss_total``."""
+    ``loss_geo_scal``, ``loss_flow`` with a flow branch, and
+    ``loss_total``."""
     losses = det_loss(outs["all_cls_scores"], outs["all_bbox_preds"], gt,
                       indices, num_classes=num_classes, num_groups=group_detr)
     total = losses.pop("loss_total")
@@ -97,6 +105,11 @@ def det_occ_loss(outs: Dict[str, torch.Tensor], gt: DetGT,
         "loss_geo_scal": ol.geo_scal_loss(probs, labels, valid,
                                           empty_idx=occupancy_classes - 1),
     }
+    if flow_preds is not None and gt_flow is not None:
+        terms["loss_flow"] = ol.flow_l1_loss(
+            flow_preds.reshape(-1, flow_preds.shape[-1]).float(),
+            gt_flow.reshape(-1, gt_flow.shape[-1]).float(),
+            (labels < 10) & valid)
     for k, v in terms.items():
         losses[k] = torch.nan_to_num(v)
         total = total + losses[k]

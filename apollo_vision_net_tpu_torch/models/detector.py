@@ -6,7 +6,9 @@ bevformer/detectors/bevformer.py): backbone + neck over the folded cameras
 (grid mask on the images in training mode), then the head. ``forward`` is
 the training forward over a (B, T, ...) queue: a no-grad replay of the T-1
 history frames in eval mode builds the BEV that the supervised last frame
-starts from. ``forward_test_frame`` is the stateful streaming step.
+starts from (and, with ``keep_bev_history``, the history BEVs whose
+occupancy the head supervises too). ``forward_test_frame`` is the stateful
+streaming step.
 ``build_model`` builds a det, det+map or det+occupancy model from a config,
 with DLA-34 + SECONDFPNV2 (the flagship, Apollo's det+occ model) or ResNet
 (optionally with DCN stages) + FPN (the base and smoke configs), with
@@ -46,13 +48,14 @@ class BEVFormer(nn.Module):
     def __init__(self, head: nn.Module, img_backbone: nn.Module,
                  img_neck: nn.Module, *,
                  compute_dtype: torch.dtype = torch.float32,
-                 use_grid_mask: bool = True):
+                 use_grid_mask: bool = True, keep_bev_history: bool = False):
         super().__init__()
         self.img_backbone = img_backbone
         self.img_neck = img_neck
         self.head = head
         self.compute_dtype = compute_dtype
         self.use_grid_mask = use_grid_mask
+        self.keep_bev_history = keep_bev_history
 
     def extract_img_feat(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """(B, N, H, W, 3) -> [(B, N, h, w, C)] per level, in f32 (the conv
@@ -75,42 +78,49 @@ class BEVFormer(nn.Module):
 
     @torch.no_grad()
     def obtain_history_bev(self, imgs_queue, can_bus_queue, lidar2img_queue,
-                           has_prev_queue) -> torch.Tensor:
+                           has_prev_queue) -> Tuple[torch.Tensor, torch.Tensor]:
         """No-grad replay of the T-1 history frames in eval mode (no dropout,
         no grid mask), each with its own has_prev flag: imgs (B, T-1, N, H,
         W, 3), can_bus (B, T-1, 18), lidar2img (B, T-1, N, 4, 4), has_prev
-        (B, T-1) -> the last BEV (B, Q, C), detached (reference
-        obtain_history_bev)."""
+        (B, T-1) -> (the last BEV (B, Q, C), every history BEV
+        (B, T-1, Q, C)), detached (reference obtain_history_bev)."""
         was_training = self.training
         self.eval()
         try:
             prev_bev = self._zero_bev(imgs_queue)
+            history = []
             for t in range(imgs_queue.shape[1]):
                 feats = self.extract_img_feat(imgs_queue[:, t])
                 prev_bev = self.head(
                     feats, can_bus=can_bus_queue[:, t],
                     lidar2img=lidar2img_queue[:, t], prev_bev=prev_bev,
                     has_prev=has_prev_queue[:, t], only_bev=True)
+                history.append(prev_bev)
         finally:
             self.train(was_training)
-        return prev_bev.detach()
+        return prev_bev.detach(), torch.stack(history, dim=1).detach()
 
     def forward(self, img, can_bus, lidar2img, has_prev):
         """Training forward over a queue: img (B, T, N, H, W, 3), can_bus
         (B, T, 18), lidar2img (B, T, N, 4, 4), has_prev (B, T) -> the head's
         outputs for the last frame, which starts from the replayed history
-        BEV (reference forward_train)."""
+        BEV (reference forward_train). With ``keep_bev_history`` the
+        occupancy head also lifts the history BEVs: its predictions cover
+        every queue frame."""
         T = img.shape[1]
+        kwargs = {}
         if T > 1:
-            prev_bev = self.obtain_history_bev(
+            prev_bev, history = self.obtain_history_bev(
                 img[:, :-1], can_bus[:, :-1], lidar2img[:, :-1],
                 has_prev[:, :-1])
+            if self.keep_bev_history:
+                kwargs["prev_bevs"] = history
         else:
             prev_bev = self._zero_bev(img)
         feats = self.extract_img_feat(img[:, -1])
         return self.head(feats, can_bus=can_bus[:, -1],
                          lidar2img=lidar2img[:, -1], prev_bev=prev_bev,
-                         has_prev=has_prev[:, -1])
+                         has_prev=has_prev[:, -1], **kwargs)
 
     def forward_test_frame(self, img, can_bus, lidar2img, prev_bev, has_prev):
         """Streaming inference step: img (B, N, H, W, 3), can_bus (B, 18)
@@ -143,7 +153,9 @@ def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
         return BEVFormerOccupancyHead(
             occupancy_classes=m.occupancy_classes, occ_xdim=m.occ_xdim,
             occ_ydim=m.occ_ydim, occ_zdim=m.occ_zdim, occ_dims=m.occ_dims,
-            occ_head_type=m.occ_head_type, **common)
+            occ_head_type=m.occ_head_type, occ_tsa=m.occ_tsa,
+            predict_flow=m.predict_flow,
+            with_occupancy_flow=m.with_occupancy_flow, **common)
     if m.with_map:
         return BEVFormerDetMapHead(
             num_map_vec=m.num_map_vec, map_num_pts=m.map_num_pts,
@@ -166,6 +178,13 @@ def build_trunk(cfg: ExperimentConfig) -> Tuple[nn.Module, nn.Module]:
                 num_outs=m.num_feature_levels))
 
 
+def keep_bev_history(cfg: ExperimentConfig) -> bool:
+    """Whether the training forward supervises every queue frame's
+    occupancy: ``keep_bev_history``, which ``with_occupancy_flow`` implies."""
+    m = cfg.model
+    return m.with_occupancy and (m.keep_bev_history or m.with_occupancy_flow)
+
+
 def _check_supported(cfg: ExperimentConfig) -> None:
     m = cfg.model
     trunks = {("dla", "secondfpn"), ("resnet", "fpn")}
@@ -176,10 +195,6 @@ def _check_supported(cfg: ExperimentConfig) -> None:
     unported = {
         "head_family": (m.head_family, "bev"),
         "map_version": (m.map_version, 1),
-        "occ_tsa": (m.occ_tsa, False),
-        "with_occupancy_flow": (m.with_occupancy_flow, False),
-        "keep_bev_history": (m.keep_bev_history, False),
-        "predict_flow": (m.predict_flow, False),
     }
     for key, (got, want) in unported.items():
         if got != want:
@@ -189,6 +204,12 @@ def _check_supported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: with_map together with with_occupancy is not ported "
             "yet (the port has a det+map or a det+occupancy head)")
+    if m.occ_tsa and (m.keep_bev_history or m.with_occupancy_flow):
+        # the JAX package asserts the same (models/heads/occ_head.py:315)
+        raise NotImplementedError(
+            f"{cfg.name}: occ_tsa together with keep_bev_history or "
+            "with_occupancy_flow: the refinement pass attends to the current "
+            "frame's images only")
 
 
 @torch.no_grad()
@@ -264,7 +285,8 @@ def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:
     with torch.device("meta"):
         model = BEVFormer(build_head(cfg), *build_trunk(cfg),
                           compute_dtype=_DTYPES[cfg.compute_dtype],
-                          use_grid_mask=cfg.model.use_grid_mask)
+                          use_grid_mask=cfg.model.use_grid_mask,
+                          keep_bev_history=keep_bev_history(cfg))
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

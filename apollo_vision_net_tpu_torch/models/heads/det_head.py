@@ -60,6 +60,9 @@ class BEVFormerHead(nn.Module):
         self.pc_range = tuple(pc_range)
         self.num_points_in_pillar = num_points_in_pillar
         self.img_shape = tuple(img_shape)
+        self.num_cams = num_cams
+        self.num_feature_levels = num_feature_levels
+        self.feedforward_channels = feedforward_channels
         self.group_detr = group_detr
         self.dtype = dtype
         self.bev_embedding = nn.Parameter(torch.empty(bev_h * bev_w, embed_dims))

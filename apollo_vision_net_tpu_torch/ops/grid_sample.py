@@ -1,9 +1,11 @@
-"""Bilinear 2D grid sampling and BEV rotation (plain PyTorch).
+"""Bilinear 2D and trilinear 3D grid sampling and BEV rotation (plain
+PyTorch).
 
 Counterpart of the JAX package's ops/grid_sample.py: ``mode='bilinear',
 padding_mode='zeros', align_corners=False``, grid coords in [-1, 1] with the
-last dim (x, y). Images keep the JAX layout (H, W, C) with a leading batch
-axis where the JAX code vmapped.
+last dim (x, y), or (x, y, z) over a volume's (W, H, D). Images and volumes
+keep the JAX layout ((H, W, C), (D, H, W, C)) with a leading batch axis
+where the JAX code vmapped.
 """
 from __future__ import annotations
 
@@ -17,6 +19,17 @@ def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     out_shape = grid.shape[1:-1]
     g = grid.reshape(B, 1, -1, 2).to(img.dtype)
     out = F.grid_sample(img.permute(0, 3, 1, 2), g, mode="bilinear",
+                        padding_mode="zeros", align_corners=False)
+    return out.reshape(B, C, -1).permute(0, 2, 1).reshape(B, *out_shape, C)
+
+
+def grid_sample_3d(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """vol (B, D, H, W, C), grid (B, ..., 3) with x indexing W, y H and z
+    D -> (B, ..., C), trilinear (the occupancy flow warping)."""
+    B, D, H, W, C = vol.shape
+    out_shape = grid.shape[1:-1]
+    g = grid.reshape(B, 1, 1, -1, 3).to(vol.dtype)
+    out = F.grid_sample(vol.permute(0, 4, 1, 2, 3), g, mode="bilinear",
                         padding_mode="zeros", align_corners=False)
     return out.reshape(B, C, -1).permute(0, 2, 1).reshape(B, *out_shape, C)
 

@@ -5,7 +5,8 @@ Counterpart of the JAX package's parallel/train.py (``loss_fn`` and
 the (B, T, ...) queue (no-grad history replay, then the supervised last
 frame with dropout and grid mask drawn from ``generator``), the det loss
 (over the Group-DETR groups) plus, with a map head, the MapTR v1 map loss,
-or, with an occupancy head, the occupancy losses (losses/multitask.py).
+or, with an occupancy head, the occupancy losses and, with a flow branch,
+the flow loss (losses/multitask.py).
 ``loss_total`` is their sum, returned with every term.
 
 Matching takes one host synchronization a step: ``match`` computes every
@@ -95,7 +96,8 @@ def loss_fn(model, batch: Dict[str, torch.Tensor], cfg: ExperimentConfig,
             occupancy_classes=m.occupancy_classes,
             group_detr=query_groups(outs, cfg),
             num_classes=m.num_classes, occ_loss_type=m.occ_loss_type,
-            occ_grid_hw=(m.occ_ydim, m.occ_xdim), occ_zdim=m.occ_zdim)
+            occ_grid_hw=(m.occ_ydim, m.occ_xdim), occ_zdim=m.occ_zdim,
+            flow_preds=outs.get("flow_preds"), gt_flow=batch.get("gt_flow"))
     else:
         losses = det_lib.det_loss(
             outs["all_cls_scores"], outs["all_bbox_preds"], gt, indices[0],

@@ -82,6 +82,31 @@ Phases, each printing JSON lines:
                + 9 masked, backward 9 + 3 launches per step, the f32 step
                against plain versions beside the witnesses with ``train``'s
                limits, steps/s, peak memory, profiles.
+  stream_occ_tsa, train_occ_tsa  bev_tiny_det_occ_tsa_apollo (the det+occ
+               model with a refinement encoder layer over the 200x200
+               upsampled tokens: TSA over them, SCA through the 200x200
+               pillars into the six cameras) as ``stream_occ`` and
+               ``train_occ``: 10 plain + 4 masked launches a frame, forward
+               16 + 10 and backward 10 + 4 a step, all on the vector and
+               gather variants; the f32 frame and step against plain
+               versions with the witnesses; frames/s, steps/s, peak memory,
+               profiles.
+  stream_occ_flow, train_occ_flow  bev_tiny_det_occ_flow (the det+occ
+               model with a per-voxel flow branch) the same way: flows
+               (1, 640000, 2) finite, loss_flow finite and > 0, the det+occ
+               launch counts, the f32 frame against plain versions, the
+               bf16 occupancy against the f32 one, frames/s and steps/s in
+               bf16 and f32, peak memory, profiles (no f32 step
+               comparison: the step runs the det+occ model's kernels).
+  stream_occ_aggr, train_occ_aggr  bev_smoke_det_occ_flow (every queue
+               frame's occupancy supervised, the voxel volumes warped
+               across the queue along learned flows): 6 frames through the
+               streaming runner with exact launch counts (3 plain + 1
+               masked a frame) and finite flows; 3 f32 steps with the
+               mixing weights drawn
+               from the step's generator, exact launch counts, the step
+               against plain versions with the witnesses, steps/s, a
+               profile.
   train_overfit  bev_smoke_det_map, batch 4 with painted GT, lr 4e-4,
                300 steps with warmup 30, as the JAX package's
                tools/overfit_check.py runs it: the loss curve every 10
@@ -113,8 +138,12 @@ Phases, each printing JSON lines:
                memory and a profile.
 The kernels phase also holds the backwards against autograd through their
 plain versions: ``msda_bwd`` (plain and masked) at the flagship's four
-MSDA shapes, the det+occ train step's 9,900-query decoder, the base
-TSA over 200x200 and both base decoders, and the MSDA edge shapes (the
+MSDA shapes, the det+occ train step's 9,900-query decoder, the refinement
+pass's TSA (2, 40000) over 200x200 and masked SCA (6, 40000) over 30x50
+(``tsa_occ``, ``sca_occ``, whose forward has rows too; each MSDA
+backward row counts its value rows' list lengths, ``corners_per_row``),
+the base TSA over 200x200 and both base decoders, and the MSDA edge
+shapes (the
 gather and general plans: L·P of 3 to 64 an item, tiles that a warp's
 items straddle, D = 4 to 64, a misaligned value, a hot row);
 ``msda_bwd_factored`` at the base
@@ -152,8 +181,11 @@ from apollo_vision_net_tpu_torch.configs import (
     bev_base_occ,
     bev_smoke_det_map,
     bev_smoke_det_occ,
+    bev_smoke_det_occ_flow,
     bev_tiny_det_map_apollo,
     bev_tiny_det_occ_apollo,
+    bev_tiny_det_occ_flow,
+    bev_tiny_det_occ_tsa_apollo,
 )
 from apollo_vision_net_tpu_torch.data.synthetic import (
     camera_ring_lidar2img,
@@ -537,11 +569,10 @@ def tile_sizes(Q: int, q_tile: int, n_tiles: int, device) -> torch.Tensor:
     return per_tile
 
 
-def touched_value_bytes(value, shapes, loc, tile_mask, q_tile):
-    """Bytes of the value rows that an MSDA call needs: each distinct
-    (batch, cell, head) row of D values under an in-grid corner of a sample
-    of an active tile, read once. A decoder call touches a fraction of its
-    value; TSA nearly all of it."""
+def corner_counts(value, shapes, loc, tile_mask, q_tile):
+    """In-grid corners of the active queries' samples per (batch, cell,
+    head) value row of an MSDA call: (B·V·H,) counts, the lengths of the
+    lists that msda_bwd's gather plan pushes and sums."""
     B, V, H, _ = value.shape
     _, Q, _, _, P, _ = loc.shape
     dev = loc.device
@@ -550,7 +581,8 @@ def touched_value_bytes(value, shapes, loc, tile_mask, q_tile):
         keep = tile_mask.to(torch.bool).repeat_interleave(q_tile, 1)[:, :Q]
     bh = (torch.arange(B, device=dev)[:, None, None, None] * V * H
           + torch.arange(H, device=dev)[None, None, :, None])  # (B, 1, H, 1)
-    keys, start = [], 0
+    counts = torch.zeros(B * V * H, dtype=torch.int64, device=dev)
+    start = 0
     for lvl, (h, w) in enumerate(shapes):
         x0 = torch.floor(loc[:, :, :, lvl, :, 0] * w - 0.5).long()
         y0 = torch.floor(loc[:, :, :, lvl, :, 1] * h - 0.5).long()
@@ -558,10 +590,26 @@ def touched_value_bytes(value, shapes, loc, tile_mask, q_tile):
             xx, yy = x0 + cx, y0 + cy
             ok = ((xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
                   & keep[:, :, None, None])
-            keys.append(torch.unique((bh + (start + yy * w + xx) * H)[ok]))
+            counts += torch.bincount((bh + (start + yy * w + xx) * H)[ok],
+                                     minlength=B * V * H)
         start += h * w
-    rows = torch.unique(torch.cat(keys)).numel()
+    return counts
+
+
+def touched_value_bytes(value, shapes, loc, tile_mask, q_tile):
+    """Bytes of the value rows that an MSDA call needs: each distinct
+    (batch, cell, head) row of D values under an in-grid corner of a sample
+    of an active tile, read once. A decoder call touches a fraction of its
+    value; TSA nearly all of it."""
+    rows = int((corner_counts(value, shapes, loc, tile_mask, q_tile) > 0).sum())
     return rows * value.shape[3] * value.element_size()
+
+
+def corner_list_lengths(value, shapes, loc, tile_mask, q_tile):
+    """``corner_counts`` over the rows that get any corner: {"mean", "max"}."""
+    counts = corner_counts(value, shapes, loc, tile_mask, q_tile)
+    used = counts[counts > 0].float()
+    return {"mean": float(used.mean()), "max": int(used.max())}
 
 
 def msda_bound(value, shapes, loc, tile_mask, q_tile, shared_batch=None):
@@ -632,12 +680,13 @@ def msda_case(name, g, dev, *, B, hw, H, D, Q, P, ref_xy):
                 attn=attn, tile_mask=None, q_tile=32)
 
 
-def sca_geometry(cfg, dev, q_tile):
-    """Pillar reference points projected into the camera ring, queries in
-    8 x (q_tile / 8) blocks as SpatialCrossAttention orders them, and the
-    per-(camera, tile) visibility mask: ref (N, Q, D_z, 2), mask (N, T)."""
+def sca_geometry(cfg, dev, q_tile, hw=None):
+    """Pillar reference points of the (bh, bw) grid ``hw`` (the BEV grid by
+    default) projected into the camera ring, queries in 8 x (q_tile / 8)
+    blocks as SpatialCrossAttention orders them, and the per-(camera, tile)
+    visibility mask: ref (N, Q, D_z, 2), mask (N, T)."""
     m = cfg.model
-    bh, bw = m.bev_h, m.bev_w
+    bh, bw = hw or (m.bev_h, m.bev_w)
     Q, N = bh * bw, m.num_cams
     ref3d = torch.as_tensor(geometry.bev_reference_points_3d(
         bh, bw, m.pc_range[5] - m.pc_range[2], m.num_points_in_pillar),
@@ -703,6 +752,36 @@ def occ_cases(dev):
                       hw=(m.bev_h, m.bev_w), H=8, D=m.embed_dims // 8,
                       Q=m.num_query, P=4,
                       ref_xy=ref.expand(1, m.num_query, 4, 2))]
+
+
+def occ_tsa_cases(dev):
+    """The MSDA shapes that bev_tiny_det_occ_tsa_apollo's refinement pass
+    adds: TSA of the 40,000 upsampled tokens over the 200x200 grid (2 queue
+    slots; the base TSA's geometry) and SCA of the 200x200 pillars over the
+    six cameras' 30x50 map, tiles of 32 masked by the camera ring's
+    visibility at occupancy resolution."""
+    cfg = bev_tiny_det_occ_tsa_apollo()
+    m = cfg.model
+    g = torch.Generator(device=dev).manual_seed(6)
+    oh, ow = m.occ_ydim, m.occ_xdim
+    Q = oh * ow
+    fh, fw = m.img_shape[0] // 16, m.img_shape[1] // 16
+    N, H, D, P, qt = m.num_cams, 8, m.embed_dims // 8, 8, 32
+    ref2d = torch.as_tensor(geometry.bev_reference_points_2d(oh, ow), device=dev)
+    tsa = msda_case("tsa_occ", g, dev, B=2, hw=(oh, ow), H=H, D=D, Q=Q, P=4,
+                    ref_xy=ref2d[None, :, None].expand(2, Q, 4, 2))
+    ref_cam, tile_mask = sca_geometry(cfg, dev, qt, hw=(oh, ow))
+    ref_flat = ref_cam.reshape(N, Q, -1).repeat(1, 1, P // ref_cam.shape[2])
+    off = torch.randn((1, Q, H * P * 2), generator=g, device=dev) * 2.0
+    attn = torch.softmax(torch.randn((1, Q, H, P), generator=g, device=dev), -1)
+    loc, attn = materialize_factored(ref_flat, off, attn.reshape(1, Q, -1),
+                                     ((fh, fw),), H, P)
+    sca = dict(name="sca_occ", kind="msda",
+               value=torch.randn((N, fh * fw, H, D), generator=g, device=dev),
+               shapes=((fh, fw),), loc=loc.reshape(N, Q, H, 1, P, 2).contiguous(),
+               attn=attn.reshape(N, Q, H, 1, P).contiguous(),
+               tile_mask=tile_mask, q_tile=qt)
+    return tsa, sca
 
 
 def base_msda_cases(dev):
@@ -1294,6 +1373,10 @@ def bwd_rows(dev, cases):
                 row["plain_ms"] = time_ms(plain, warmup=2, iters=5)
                 row["call_ms"] = time_ms(kernel)
                 row["bound_ms"], row["bound_by"], row["design_bytes"] = bound()
+                if case["kind"] == "msda":
+                    row["corners_per_row"] = corner_list_lengths(
+                        case["value"], case["shapes"], case["loc"],
+                        case["tile_mask"], case["q_tile"])
                 if case.get("tile_mask") is not None:
                     row["active_tiles"] = int(case["tile_mask"].sum())
                     row["tiles"] = int(case["tile_mask"].numel())
@@ -1335,7 +1418,8 @@ def conv3x3_ms(case, dtype):
 
 def phase_kernels(dev):
     rows, outs = [], {}
-    cases = (flagship_cases(dev) + occ_cases(dev) + base_msda_cases(dev)
+    cases = (flagship_cases(dev) + occ_cases(dev) + [occ_tsa_cases(dev)[1]]
+             + base_msda_cases(dev)
              + msda_edge_cases(dev) + factored_edge_cases(dev) + dcn_cases(dev))
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1392,7 +1476,8 @@ def phase_kernels(dev):
     del cases, outs
     torch.cuda.empty_cache()
     base = [c for c in base_msda_cases(dev) if c["name"] != "sca_base_materialized"]
-    rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev) + base
+    rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev)
+                     + list(occ_tsa_cases(dev)) + base
                      + base_factored_bwd_cases(next(
                          c for c in base if c["name"] == "sca_base_factored"))
                      + msda_edge_cases(dev) + factored_edge_cases(dev)
@@ -1464,10 +1549,18 @@ def drive(name, cfg, model, frames, expect_per_frame):
         line["occ_class_hist"] = [torch.bincount(
             r["occ"], minlength=cfg.model.occupancy_classes + 1).tolist()
             for r in results]
+    m = cfg.model
+    flow_shape = (1, m.occ_zdim * m.occ_ydim * m.occ_xdim, 2)
+    if m.with_occupancy and m.predict_flow:
+        line["flow_preds_shape"] = list(results[0]["outs"]["flow_preds"].shape)
+        line["flow_preds_max_abs"] = max(
+            float(r["outs"]["flow_preds"].abs().max()) for r in results)
     emit(line)
     expect = {k: v * n for k, v in expect_per_frame.items()}
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches} != expected {expect}")
+    if "flow_preds_shape" in line and tuple(line["flow_preds_shape"]) != flow_shape:
+        raise AssertionError(f"{name}: flow_preds {line['flow_preds_shape']}")
     if not finite or has_prev != [0.0, 1.0, 1.0, 0.0, 1.0, 1.0]:
         raise AssertionError(f"{name}: non-finite outputs or wrong scene resets")
     return launches
@@ -1607,12 +1700,15 @@ def occ_bf16_vs_f32(cfg, model, model32, dev, frames):
         raise AssertionError(f"stream_occ_bf16_vs_f32: {line}")
 
 
-def phase_stream_occ(dev):
-    """bev_tiny_det_occ_apollo at full width through the streaming runner:
-    the flagship's launches without the map decoder, the occupancy grid's
-    class histogram, the f32 frame against plain versions, frames/s and
-    profiles."""
-    cfg = bev_tiny_det_occ_apollo()
+def phase_stream_occ(dev, cfg=None, phase="stream_occ", n_fps=20):
+    """A det+occ model at full width through the streaming runner
+    (bev_tiny_det_occ_apollo by default): the flagship's launches without
+    the map decoder, plus one TSA and one SCA with the refinement pass
+    (``occ_tsa``), the occupancy grid's class histogram (and the flows'
+    shape with a flow branch), the f32 frame against plain versions, the
+    bf16 occupancy against the f32 one (``occ_bf16_vs_f32``, the model
+    without the refinement pass), frames/s and profiles."""
+    cfg = cfg or bev_tiny_det_occ_apollo()
     cfg32 = f32_config(cfg)
     m = cfg.model
     torch.cuda.reset_peak_memory_stats()
@@ -1620,25 +1716,45 @@ def phase_stream_occ(dev):
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
     model = build_model(cfg, device=dev, seed=0)
     # per frame: TSA per encoder layer and cross-attention per det decoder
-    # layer (9), SCA per encoder layer (3), all on the vector variants
-    n_plain = m.encoder_layers + m.decoder_layers
-    launches = drive("stream_occ", cfg, model, frames, {
+    # layer (9), SCA per encoder layer (3), the refinement pass's TSA and
+    # SCA (1 + 1), all on the vector variants
+    n_sca = m.encoder_layers + occ_tsa_layers(cfg)
+    n_plain = n_sca + m.decoder_layers
+    launches = drive(phase, cfg, model, frames, {
         **dict.fromkeys(read_launch_counts(), 0),
         "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
-        "msda_fwd_masked": m.encoder_layers,
-        "msda_fwd_masked.vector": m.encoder_layers})
+        "msda_fwd_masked": n_sca, "msda_fwd_masked.vector": n_sca})
     model32 = build_model(cfg32, device=dev, seed=0)
     model32.load_state_dict(model.state_dict())
-    f32_frame_vs_plain("stream_occ_f32_vs_plain", model32, dev, frames,
+    f32_frame_vs_plain(phase + "_f32_vs_plain", model32, dev, frames,
                        STREAM_REL_TOL)
-    occ_bf16_vs_f32(cfg, model, model32, dev, frames)
-    fps = {name: frames_per_s(c, mdl, frames, 20)
+    if not occ_tsa_layers(cfg):
+        occ_bf16_vs_f32(cfg, model, model32, dev, frames)
+    fps = {name: frames_per_s(c, mdl, frames, n_fps)
            for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32))}
-    emit({"phase": "stream_occ_fps", "frames_per_s": fps,
+    emit({"phase": phase + "_fps", "frames_per_s": fps,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32)):
-        profile_frames("profile_occ", name, c, mdl, frames, 1e3 / fps[name])
+        profile_frames("profile_" + phase.removeprefix("stream_"), name, c,
+                       mdl, frames, 1e3 / fps[name])
     return launches
+
+
+def phase_stream_occ_aggr(dev):
+    """bev_smoke_det_occ_flow served (the warping acts in training only):
+    6 frames through the streaming runner with exact launches (TSA and 2
+    decoder layers on the plain entry, SCA on the masked one), finite
+    outputs and flows of every voxel."""
+    cfg = bev_smoke_det_occ_flow()
+    m = cfg.model
+    frames = [_frame_to(f, dev) for f in
+              make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
+    n_plain = m.encoder_layers + m.decoder_layers
+    return drive("stream_occ_aggr", cfg, build_model(cfg, device=dev, seed=0),
+                 frames, {**dict.fromkeys(read_launch_counts(), 0),
+                          "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
+                          "msda_fwd_masked": m.encoder_layers,
+                          "msda_fwd_masked.vector": m.encoder_layers})
 
 
 @torch.no_grad()
@@ -1722,11 +1838,18 @@ def phase_base_occ(dev):
     profile_frames("profile_base_occ", "bf16", cfg, model, frames, 1e3 / fps)
     del model
     torch.cuda.empty_cache()
-    train = phase_train(dev, cfg, "base_occ_train", f32=False)
+    train = phase_train(dev, cfg, "base_occ_train", f32=False, compare=False)
     return stream, train
 
 
 # ------------------------------------------------------------------ train
+
+def occ_tsa_layers(cfg) -> int:
+    """Refinement layers at occupancy resolution that a supervised frame
+    runs (TSA and SCA each): one with ``occ_tsa`` on the CNN head."""
+    m = cfg.model
+    return int(m.with_occupancy and m.occ_tsa and m.occ_head_type == "cnn")
+
 
 def dcn_blocks(cfg) -> int:
     """DCN convolutions a frame runs: every block of the ResNet's DCN
@@ -1750,16 +1873,18 @@ def train_launches_per_step(cfg) -> dict:
     layer in each frame (the masked entry over one level, the factored
     entry over several) and DCN in every block of the DCN stages in each
     frame; the backward runs on the supervised frame's calls only (the
-    history replay is under no_grad)."""
+    history replay is under no_grad). The occupancy refinement pass adds
+    one TSA and one SCA on the supervised frame, forward and backward."""
     m = cfg.model
-    T, E = m.queue_length, m.encoder_layers
+    T, E, R = m.queue_length, m.encoder_layers, occ_tsa_layers(cfg)
     dec = m.decoder_layers + (m.map_decoder_layers if m.with_map else 0)
     multi = m.num_feature_levels > 1
     sca_fwd = "msda_fwd_factored" if multi else "msda_fwd_masked"
     sca_bwd = "msda_bwd_factored" if multi else "msda_bwd_masked"
     n_dcn = dcn_blocks(cfg)
-    n = {"msda_fwd": T * E + dec, sca_fwd: T * E, "msda_bwd": E + dec,
-         sca_bwd: E, "dcn_fwd": T * n_dcn, "dcn_bwd": n_dcn}
+    n = {"msda_fwd": T * E + R + dec, sca_fwd: T * E + R,
+         "msda_bwd": E + R + dec, sca_bwd: E + R, "dcn_fwd": T * n_dcn,
+         "dcn_bwd": n_dcn}
     out = dict.fromkeys(read_launch_counts(), 0)
     out.update({k: v for k, v in n.items() if v})
     out.update({f"{k}.{MAIN_PATH_VARIANT.get(k, 'vector')}": v
@@ -1841,14 +1966,17 @@ def witness_step(model, cfg, batch, gen, seed, indices, kind, wseed):
     return losses, grads
 
 
-def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True):
-    """A train step at full width (the flagship's, ``phase`` "train", the
-    det+occ model's, "train_occ", the base models', "train_base" and
-    "base_occ_train"): bf16 steps with exact launch counts and the peak
-    memory of those steps; with ``f32``, the f32 step with kernels against
-    plain versions beside the witnesses (with the model fields ``cmp_sizes``
-    where given, see BASE_CMP_SIZES) and steady-state steps/s of the f32
-    model at full depth; bf16 steps/s; a profile of each."""
+def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True, compare=True):
+    """A train step (the flagship's, ``phase`` "train", the det+occ
+    models', "train_occ", "train_occ_tsa", "train_occ_flow", the base
+    models', "train_base" and "base_occ_train", at full width; the smoke
+    flow-warping model's, "train_occ_aggr"): steps in the configured dtype
+    with exact launch counts, finite loss terms (``loss_flow`` > 0 with a
+    flow branch) and the peak memory of those steps; with ``compare``, the
+    f32 step with kernels against plain versions beside the witnesses (with
+    the model fields ``cmp_sizes`` where given, see BASE_CMP_SIZES); with
+    ``f32``, steady-state steps/s of the f32 model at full depth beside the
+    configured dtype's; a profile of each."""
     cfg32 = f32_config(cfg)
     torch.cuda.reset_peak_memory_stats()
     batch = train_lib.batch_to_device(
@@ -1870,6 +1998,8 @@ def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True):
     steps_peak = torch.cuda.max_memory_allocated() / 1e9
     expect = {k: v * n_steps for k, v in train_launches_per_step(cfg).items()}
     finite = all(math.isfinite(v) for h in history for v in h.values())
+    if cfg.model.with_occupancy and cfg.model.predict_flow:
+        finite = finite and all(h["loss_flow"] > 0 for h in history)
     emit({"phase": phase, "config": cfg.name, "steps": n_steps,
           "seconds_incl_first": seconds, "launches": launches,
           "per_step": {k: v / n_steps for k, v in launches.items()},
@@ -1884,14 +2014,16 @@ def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True):
     if len({h["loss_total"] for h in history}) < n_steps:
         raise AssertionError(f"{phase}: loss_total does not move {history}")
 
-    sps = {"bf16": steps_per_s(cfg, model, optimizer, batch, gen, 5)}
-    runs = [("bf16", cfg, model, optimizer)]
-    if f32:
+    dname = "bf16" if cfg.compute_dtype == "bfloat16" else "f32"
+    sps = {dname: steps_per_s(cfg, model, optimizer, batch, gen, 5)}
+    runs = [(dname, cfg, model, optimizer)]
+    if compare:
         cfg_cmp = cfg32
         if cmp_sizes is not None:
             cfg_cmp = dataclasses.replace(cfg32, model=dataclasses.replace(
                 cfg32.model, **cmp_sizes))
         f32_step_vs_plain(dev, cfg_cmp, phase, batch, gen)
+    if f32 and dname != "f32":
         model32 = new_model(cfg32, dev).train()
         optimizer32 = make_optimizer(model32, cfg32.optim)
         sps["f32"] = steps_per_s(cfg32, model32, optimizer32, batch, gen, 5)
@@ -1944,6 +2076,9 @@ def f32_step_vs_plain(dev, cfg32, phase, batch, gen):
     rel = rel_errs(got_g, want_g)
     norm = norm_errs(got_g, want_g)
     trunk = TRUNK_PARAM[cfg32.model.backbone_type]
+    if trunk not in want_g:  # a ResNet without DCN stages
+        trunk = max((k for k in want_g if k.startswith("img_backbone")),
+                    key=lambda k: float(want_g[k].abs().max()))
     # the parameter the kernels move most, read by the rerun and every witness
     top = max(rel, key=rel.get)
     top_param = {"name": top, "kernels": rel[top],
@@ -2158,6 +2293,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["train_occ"] = phase_train(dev, bev_tiny_det_occ_apollo(),
                                         "train_occ")
+    torch.cuda.empty_cache()
+    launches["stream_occ_tsa"] = phase_stream_occ(
+        dev, bev_tiny_det_occ_tsa_apollo(), "stream_occ_tsa", n_fps=10)
+    torch.cuda.empty_cache()
+    launches["train_occ_tsa"] = phase_train(
+        dev, bev_tiny_det_occ_tsa_apollo(), "train_occ_tsa")
+    torch.cuda.empty_cache()
+    launches["stream_occ_flow"] = phase_stream_occ(
+        dev, bev_tiny_det_occ_flow(), "stream_occ_flow", n_fps=10)
+    torch.cuda.empty_cache()
+    launches["train_occ_flow"] = phase_train(
+        dev, bev_tiny_det_occ_flow(), "train_occ_flow", compare=False)
+    torch.cuda.empty_cache()
+    launches["stream_occ_aggr"] = phase_stream_occ_aggr(dev)
+    launches["train_occ_aggr"] = phase_train(
+        dev, bev_smoke_det_occ_flow(), "train_occ_aggr")
     torch.cuda.empty_cache()
     launches["train_base"] = phase_train(dev, bev_base_det_map(), "train_base",
                                          cmp_sizes=BASE_CMP_SIZES)

@@ -180,6 +180,51 @@ def test_occupancy_configs_equal_the_jax_ones(name):
     assert t.model.with_occupancy and t.model.group_detr > 1
 
 
+@pytest.mark.parametrize("name", ["bev_tiny_det_occ_tsa_apollo",
+                                  "bev_tiny_det_occ_flow",
+                                  "bev_smoke_det_occ_flow"])
+def test_occupancy_option_configs_equal_the_jax_ones(name):
+    j = getattr(jax_configs, name)()
+    t = getattr(port_configs, name)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    m = t.model
+    assert m.with_occupancy and (m.occ_tsa or m.predict_flow)
+
+
+def test_make_batch_multi_frame_and_flow_gt_equal_the_jax_ones():
+    """make_batch's occupancy GT of every queue frame (with_occupancy_flow)
+    and its flow GT, random and painted, and the single-frame flow GT of
+    predict_flow alone, equal the JAX package's array for array."""
+    import numpy as np
+
+    from apollo_vision_net_tpu.data import synthetic as jsyn
+    from apollo_vision_net_tpu_torch.data import synthetic as tsyn
+
+    flow_alone = dataclasses.replace(
+        jax_configs.bev_smoke_det_occ(), model=dataclasses.replace(
+            jax_configs.bev_smoke_det_occ().model, predict_flow=True))
+    cases = ((jax_configs.bev_smoke_det_occ_flow(), False, True),
+             (jax_configs.bev_smoke_det_occ_flow(), True, True),
+             (flow_alone, False, False))
+    for cfg, paint, multi in cases:
+        want = jsyn.make_batch(cfg, batch_size=2, seed=3, paint_gt=paint)
+        got = tsyn.make_batch(port_configs.ExperimentConfig(
+            **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}),
+            batch_size=2, seed=3, paint_gt=paint)
+        assert set(got) == set(want) and "gt_flow" in got
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+            assert v.dtype == want[k].dtype, k
+        m = cfg.model
+        vox = m.occ_zdim * m.occ_ydim * m.occ_xdim
+        lead = (2, m.queue_length) if multi else (2,)
+        assert got["gt_occupancy"].shape == lead + (vox,)
+        assert got["gt_flow"].shape == lead + (vox, 2)
+        obj = got["gt_occupancy"] < 10
+        assert obj.any() and (got["gt_flow"][~obj] == 0).all()
+        assert (got["gt_flow"][obj] != 0).all()
+
+
 def test_make_batch_map_gt_and_painted_cues_equal_the_jax_ones():
     """make_batch with paint_gt (box and map cues painted into every frame)
     and its map GT keys, for the smoke and flagship-sized configs, equal the

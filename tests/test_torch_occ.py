@@ -18,7 +18,8 @@
   made the identity on both sides and the grid mask off, so that JAX's
   ``deterministic=False`` and the port's training mode compute the same
   function.
-- ``_check_supported`` refuses each unported occupancy option by name.
+- ``_check_supported`` refuses by name what the det+occ model still does
+  not run (tests/test_torch_occ_options.py holds the ported options).
 """
 import dataclasses
 import functools
@@ -470,10 +471,18 @@ def test_train_step_gradients_match_jax(train_step):
 
 # ------------------------------------------------------------- refusals
 
-@pytest.mark.parametrize("key", ["occ_tsa", "with_occupancy_flow",
-                                 "keep_bev_history", "predict_flow", "with_map"])
-def test_unported_occupancy_options_are_refused_by_name(key):
+@pytest.mark.parametrize("key, fields", [
+    ("with_map", {"with_map": True}),
+    ("head_family", {"head_family": "voxel"}),
+    ("head_family", {"head_family": "hybrid"}),
+    ("map_version", {"map_version": 2}),
+    ("occ_tsa", {"occ_tsa": True, "keep_bev_history": True}),
+])
+def test_unported_occupancy_options_are_refused_by_name(key, fields):
+    """What the det+occ model still refuses: a map head beside it, the
+    voxel and hybrid head families, MapTRv2, and the refinement pass
+    together with multi-frame supervision (the JAX package asserts it)."""
     cfg = bev_tiny_det_occ_apollo()
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **{key: True}))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **fields))
     with pytest.raises(NotImplementedError, match=key):
         build_model(cfg, device="cpu")
