@@ -11,9 +11,11 @@ torch key by joining its names with dots, after these rewrites:
   ``layers/layer/...`` -> ``layers.{i}...`` and
   ``layers/reg_branch/...`` -> ``reg_branches.{i}...``;
 - ``cls_branch{i}`` / ``map_cls_branch{i}`` -> ``cls_branches.{i}`` /
-  ``map_cls_branches.{i}``;
+  ``map_cls_branches.{i}``; MapTRv2's ``map_layer{i}`` /
+  ``map_reg_branch{i}`` -> ``map_layers.{i}`` / ``map_reg_branches.{i}``;
 - Dense kernels (in, out) -> Linear weights (out, in);
-- Conv kernels HWIO -> OIHW; ``nn.ConvTranspose`` kernels (k, k, in, out)
+- Conv kernels HWIO -> OIHW (MapTRv2's segmentation heads' ``Conv_0``
+  and ``Conv_1`` too); ``nn.ConvTranspose`` kernels (k, k, in, out)
   are flipped spatially (flax does not flip, torch does) -> (in, out, k, k).
   A 4-D kernel is a transposed convolution's when its flax module is one:
   named ``*_up`` (SECONDFPNV2's deblocks) or auto-named ``ConvTranspose_{i}``
@@ -95,11 +97,19 @@ def _convert(path, arr) -> Tuple[Tuple[str, ...], np.ndarray]:
     return path, arr
 
 
+# flax's per-layer module names -> the port's ModuleLists
+_NUMBERED = {"cls_branch": "cls_branches", "map_cls_branch": "map_cls_branches",
+             "map_reg_branch": "map_reg_branches", "map_layer": "map_layers"}
+
+
 def _rename_branches(path):
     out = []
     for name in path:
-        m = re.fullmatch(r"(map_cls_branch|cls_branch)(\d+)", name)
-        out.extend([m.group(1) + "es", m.group(2)] if m else [name])
+        m = re.fullmatch(r"([a-z_]+?)(\d+)", name)
+        if m and m.group(1) in _NUMBERED:
+            out.extend([_NUMBERED[m.group(1)], m.group(2)])
+        else:
+            out.append(name)
     return tuple(out)
 
 

@@ -197,6 +197,39 @@ def bev_tiny_det_map_apollo() -> ExperimentConfig:
     )
 
 
+def bev_tiny_det_mapv2() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_det_mapv2.py — det + MapTRv2:
+    o2o 50 + o2m 300 (k=6), decoupled decoder, aux BEV/PV seg."""
+    return ExperimentConfig(
+        name="bev_tiny_det_mapv2",
+        model=ModelConfig(
+            bev_h=50, bev_w=50,
+            backbone_type="dla", backbone_out_indices=(3, 4, 5),
+            neck_type="secondfpn",
+            with_map=True, map_version=2, map_num_classes=4,
+            with_aux_seg=True,
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def smoke_det_mapv2() -> ExperimentConfig:
+    """CI-sized det + MapTRv2."""
+    return ExperimentConfig(
+        name="smoke_det_mapv2",
+        model=ModelConfig(
+            bev_h=8, bev_w=8, num_query=12, embed_dims=32,
+            encoder_layers=1, decoder_layers=2, feedforward_channels=64,
+            num_cams=2, img_shape=(64, 96), queue_length=2,
+            with_map=True, map_version=2, num_map_vec=4,
+            num_vec_one2many=8, map_k_one2many=2, map_num_pts=4,
+            map_decoder_layers=2, with_aux_seg=True,
+        ),
+        data=DataConfig(max_gt_boxes=4),
+        optim=OptimConfig(warmup_iters=2, total_steps=100),
+    )
+
+
 def bev_smoke_det_occ() -> ExperimentConfig:
     """CI-sized det+occ (the JAX package's occupancy overfit-check config):
     ResNet-50 stage 4 + FPN, 8x8 BEV, embed_dims 32, 2 Group-DETR groups of

@@ -3,7 +3,7 @@
 ``camera_ring_lidar2img`` and ``make_batch`` are copies of the JAX package's
 data/synthetic.py (a ring of forward-facing pinhole cameras, ego motion
 along +x), limited to the fields inference, the detection GT, the
-occupancy and flow GT and the map GT use.
+occupancy and flow GT, the map GT and its segmentation masks use.
 ``paint_gt`` paints class-coded cues of the GT into the images, and
 voxelizes the GT boxes into the occupancy GT, so that a small set is
 learnable for an overfit check. ``make_stream`` lays the same kind of data
@@ -16,6 +16,10 @@ from typing import Dict, List
 import numpy as np
 
 from apollo_vision_net_tpu_torch.configs import ExperimentConfig
+from apollo_vision_net_tpu_torch.data.rasterize import (
+    rasterize_lines_bev,
+    rasterize_lines_pv,
+)
 from apollo_vision_net_tpu_torch.data.vector_map import pack_map_gt
 
 
@@ -106,7 +110,8 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
     head, dense occupancy GT (B, voxels), or (B, T, voxels) for every queue
     frame with ``keep_bev_history`` or ``with_occupancy_flow``, and with
     ``predict_flow`` the flow GT (..., voxels, 2) of the object voxels;
-    with a map head, padded map GT; the same
+    with a map head, padded map GT and, with ``with_aux_seg``, the
+    rasterized BEV and PV segmentation masks; the same
     arrays as the JAX package's make_batch for these keys and seed.
     ``paint_gt`` paints the GT boxes' centres and the map vectors' points
     into every frame and makes the occupancy GT the voxelized GT boxes
@@ -194,6 +199,7 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
         # Hungarian matching needs GT rows <= query columns
         max_vec = min(d.max_gt_boxes, m.num_map_vec)
         packed = []
+        all_vecs = []
         vec_count = 0  # labels cycle across the batch: every class appears
         for b in range(B):
             n_vec = int(rng.integers(1, 5))
@@ -205,6 +211,7 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
                 vecs.append(pts)
                 labels.append(vec_count % m.map_num_classes)
                 vec_count += 1
+            all_vecs.append(vecs)
             if paint_gt:
                 pts2 = np.concatenate(vecs, axis=0)
                 pts3 = np.concatenate(
@@ -222,6 +229,19 @@ def make_batch(cfg: ExperimentConfig, batch_size: int, seed: int = 0,
         batch["map_labels"] = np.stack([p["labels"] for p in packed])
         batch["map_mask"] = np.stack([p["mask"] for p in packed])
         batch["map_order_mask"] = np.stack([p["order_mask"] for p in packed])
+        if m.with_aux_seg:
+            # the same vectors rasterized for the aux segmentation heads: the
+            # BEV grid, and each camera of the last queue frame at the finest
+            # neck level (stride 16)
+            fh, fw = H // 16, W // 16
+            batch["gt_bev_seg"] = np.stack([
+                rasterize_lines_bev(all_vecs[b], m.bev_h, m.bev_w,
+                                    m.map_patch_size, radius=m.map_aux_seg_radius)
+                for b in range(B)])
+            batch["gt_pv_seg"] = np.stack([
+                rasterize_lines_pv(all_vecs[b], lidar2img[b, -1], (H, W),
+                                   (fh, fw), radius=m.map_aux_pv_radius)
+                for b in range(B)])
     return batch
 
 

@@ -5,20 +5,26 @@ MapTRAssigner: FocalLossCost + min-over-orders OrderedPtsL1Cost,
 maptr_assigner.py:52-134; MapTRLossHead.loss_single: focal cls, PtsL1Loss
 on the matched ordered points, PtsDirCosLoss on segment directions in
 meters, maptr_loss_head.py:327-505; weights cls 2.0, pts 5.0, dir 0.005 as
-bev_tiny_det_map_apollo.py:222-246 configures them). MapTRv2's
-``map_loss_v2`` is not ported.
+bev_tiny_det_map_apollo.py:222-246 configures them), and MapTRv2's
+``map_loss_v2`` (JAX :185-254): the v1 loss on the one2one vectors, plus λ
+times the v1 loss of the one2many vectors against the GT tiled k times, plus
+the BCE of the auxiliary BEV and PV segmentation logits.
 
 Split as det_loss is: ``match_costs`` on the device -> (cost (Lyr, B, V,
 Q), the best order of each (query, GT vector) (Lyr, B, Q, V)); ``solve`` on
 the host over the real GT vectors -> (M, 5) int64 rows (layer, batch,
-query, gt vector, order); ``map_loss`` at given indices.
+query, gt vector, order); ``map_loss`` at given indices. For MapTRv2 the
+rows of the one2many vectors carry the query index past the one2one ones
+and the row of the tiled GT (``tile_gt``); their costs are those of the V
+distinct GT rows, repeated k times on the host (``solve_one2many``).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
 from apollo_vision_net_tpu_torch.losses.det_loss import (
@@ -109,9 +115,10 @@ def map_loss(map_all_cls: torch.Tensor, map_all_pts: torch.Tensor, gt: MapGT,
     w = torch.zeros((L, B, Q), dtype=torch.float32, device=dev)
     w[lyr, b, q] = 1.0
     ones = torch.ones((B * Q,), dtype=torch.float32, device=dev)
+    # the range as f32 scalars: no host-to-device copy
     pc = np.asarray(pc_range, np.float32)
-    scale = torch.tensor([pc[3] - pc[0], pc[4] - pc[1]], device=dev)
-    off = torch.tensor([pc[0], pc[1]], device=dev)
+    scale = (float(pc[3] - pc[0]), float(pc[4] - pc[1]))
+    off = (float(pc[0]), float(pc[1]))
 
     losses: Dict[str, torch.Tensor] = {}
     total = 0.0
@@ -126,7 +133,8 @@ def map_loss(map_all_cls: torch.Tensor, map_all_pts: torch.Tensor, gt: MapGT,
                     ).sum() / num_pos * pts_loss_weight
         # direction cosine loss in meters: denormalized predicted directions
         # against the raw GT ones (maptr_loss_head.py:415-426)
-        pred_m = pts_l * scale + off
+        pred_m = torch.stack([pts_l[..., i] * scale[i] + off[i] for i in (0, 1)],
+                             dim=-1)
         pred_dir = pred_m[:, :, dir_interval:] - pred_m[:, :, :-dir_interval]
         tgt = tgt_m[lyr_i]
         tgt_dir = tgt[:, :, dir_interval:] - tgt[:, :, :-dir_interval]
@@ -142,5 +150,80 @@ def map_loss(map_all_cls: torch.Tensor, map_all_pts: torch.Tensor, gt: MapGT,
         total = (total + losses[f"loss_map_cls{suffix}"]
                  + losses[f"loss_map_pts{suffix}"]
                  + losses[f"loss_map_dir{suffix}"])
+    losses["loss_map_total"] = total
+    return losses
+
+
+def tile_gt(gt: MapGT, k: int) -> MapGT:
+    """The GT repeated k times along the vector axis (row r is row r mod V),
+    the one2many branch's targets (jnp.tile in the JAX package)."""
+    return MapGT(gt.shift_pts.repeat(1, k, 1, 1, 1), gt.labels.repeat(1, k),
+                 gt.mask.repeat(1, k), gt.order_mask.repeat(1, k, 1))
+
+
+def solve_one2many(costs: np.ndarray, order: np.ndarray, mask: np.ndarray,
+                   k: int, q_offset: int) -> np.ndarray:
+    """``solve`` for the one2many vectors against the GT tiled k times,
+    from the costs (Lyr, B, V, Q) and orders (Lyr, B, Q, V) against the V
+    distinct rows: a tiled row costs what its distinct row does. Rows
+    (layer, batch, q_offset + query, tiled gt row, order)."""
+    idx = solve(np.tile(costs, (1, 1, k, 1)), np.tile(order, (1, 1, 1, k)),
+                np.tile(mask, (1, k)))
+    idx[:, 2] += q_offset
+    return idx
+
+
+def _seg_bce(logits: torch.Tensor, target: torch.Tensor,
+             pos_weight: float) -> torch.Tensor:
+    """BCE with logits, positives weighted by ``pos_weight``, averaged
+    (BCEWithLogitsLoss(pos_weight), the JAX package's stable form)."""
+    x, t = logits.float(), target.float()
+    soft = torch.log1p(torch.exp(-x.abs()))
+    return torch.mean(pos_weight * t * (soft + torch.clamp(-x, min=0))
+                      + (1.0 - t) * (soft + torch.clamp(x, min=0)))
+
+
+def map_loss_v2(map_all_cls: torch.Tensor, map_all_pts: torch.Tensor,
+                gt: MapGT, indices: np.ndarray, *, pc_range: Sequence[float],
+                num_vec_one2one: int, k_one2many: int = 6,
+                lambda_one2many: float = 1.0, num_classes: int = 3,
+                bev_seg_logits: Optional[torch.Tensor] = None,
+                gt_bev_seg: Optional[torch.Tensor] = None,
+                pv_seg_logits: Optional[torch.Tensor] = None,
+                gt_pv_seg: Optional[torch.Tensor] = None,
+                bev_seg_weight: float = 1.0, pv_seg_weight: float = 2.0,
+                seg_pos_weight: float = 2.0) -> Dict[str, torch.Tensor]:
+    """MapTRv2's loss at the assignment ``indices`` (``solve`` rows for the
+    one2one vectors, ``solve_one2many`` rows for the others): the one2one
+    terms, each one2many term times λ as ``{term}_one2many`` (its own
+    num_pos, k times the GT's), ``loss_map_bev_seg`` and ``loss_map_pv_seg``
+    and ``loss_map_total`` their sum. A PV GT at another resolution than
+    the logits is resized to them by nearest neighbour with half-pixel
+    centres (jax.image.resize's "nearest")."""
+    o1 = num_vec_one2one
+    many = indices[:, 2] >= o1
+    losses = map_loss(map_all_cls[:, :, :o1], map_all_pts[:, :, :o1], gt,
+                      indices[~many], pc_range=pc_range, num_classes=num_classes)
+    total = losses.pop("loss_map_total")
+    idx_many = indices[many].copy()
+    idx_many[:, 2] -= o1
+    many_losses = map_loss(map_all_cls[:, :, o1:], map_all_pts[:, :, o1:],
+                           tile_gt(gt, k_one2many), idx_many,
+                           pc_range=pc_range, num_classes=num_classes)
+    total = total + lambda_one2many * many_losses.pop("loss_map_total")
+    for k, v in many_losses.items():
+        losses[k + "_one2many"] = v * lambda_one2many
+    if bev_seg_logits is not None and gt_bev_seg is not None:
+        losses["loss_map_bev_seg"] = bev_seg_weight * _seg_bce(
+            bev_seg_logits, gt_bev_seg, seg_pos_weight)
+        total = total + losses["loss_map_bev_seg"]
+    if pv_seg_logits is not None and gt_pv_seg is not None:
+        if gt_pv_seg.shape != pv_seg_logits.shape:
+            gt_pv_seg = F.interpolate(gt_pv_seg.float(),
+                                      size=pv_seg_logits.shape[-2:],
+                                      mode="nearest-exact")
+        losses["loss_map_pv_seg"] = pv_seg_weight * _seg_bce(
+            pv_seg_logits, gt_pv_seg, seg_pos_weight)
+        total = total + losses["loss_map_pv_seg"]
     losses["loss_map_total"] = total
     return losses

@@ -279,9 +279,12 @@ class _MHAProjections(nn.Module):
 class MultiheadAttention(nn.Module):
     """Decoder self-attention with residual, computed as flax does: keys
     from query + pos, values from the query without pos, the query scaled by
-    1/sqrt(D) before the product; softmax in f32. In training mode the
-    probabilities take flax's broadcast dropout (one (Lq, Lk) mask shared by
-    the batch and the heads) and the output a dropout of its own."""
+    1/sqrt(D) before the product; softmax in f32. ``attn_mask`` is flax's
+    boolean keep-mask, (Lq, Lk) broadcast over the batch and the heads: a
+    masked logit becomes finfo(f32).min before the softmax. In training mode
+    the probabilities take flax's broadcast dropout (one (Lq, Lk) mask
+    shared by the batch and the heads) and the output a dropout of its
+    own."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32):
@@ -292,7 +295,8 @@ class MultiheadAttention(nn.Module):
         self.attn = _MHAProjections(embed_dims, dtype)
         self.dropout = Dropout(dropout)
 
-    def forward(self, query, *, query_pos=None):
+    def forward(self, query, *, query_pos=None,
+                attn_mask: Optional[torch.Tensor] = None):
         dt = self.dtype
         query = query.to(dt)
         identity = query
@@ -303,8 +307,11 @@ class MultiheadAttention(nn.Module):
         qh = self.attn.query(q).reshape(B, Lq, H, D) / math.sqrt(D)
         kh = self.attn.key(q).reshape(B, Lq, H, D)
         vh = self.attn.value(query).reshape(B, Lq, H, D)
-        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
-        w = torch.softmax(logits.float(), dim=-1).to(dt)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float()
+        if attn_mask is not None:
+            logits = logits.masked_fill(~attn_mask,
+                                        torch.finfo(torch.float32).min)
+        w = torch.softmax(logits, dim=-1).to(dt)
         if self.training and self.rate > 0.0:
             keep_prob = 1.0 - self.rate
             keep = dropout_mask((Lq, Lq), keep_prob, w.device)

@@ -9,7 +9,8 @@ history frames in eval mode builds the BEV that the supervised last frame
 starts from (and, with ``keep_bev_history``, the history BEVs whose
 occupancy the head supervises too). ``forward_test_frame`` is the stateful
 streaming step.
-``build_model`` builds a det, det+map or det+occupancy model from a config,
+``build_model`` builds a det, det+map (MapTR v1 or v2) or det+occupancy
+model from a config,
 with DLA-34 + SECONDFPNV2 (the flagship, Apollo's det+occ model) or ResNet
 (optionally with DCN stages) + FPN (the base and smoke configs), with
 random weights made from a seed.
@@ -32,6 +33,7 @@ from apollo_vision_net_tpu_torch.models.heads.det_head import (
     BEVFormerHead,
 )
 from apollo_vision_net_tpu_torch.models.heads.map_head import BEVFormerDetMapHead
+from apollo_vision_net_tpu_torch.models.heads.map_head_v2 import BEVFormerDetMapHeadV2
 from apollo_vision_net_tpu_torch.models.heads.occ_head import BEVFormerOccupancyHead
 from apollo_vision_net_tpu_torch.models.layers import (
     FrozenBatchNorm,
@@ -156,6 +158,12 @@ def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
             occ_head_type=m.occ_head_type, occ_tsa=m.occ_tsa,
             predict_flow=m.predict_flow,
             with_occupancy_flow=m.with_occupancy_flow, **common)
+    if m.with_map and m.map_version == 2:
+        return BEVFormerDetMapHeadV2(
+            num_vec_one2one=m.num_map_vec, num_vec_one2many=m.num_vec_one2many,
+            map_num_pts=m.map_num_pts, map_num_classes=m.map_num_classes,
+            map_decoder_layers=m.map_decoder_layers,
+            with_aux_seg=m.with_aux_seg, **common)
     if m.with_map:
         return BEVFormerDetMapHead(
             num_map_vec=m.num_map_vec, map_num_pts=m.map_num_pts,
@@ -192,14 +200,10 @@ def _check_supported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {m.backbone_type} + {m.neck_type} is not ported yet "
             f"(port has {sorted(trunks)})")
-    unported = {
-        "head_family": (m.head_family, "bev"),
-        "map_version": (m.map_version, 1),
-    }
-    for key, (got, want) in unported.items():
-        if got != want:
-            raise NotImplementedError(
-                f"{cfg.name}: {key}={got!r} is not ported yet (port has {want!r})")
+    if m.head_family != "bev":
+        raise NotImplementedError(
+            f"{cfg.name}: head_family={m.head_family!r} is not ported yet "
+            "(port has 'bev')")
     if m.with_map and m.with_occupancy:
         raise NotImplementedError(
             f"{cfg.name}: with_map together with with_occupancy is not ported "

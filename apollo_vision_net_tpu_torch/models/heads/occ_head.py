@@ -32,9 +32,9 @@ before its norm. bf16 runs the 2,048-channel transposed convolution at
 200x200 at the tensor cores' bf16 rate and halves its activations
 (200x200x2,048 each); ``chip_smoke.py``'s
 ``stream_occ_bf16_vs_f32`` reads what it changes in the logits and the
-class grid. The refinement layer and ``occ_tsa_head`` compute in the head's
-activation dtype too, as the BEV encoder does; the JAX package builds them
-without a dtype, so in f32.
+class grid. The refinement layer and ``occ_tsa_head`` compute in f32 whatever
+the head's dtype, as the JAX package builds them without a dtype: the
+upsampled tokens are cast to f32 before the pass.
 """
 from __future__ import annotations
 
@@ -168,8 +168,9 @@ class BEVFormerOccupancyHead(BEVFormerHead):
                     C, num_levels=self.num_feature_levels,
                     num_cams=self.num_cams,
                     feedforward_channels=self.feedforward_channels,
-                    bev_hw=(occ_ydim, occ_xdim), dtype=self.dtype)
-                self.occ_tsa_head = Dense(C, occ_zdim * occ_dims, dtype=self.dtype)
+                    bev_hw=(occ_ydim, occ_xdim), dtype=torch.float32)
+                self.occ_tsa_head = Dense(C, occ_zdim * occ_dims,
+                                          dtype=torch.float32)
         elif occ_head_type == "mlp":
             if (occ_xdim, occ_ydim) != (self.bev_h, self.bev_w):
                 raise ValueError("the mlp occupancy head needs the BEV grid")
@@ -201,7 +202,7 @@ class BEVFormerOccupancyHead(BEVFormerHead):
             up = self.upsample_layer(grid.permute(0, 3, 1, 2).to(self.dtype))
             if self.occ_tsa:
                 # tokens (B, y·x, z·d), d minor -> (B, z, y, x, d)
-                up = self._occ_tsa_pass(up, mlvl_feats, lidar2img)
+                up = self._occ_tsa_pass(up.float(), mlvl_feats, lidar2img)
                 up = up.reshape(B, y, x, z, d).permute(0, 3, 1, 2, 4)
             else:
                 # channels (z, d) -> (B, z, y, x, d)

@@ -4,13 +4,15 @@ Counterpart of the JAX package's parallel/train.py (``loss_fn`` and
 ``train_step``, :157-229) on one device: the model's training forward over
 the (B, T, ...) queue (no-grad history replay, then the supervised last
 frame with dropout and grid mask drawn from ``generator``), the det loss
-(over the Group-DETR groups) plus, with a map head, the MapTR v1 map loss,
+(over the Group-DETR groups) plus, with a map head, the MapTR v1 map loss
+or MapTRv2's (one2one, one2many and the aux segmentation terms),
 or, with an occupancy head, the occupancy losses and, with a flow branch,
 the flow loss (losses/multitask.py).
 ``loss_total`` is their sum, returned with every term.
 
 Matching takes one host synchronization a step: ``match`` computes every
-decoder layer's cost matrices of both heads (of every group) on the device,
+decoder layer's cost matrices of both heads (of every group, and of
+MapTRv2's one2many vectors against the distinct GT rows) on the device,
 copies them (and the GT masks) to the host in one transfer and solves them
 there with scipy.
 """
@@ -57,13 +59,22 @@ def match(outs: Dict[str, torch.Tensor], gt: det_lib.DetGT,
           mgt: Optional[map_lib.MapGT], cfg: ExperimentConfig) -> Indices:
     """Hungarian matching of every decoder layer of both heads with one
     device-to-host copy: (det indices (M, 4), map indices (M, 5) or None),
-    as det_loss.solve and map_loss.solve give them."""
+    as det_loss.solve and map_loss.solve give them (and, for MapTRv2's
+    one2many vectors, map_loss.solve_one2many)."""
+    m = cfg.model
     parts = [det_lib.match_costs(outs["all_cls_scores"], outs["all_bbox_preds"],
                                  gt, num_groups=query_groups(outs, cfg)), gt.mask]
+    map_cls, map_pts = outs.get("map_all_cls_scores"), outs.get("map_all_pts_preds")
+    o1 = m.num_map_vec
+    # MapTRv2 in training mode: the one2many vectors after the one2one ones
+    one2many = mgt is not None and m.map_version == 2 and map_cls.shape[2] > o1
     if mgt is not None:
-        parts += [*map_lib.match_costs(outs["map_all_cls_scores"],
-                                       outs["map_all_pts_preds"], mgt,
-                                       pc_range=cfg.model.pc_range), mgt.mask]
+        parts += [*map_lib.match_costs(map_cls[:, :, :o1], map_pts[:, :, :o1],
+                                       mgt, pc_range=m.pc_range), mgt.mask]
+    if one2many:
+        # against the V distinct GT rows; solve_one2many tiles them k times
+        parts += map_lib.match_costs(map_cls[:, :, o1:], map_pts[:, :, o1:],
+                                     mgt, pc_range=m.pc_range)
     # one flat f32 transfer: masks and order indices are exact in f32
     flat = torch.cat([p.reshape(-1).float() for p in parts]).cpu().numpy()
     host, start = [], 0
@@ -75,6 +86,10 @@ def match(outs: Dict[str, torch.Tensor], gt: det_lib.DetGT,
     if mgt is not None:
         map_idx = map_lib.solve(host[2], host[3].astype(np.int64),
                                 host[4].astype(bool))
+    if one2many:
+        map_idx = np.concatenate([map_idx, map_lib.solve_one2many(
+            host[5], host[6].astype(np.int64), host[4].astype(bool),
+            m.map_k_one2many, o1)])
     return det_idx, map_idx
 
 
@@ -102,10 +117,22 @@ def loss_fn(model, batch: Dict[str, torch.Tensor], cfg: ExperimentConfig,
         losses = det_lib.det_loss(
             outs["all_cls_scores"], outs["all_bbox_preds"], gt, indices[0],
             num_classes=m.num_classes, num_groups=query_groups(outs, cfg))
-    if m.with_map:
+    if m.with_map and m.map_version == 2:
+        map_losses = map_lib.map_loss_v2(
+            outs["map_all_cls_scores"], outs["map_all_pts_preds"], mgt,
+            indices[1], pc_range=m.pc_range, num_vec_one2one=m.num_map_vec,
+            k_one2many=m.map_k_one2many,
+            lambda_one2many=m.map_lambda_one2many,
+            num_classes=m.map_num_classes,
+            bev_seg_logits=outs.get("bev_seg_logits"),
+            gt_bev_seg=batch.get("gt_bev_seg"),
+            pv_seg_logits=outs.get("pv_seg_logits"),
+            gt_pv_seg=batch.get("gt_pv_seg"))
+    elif m.with_map:
         map_losses = map_lib.map_loss(
             outs["map_all_cls_scores"], outs["map_all_pts_preds"], mgt,
             indices[1], pc_range=m.pc_range, num_classes=m.map_num_classes)
+    if m.with_map:
         total = losses.pop("loss_total") + map_losses.pop("loss_map_total")
         losses.update(map_losses)
         losses["loss_total"] = total

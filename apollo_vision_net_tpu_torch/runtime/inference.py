@@ -29,15 +29,17 @@ POST_CENTER_RANGE = (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
 
 def last_layer(outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The streaming step's outputs (what ``__graft_entry__.entry`` returns
-    in the JAX package): last-layer det and map heads, the occupancy logits
-    (B, voxels, classes) of an occupancy head and its per-voxel flows
-    (B, voxels, 2) with a flow branch, and the BEV."""
+    in the JAX package): last-layer det and map heads (MapTRv2's one2one
+    vectors: an eval-mode model runs no others) and its segmentation logits
+    (B, H, W) and (B, N, h, w), the occupancy logits (B, voxels, classes)
+    of an occupancy head and its per-voxel flows (B, voxels, 2) with a flow
+    branch, and the BEV."""
     res = {"cls_scores": outs["all_cls_scores"][-1],
            "bbox_preds": outs["all_bbox_preds"][-1]}
     if "map_all_cls_scores" in outs:
         res["map_cls_scores"] = outs["map_all_cls_scores"][-1]
         res["map_pts_preds"] = outs["map_all_pts_preds"][-1]
-    for k in ("occupancy_preds", "flow_preds"):
+    for k in ("bev_seg_logits", "pv_seg_logits", "occupancy_preds", "flow_preds"):
         if k in outs:
             res[k] = outs[k]
     res["bev_embed"] = outs["bev_embed"]

@@ -18,6 +18,7 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch",
     "apollo_vision_net_tpu_torch.bridge",
     "apollo_vision_net_tpu_torch.configs",
+    "apollo_vision_net_tpu_torch.data.rasterize",
     "apollo_vision_net_tpu_torch.data.synthetic",
     "apollo_vision_net_tpu_torch.data.temporal",
     "apollo_vision_net_tpu_torch.data.vector_map",
@@ -29,6 +30,7 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.losses.map_loss",
     "apollo_vision_net_tpu_torch.losses.multitask",
     "apollo_vision_net_tpu_torch.losses.occ_loss",
+    "apollo_vision_net_tpu_torch.models.heads.map_head_v2",
     "apollo_vision_net_tpu_torch.models.heads.occ_head",
     "apollo_vision_net_tpu_torch.tools.overfit_check",
     "apollo_vision_net_tpu_torch.parallel.optim",
@@ -189,6 +191,21 @@ def test_occupancy_option_configs_equal_the_jax_ones(name):
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     m = t.model
     assert m.with_occupancy and (m.occ_tsa or m.predict_flow)
+
+
+@pytest.mark.parametrize("name", ["bev_tiny_det_mapv2", "smoke_det_mapv2"])
+def test_mapv2_configs_equal_the_jax_ones(name):
+    j = getattr(jax_configs, name)()
+    t = getattr(port_configs, name)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.map_patch_size == j.model.map_patch_size
+    assert t.model.with_map and t.model.map_version == 2 and t.model.with_aux_seg
+    from apollo_vision_net_tpu_torch.models.detector import build_model
+
+    head = build_model(t, device="cpu").head
+    assert len(head.map_layers) == t.model.map_decoder_layers
+    assert head.map_instance_embedding.shape[0] == (
+        t.model.num_map_vec + t.model.num_vec_one2many)
 
 
 def test_make_batch_multi_frame_and_flow_gt_equal_the_jax_ones():

@@ -475,12 +475,12 @@ def test_train_step_gradients_match_jax(train_step):
     ("with_map", {"with_map": True}),
     ("head_family", {"head_family": "voxel"}),
     ("head_family", {"head_family": "hybrid"}),
-    ("map_version", {"map_version": 2}),
+    ("with_map", {"with_map": True, "map_version": 2}),
     ("occ_tsa", {"occ_tsa": True, "keep_bev_history": True}),
 ])
 def test_unported_occupancy_options_are_refused_by_name(key, fields):
-    """What the det+occ model still refuses: a map head beside it, the
-    voxel and hybrid head families, MapTRv2, and the refinement pass
+    """What the det+occ model still refuses: a map head beside it (MapTR v1
+    or v2), the voxel and hybrid head families, and the refinement pass
     together with multi-frame supervision (the JAX package asserts it)."""
     cfg = bev_tiny_det_occ_apollo()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **fields))

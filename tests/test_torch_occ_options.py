@@ -8,7 +8,9 @@ of 16-wide voxels, f32), with the grid mask off:
 - ``grid_sample_3d`` against JAX on points inside and outside the volume:
   1e-5;
 - the occ_tsa head on one BEV (upsampling, the refinement layer at 32x32
-  over the cameras, ``occ_tsa_head``, the classifier): 1e-4;
+  over the cameras, ``occ_tsa_head``, the classifier): 1e-4; and the head
+  of the bf16 config, whose refinement pass runs in f32 as JAX's, on JAX's
+  upsampled tokens: 1e-4;
 - three streamed frames of the occ_tsa model with one scene reset against
   JAX ``forward_test_frame``: 1e-3;
 - the train steps of the occ_tsa model and of the det+occ+flow model with
@@ -146,11 +148,11 @@ def test_grid_sample_3d_matches_jax_inside_and_outside_the_volume():
 
 # ------------------------------------------------------------- occ_tsa head
 
-def test_occ_tsa_head_matches_flax(occ_tsa):
-    """Upsampling to embed_dims, the refinement layer over the 32x32 tokens
-    (TSA on themselves, SCA through the occupancy-resolution pillars over
-    both cameras), occ_tsa_head's token-major (z, d) channels and the
-    classifier, on one BEV and random image features."""
+@pytest.fixture(scope="module")
+def occ_tsa_head(occ_tsa):
+    """JAX's occ_tsa head on one BEV and random image features, in one
+    compile: the upsampled tokens (B, y, x, C), the refinement pass's
+    output on them (B, y, x, z·d) and the classifier's logits."""
     m = occ_tsa["cfg"].model
     rng = np.random.default_rng(3)
     B = 2
@@ -160,22 +162,65 @@ def test_occ_tsa_head_matches_flax(occ_tsa):
                           (B, m.num_cams, 4, 4)).copy()
 
     def lift(mdl, b, f, l):
-        return mdl.occ_branches(mdl._occ_from_bev(b, f, l, True))
+        up = mdl.upsample_layer(b.reshape(B, m.bev_h, m.bev_w, m.embed_dims))
+        return (up, mdl._occ_tsa_pass(up, f, l, True),
+                mdl.occ_branches(mdl._occ_from_bev(b, f, l, True)))
 
     jhead = occ_tsa["jmodel"].head
     hparams = occ_tsa["params"]["head"]
-    want = np.asarray(jax.jit(lambda p, *a: jhead.apply(
-        {"params": p}, *a, method=lift))(hparams, bev, feats, l2i))
+    up, refined, logits = jax.jit(lambda p, *a: jhead.apply(
+        {"params": p}, *a, method=lift))(hparams, bev, feats, l2i)
+    return dict(bev=bev, feats=feats, l2i=l2i, params=hparams,
+                up=np.asarray(up), refined=np.asarray(refined),
+                logits=np.asarray(logits))
+
+
+def test_occ_tsa_head_matches_flax(occ_tsa, occ_tsa_head):
+    """Upsampling to embed_dims, the refinement layer over the 32x32 tokens
+    (TSA on themselves, SCA through the occupancy-resolution pillars over
+    both cameras), occ_tsa_head's token-major (z, d) channels and the
+    classifier, on one BEV and random image features."""
+    m = occ_tsa["cfg"].model
+    jh = occ_tsa_head
+    B = jh["bev"].shape[0]
+    want = jh["logits"]
     head = build_head(occ_tsa["cfg"]).eval()
-    head.load_state_dict(state_dict_from_flax(hparams), strict=True)
+    head.load_state_dict(state_dict_from_flax(jh["params"]), strict=True)
     assert hasattr(head, "occ_tsa_layer0") and head.upsample_layer.Conv_0.out_channels == m.embed_dims
     with torch.no_grad():
         got = head.occ_branches(head._occ_from_bev(
-            torch.from_numpy(bev), [torch.from_numpy(f) for f in feats],
-            torch.from_numpy(l2i)))
+            torch.from_numpy(jh["bev"]), [torch.from_numpy(f) for f in jh["feats"]],
+            torch.from_numpy(jh["l2i"])))
     assert want.shape == (B, m.occ_zdim * m.occ_ydim * m.occ_xdim, 16)
     _close(got.numpy(), want, HEAD_TOL, "occ_tsa head")
     assert float(np.abs(want).max()) > 0.1
+
+
+def test_occ_tsa_refinement_runs_in_f32_in_the_bf16_config(occ_tsa, occ_tsa_head):
+    """The head of the config as configured (bf16 activations): the
+    refinement layer and occ_tsa_head compute in f32, as the JAX package's
+    (built without a dtype, whatever the config's dtype) do. Given JAX's
+    upsampled tokens, the pass's output matches JAX's within HEAD_TOL,
+    which a bf16 pass misses by ~100x (its activations round at 2^-8);
+    and the bf16 head's own upsampled tokens enter the pass as f32."""
+    cfg = occ_tsa["cfg"]
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16", model=dataclasses.replace(
+        cfg.model, transformer_dtype=None))
+    jh = occ_tsa_head
+    head = build_head(bf16).eval()
+    head.load_state_dict(state_dict_from_flax(jh["params"]), strict=True)
+    assert head.dtype == torch.bfloat16
+    B, oy, ox, C = jh["up"].shape
+    feats = [torch.from_numpy(f) for f in jh["feats"]]
+    l2i = torch.from_numpy(jh["l2i"])
+    with torch.no_grad():
+        got = head._occ_tsa_pass(torch.tensor(jh["up"]).permute(0, 3, 1, 2),
+                                 feats, l2i)
+        lifted = head._occ_from_bev(torch.from_numpy(jh["bev"]), feats, l2i)
+    want = jh["refined"].reshape(B, oy * ox, -1)
+    _close(got.float().numpy(), want, HEAD_TOL, "occ_tsa refinement, bf16 config")
+    assert got.dtype == torch.float32 and lifted.dtype == torch.float32
+    assert float(np.abs(want).max()) > 0.5
 
 
 def test_occ_tsa_streaming_frames_match_jax(occ_tsa):
