@@ -1934,7 +1934,9 @@ def train_launches_per_step(cfg) -> dict:
     entry over several) and DCN in every block of the DCN stages in each
     frame; the backward runs on the supervised frame's calls only (the
     history replay is under no_grad). The occupancy refinement pass adds
-    one TSA and one SCA on the supervised frame, forward and backward."""
+    one TSA and one SCA on the supervised frame, forward and backward.
+    MapTRv2's decoupled map layers make one cross-attention call each, as
+    MapTR v1's do, over all 350 vectors in training."""
     m = cfg.model
     T, E, R = m.queue_length, m.encoder_layers, occ_tsa_layers(cfg)
     dec = m.decoder_layers + (m.map_decoder_layers if m.with_map else 0)
