@@ -15,7 +15,8 @@ torch key by joining its names with dots, after these rewrites:
   ``map_reg_branch{i}`` -> ``map_layers.{i}`` / ``map_reg_branches.{i}``;
 - Dense kernels (in, out) -> Linear weights (out, in);
 - Conv kernels HWIO -> OIHW (MapTRv2's segmentation heads' ``Conv_0``
-  and ``Conv_1`` too); ``nn.ConvTranspose`` kernels (k, k, in, out)
+  and ``Conv_1`` too; InternImage's depthwise ``dw_conv``, (3, 3, 1, C) ->
+  (C, 1, 3, 3), by the same rule); ``nn.ConvTranspose`` kernels (k, k, in, out)
   are flipped spatially (flax does not flip, torch does) -> (in, out, k, k).
   A 4-D kernel is a transposed convolution's when its flax module is one:
   named ``*_up`` (SECONDFPNV2's deblocks) or auto-named ``ConvTranspose_{i}``
@@ -33,7 +34,11 @@ Modules that flax names explicitly keep their names: the occupancy
 head's ``occ_tsa_layer{i}`` (a ``BEVFormerLayer`` whose submodules are
 named as the encoder's scanned layer), ``occ_tsa_head``, ``flow_branches``,
 ``forward_flow``, ``backward_flow`` and ``flow_fc`` (its ``Dense_i`` and
-``LayerNorm_i`` auto-named as in flax).
+``LayerNorm_i`` auto-named as in flax); InternImage's ``stem1``,
+``stem_ln1``, ``stage{i}_block{b}`` (``dcn/{input_proj, dw_conv, dw_norm,
+offset, mask, output_proj}``, ``norm1``, ``norm2``, ``mlp_fc1``,
+``mlp_fc2`` and the layer scales ``gamma1``/``gamma2``, which keep their
+name), ``down{i}`` and ``down_ln{i}``.
 
 Every flax leaf is used exactly once.
 """

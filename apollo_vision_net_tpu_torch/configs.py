@@ -317,3 +317,89 @@ def bev_base_occ() -> ExperimentConfig:
         ),
         compute_dtype="bfloat16",
     )
+
+
+def bev_tiny_det() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_det.py — R50, 200×200 BEV,
+    900 queries, 3 encoder / 6 decoder layers, queue 3."""
+    return ExperimentConfig(name="bev_tiny_det", model=ModelConfig())
+
+
+def bev_smoke_det() -> ExperimentConfig:
+    """Small-everything variant for CI / CPU-mesh tests (the analog of the
+    reference's smoke_det_map_forward_train.py path)."""
+    return ExperimentConfig(
+        name="bev_smoke_det",
+        model=ModelConfig(
+            bev_h=8, bev_w=8, num_query=12, embed_dims=32,
+            encoder_layers=1, decoder_layers=2, feedforward_channels=64,
+            num_cams=2, img_shape=(64, 96), queue_length=2,
+        ),
+        data=DataConfig(max_gt_boxes=8),
+        optim=OptimConfig(warmup_iters=2, total_steps=100),
+    )
+
+
+def bev_tiny_det_occ() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_det_occ.py — R50 det+occ
+    (non-Apollo: one det query group, the CNN occupancy head)."""
+    return ExperimentConfig(
+        name="bev_tiny_det_occ",
+        model=ModelConfig(
+            bev_h=50, bev_w=50, with_occupancy=True,
+            occ_head_type="cnn",
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def bev_tiny_occ() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_occ.py — occ-only tiny (R50)."""
+    return ExperimentConfig(
+        name="bev_tiny_occ",
+        model=ModelConfig(
+            bev_h=50, bev_w=50, with_occupancy=True, occ_head_type="cnn",
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def bev_tiny_occ_intern_s() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_tiny_occ_intern_s.py — InternImage-S
+    backbone (channels 80, depths [4,4,21,4]) on the tiny occ config."""
+    return ExperimentConfig(
+        name="bev_tiny_occ_intern_s",
+        model=ModelConfig(
+            bev_h=50, bev_w=50, with_occupancy=True, occ_head_type="cnn",
+            backbone_type="internimage", backbone_out_indices=(3,),
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def bev_base_occ_intern_s() -> ExperimentConfig:
+    """projects/configs/bevformer/bev_base_occ_intern_s.py: bev_base_occ
+    with InternImage-S stages 2-4 in place of R101-DCN."""
+    cfg = bev_base_occ()
+    return dataclasses.replace(
+        cfg, name="bev_base_occ_intern_s",
+        model=dataclasses.replace(
+            cfg.model, backbone_type="internimage", backbone_depth=50,
+            backbone_dcn_stages=(False,) * 4,
+            backbone_out_indices=(1, 2, 3)))
+
+
+def semantic_kitti_occ() -> ExperimentConfig:
+    """semantic_kitti SSC: 19+empty classes over [0,-25.6,-2,51.2,25.6,4.4]
+    @0.2 m (semantic_kitti/kitti_dataset.py:25-45)."""
+    return ExperimentConfig(
+        name="semantic_kitti_occ",
+        model=ModelConfig(
+            bev_h=128, bev_w=128, num_cams=1,
+            pc_range=(0.0, -25.6, -2.0, 51.2, 25.6, 4.4),
+            with_occupancy=True, occupancy_classes=20,
+            occ_xdim=256, occ_ydim=256, occ_zdim=32,
+            occ_loss_type="ce_loss",
+        ),
+        compute_dtype="bfloat16",
+    )

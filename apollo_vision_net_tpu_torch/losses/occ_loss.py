@@ -96,11 +96,14 @@ def occupancy_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
 def ce_ssc_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
                 class_weights: torch.Tensor) -> torch.Tensor:
     """Weighted CE with ignore — torch CrossEntropyLoss(weight, ignore,
-    reduction='mean') semantics: sum(w_y * nll) / sum(w_y over valid)."""
+    reduction='mean') semantics: sum(w_y * nll) / sum(w_y over valid).
+    Classes past the end of ``class_weights`` take its last entry, as the
+    JAX package's gather clamps the index (semantic_kitti_occ's 20 classes
+    against the 17 nuScenes weights)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     lbl = torch.clamp(labels.long(), 0, logits.shape[-1] - 1)
     nll = -torch.gather(logp, 1, lbl[:, None])[:, 0]
-    wy = class_weights[lbl] * valid.float()
+    wy = class_weights[lbl.clamp(max=class_weights.shape[0] - 1)] * valid.float()
     return (nll * wy).sum() / torch.clamp(wy.sum(), min=1e-6)
 
 

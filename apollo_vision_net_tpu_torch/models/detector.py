@@ -11,9 +11,10 @@ occupancy the head supervises too). ``forward_test_frame`` is the stateful
 streaming step.
 ``build_model`` builds a det, det+map (MapTR v1 or v2) or det+occupancy
 model from a config,
-with DLA-34 + SECONDFPNV2 (the flagship, Apollo's det+occ model) or ResNet
-(optionally with DCN stages) + FPN (the base and smoke configs), with
-random weights made from a seed.
+with DLA-34 + SECONDFPNV2 (the flagship, Apollo's det+occ model), ResNet
+(optionally with DCN stages) + FPN (the R50 and base configs, the smoke
+configs) or InternImage-S + FPN (the ``*_intern_s`` configs), with random
+weights made from a seed.
 """
 from __future__ import annotations
 
@@ -35,6 +36,12 @@ from apollo_vision_net_tpu_torch.models.heads.det_head import (
 from apollo_vision_net_tpu_torch.models.heads.map_head import BEVFormerDetMapHead
 from apollo_vision_net_tpu_torch.models.heads.map_head_v2 import BEVFormerDetMapHeadV2
 from apollo_vision_net_tpu_torch.models.heads.occ_head import BEVFormerOccupancyHead
+from apollo_vision_net_tpu_torch.models.internimage import (
+    LAYER_SCALE,
+    DCNv3Block,
+    InternImage,
+    InternImageLayer,
+)
 from apollo_vision_net_tpu_torch.models.layers import (
     FrozenBatchNorm,
     current_generator,
@@ -61,14 +68,17 @@ class BEVFormer(nn.Module):
 
     def extract_img_feat(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """(B, N, H, W, 3) -> [(B, N, h, w, C)] per level, in f32 (the conv
-        trunk runs in compute_dtype). In training mode the grid mask draws
-        one stripe pattern for the batch from the current generator."""
+        trunk runs in compute_dtype; InternImage returns its f32 residual
+        stream, which the neck's convs take in compute_dtype, as flax's
+        ``dtype`` casts it). In training mode the grid mask draws one stripe
+        pattern for the batch from the current generator."""
         B, N, H, W, C = img.shape
         x = img.reshape(B * N, H, W, C)
         if self.use_grid_mask and self.training:
             x = grid_mask(x, current_generator())
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        feats = self.img_neck(self.img_backbone(x))
+        feats = self.img_neck([f.to(self.compute_dtype)
+                               for f in self.img_backbone(x)])
         return tuple(
             f.permute(0, 2, 3, 1).reshape((B, N) + f.shape[2:] + f.shape[1:2]).float()
             for f in feats)
@@ -174,13 +184,18 @@ def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
 
 def build_trunk(cfg: ExperimentConfig) -> Tuple[nn.Module, nn.Module]:
     """(img_backbone, img_neck) of the config: DLA-34 + SECONDFPNV2, or
-    ResNet + FPN with ``num_feature_levels`` outputs."""
+    ResNet or InternImage-S + FPN with ``num_feature_levels`` outputs."""
     m = cfg.model
     if m.backbone_type == "dla":
         dla_ch = (16, 32, 64, 128, 256, 512)
         return (DLA(out_indices=m.backbone_out_indices),
                 SECONDFPNV2(in_channels=[dla_ch[i] for i in m.backbone_out_indices],
                             fuse_channels=m.embed_dims))
+    if m.backbone_type == "internimage":
+        trunk = InternImage(out_indices=m.backbone_out_indices,
+                            dtype=_DTYPES[cfg.compute_dtype])
+        return trunk, FPN(trunk.out_channels(), m.embed_dims,
+                          num_outs=m.num_feature_levels)
     return (ResNet(m.backbone_depth, m.backbone_out_indices, m.backbone_dcn_stages),
             FPN([CHANNELS[i] for i in m.backbone_out_indices], m.embed_dims,
                 num_outs=m.num_feature_levels))
@@ -195,7 +210,7 @@ def keep_bev_history(cfg: ExperimentConfig) -> bool:
 
 def _check_supported(cfg: ExperimentConfig) -> None:
     m = cfg.model
-    trunks = {("dla", "secondfpn"), ("resnet", "fpn")}
+    trunks = {("dla", "secondfpn"), ("resnet", "fpn"), ("internimage", "fpn")}
     if (m.backbone_type, m.neck_type) not in trunks:
         raise NotImplementedError(
             f"{cfg.name}: {m.backbone_type} + {m.neck_type} is not ported yet "
@@ -224,7 +239,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     xavier-uniform dense layers, zero sampling-offset and attention kernels
     with the grid offset bias, focal-prior classification bias, N(0, 1) BEV
     and level/camera embeddings, U[0, 1) query and positional tables,
-    identity norms and frozen BN statistics."""
+    identity norms and frozen BN statistics. InternImage's dense layers
+    take flax's default lecun-normal kernels (truncated normal) with zero
+    biases, its DCNv3 ``offset`` and ``mask`` layers zeros and its layer
+    scales ``gamma1``/``gamma2`` the constant ``LAYER_SCALE``."""
     def normal_(t, std=1.0):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
@@ -277,6 +295,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             uniform_(p, 0.0, 1.0)
         elif name.endswith("Dense_2.bias") and "cls_branches" in name:
             p.fill_(FOCAL_BIAS_INIT)
+    for trunk in model.modules():
+        if not isinstance(trunk, InternImage):
+            continue
+        for mod in trunk.modules():
+            if isinstance(mod, nn.Linear):
+                # flax lecun_normal: variance_scaling(1.0, "fan_in",
+                # "truncated_normal"), truncated at two std
+                std = math.sqrt(1.0 / mod.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
+                mod.bias.zero_()
+            elif isinstance(mod, InternImageLayer):
+                mod.gamma1.fill_(LAYER_SCALE)
+                mod.gamma2.fill_(LAYER_SCALE)
+        # after the pass above, which gave them lecun-normal kernels
+        for mod in trunk.modules():
+            if isinstance(mod, DCNv3Block):
+                for dense in (mod.offset, mod.mask):
+                    dense.weight.zero_()
+                    dense.bias.zero_()
 
 
 def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:

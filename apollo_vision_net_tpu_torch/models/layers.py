@@ -134,12 +134,15 @@ class Conv2d(nn.Conv2d):
     """NCHW convolution in the input's dtype, bias-free unless ``bias``
     (flax ``nn.Conv`` has one by default). ``padding=None`` is flax's
     default 'SAME': total padding max((ceil(n/s) - 1)·s + k - n, 0) per
-    spatial dim, the smaller half low, as XLA splits it."""
+    spatial dim, the smaller half low, as XLA splits it. ``groups`` is
+    flax's ``feature_group_count``."""
 
     def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
-                 padding: Optional[int] = None, bias: bool = False):
+                 padding: Optional[int] = None, bias: bool = False,
+                 groups: int = 1):
         super().__init__(cin, cout, k, stride=stride,
-                         padding=0 if padding is None else padding, bias=bias)
+                         padding=0 if padding is None else padding, bias=bias,
+                         groups=groups)
         self.same = padding is None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -153,4 +156,4 @@ class Conv2d(nn.Conv2d):
                 x = F.pad(x, pads)
         b = self.bias.to(x.dtype) if self.bias is not None else None
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
-                        self.padding)
+                        self.padding, groups=self.groups)

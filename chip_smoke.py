@@ -124,6 +124,39 @@ Phases, each printing JSON lines:
                the one2many and segmentation terms among them; the f32
                frame and step against plain versions with the witnesses;
                frames/s, steps/s, peak memory, profiles.
+  stream_intern_s, train_intern_s  bev_tiny_occ_intern_s at full width
+               (InternImage-S: 33 DCNv3 blocks on the plain MSDA entry at
+               D = 16, 9 taps, 5-40 groups over 120x200 to 15x25 with the six
+               cameras folded into the batch; an FPN level over its last
+               stage, 50x50 BEV, the CNN occupancy head; bf16 as configured,
+               the trunk's residual stream f32 as in the JAX package; the
+               DCNv3 ``offset`` and ``mask`` layers and the stem biases
+               seeded with noise) as ``stream_occ`` and ``train_occ``: 42
+               plain + 3 masked launches a frame, forward 114 + 9 and
+               backward 42 + 3 a step, all on the vector and gather
+               variants; the f32 frame against plain versions, and the f32
+               step at 1 encoder and 2 decoder layers (BASE_CMP_SIZES) with
+               the witnesses; the bf16 occupancy against the f32 one;
+               frames/s, steps/s, peak memory, profiles.
+  stream_tiny_det, train_tiny_det  bev_tiny_det, the reference's
+               BEVFormer-tiny (R50 stage 4 through one FPN level, 200x200
+               BEV, the det head alone, f32 as configured): 9 plain + 3
+               masked launches a frame (the SCA at 40,000 pillars over
+               15x25), forward 15 + 9 and backward 9 + 3 a step; the f32
+               frame against plain versions, and the f32 step at 1 encoder
+               and 2 decoder layers with the witnesses; frames/s, steps/s,
+               profiles.
+  stream_kitti, train_kitti  semantic_kitti_occ (one camera, 128x128 BEV,
+               CNN upsampling to a 256x256x32 grid of 20 classes, CE loss,
+               bf16): frames with exact launch counts (9 plain + 3 masked)
+               and each frame's class histogram, frames/s and a profile;
+               3 train steps with exact launch counts and a finite CE loss,
+               steps/s and a profile (no f32 comparison).
+  stream_base_intern_s  bev_base_occ_intern_s (InternImage-S stages 2-4
+               through a 4-level FPN into bev_base_occ's encoder and heads)
+               streamed as ``base_occ``: 45 plain (33 DCNv3) + 6 factored
+               launches a frame, the f32 frame against plain versions, bf16
+               frames/s and a profile.
   train_overfit_mapv2  smoke_det_mapv2 through the overfit tool as
                ``train_overfit``, for the JAX package's 800 steps
                (MAPV2_OVERFIT_STEPS; loss_total at most 30% of its first
@@ -166,7 +199,8 @@ MSDA shapes, the det+occ train step's 9,900-query decoder, the refinement
 pass's TSA (2, 40000) over 200x200 and masked SCA (6, 40000) over 30x50
 (``tsa_occ``, ``sca_occ``, whose forward has rows too), MapTRv2's trained
 map decoder, 7,000 queries over 50x50 (``map_decoder_v2_train``, forward
-too; each MSDA
+too), InternImage-S's four DCNv3 shapes (``dcnv3_stage0``-``3``) and
+bev_tiny_det's SCA (``sca_tiny_det``), forward too; each MSDA
 backward row counts its value rows' list lengths, ``corners_per_row``),
 the base TSA over 200x200 and both base decoders, and the MSDA edge
 shapes (the
@@ -190,6 +224,7 @@ line, the card's name and power limit, and as the last line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -205,14 +240,18 @@ from apollo_vision_net_tpu_torch import ops
 from apollo_vision_net_tpu_torch.configs import (
     bev_base_det_map,
     bev_base_occ,
+    bev_base_occ_intern_s,
     bev_smoke_det_map,
     bev_smoke_det_occ,
     bev_smoke_det_occ_flow,
+    bev_tiny_det,
     bev_tiny_det_map_apollo,
     bev_tiny_det_mapv2,
     bev_tiny_det_occ_apollo,
     bev_tiny_det_occ_flow,
     bev_tiny_det_occ_tsa_apollo,
+    bev_tiny_occ_intern_s,
+    semantic_kitti_occ,
     smoke_det_mapv2,
 )
 from apollo_vision_net_tpu_torch.data.synthetic import (
@@ -221,12 +260,15 @@ from apollo_vision_net_tpu_torch.data.synthetic import (
     make_stream,
 )
 from apollo_vision_net_tpu_torch.data.temporal import StreamingState
+from apollo_vision_net_tpu_torch.models import internimage
+from apollo_vision_net_tpu_torch.models.decoder import DetectionTransformerDecoder
 from apollo_vision_net_tpu_torch.models.detector import build_model
 from apollo_vision_net_tpu_torch.models.heads.occ_head import occupancy_prediction
 from apollo_vision_net_tpu_torch.models.layers import use_generator
 from apollo_vision_net_tpu_torch.models.resnet import STAGE_BLOCKS
 from apollo_vision_net_tpu_torch.ops import _build, dcn_cuda, msda_cuda
 from apollo_vision_net_tpu_torch.ops.dcn import modulated_deform_conv_ref
+from apollo_vision_net_tpu_torch.ops.dcnv3 import sampling_locations
 from apollo_vision_net_tpu_torch.ops.msda import (
     materialize_factored,
     ms_deform_attn_factored,
@@ -274,6 +316,15 @@ OCC_BF16_AGREEMENT = 0.97
 # ops.plain_versions() on the GPU: the same convolutions and products, the
 # kernels' sums in other orders through 101 + ~80 layers; relative as above
 BASE_REL_TOL = 2e-3
+# the same f32 frames where no decoder has amplified the kernels' other
+# summation orders yet: the BEV, relative as above, and the det decoder's
+# first cross-attention, each query against its own magnitude (H100 at
+# 700 W, the 9 GPU f32 frame phases: BEV 5.4e-7 - 1.9e-6, first
+# cross-attention 5.1e-7 - 8.2e-7). The decoder's reference-point loop
+# then grows any such difference up to 18x a layer in its cross-attention,
+# to 1.5e-3 of `tiny_det`'s boxes (``decoder_split``), which
+# STREAM_REL_TOL and BASE_REL_TOL hold.
+UNAMPLIFIED_REL_TOL = 1e-5
 # one f32 flagship train step with the kernels against the same step under
 # ops.plain_versions() (same weights, batch, random draws and assignment).
 # Loss terms relative to each one's magnitude, as BASE_REL_TOL (the forwards
@@ -296,9 +347,12 @@ BASE_REL_TOL = 2e-3
 TRAIN_REL_TOL = 2e-3
 TRAIN_GRAD_REL_TOL = 5e-2
 # a trunk parameter whose gradient the f32 step reports, per backbone (the
-# DCN weight of R101's first stage-3 block)
+# DCN weight of R101's first stage-3 block, the DCNv3 offset layer of
+# InternImage-S's first stage-2 block; a ResNet without DCN stages reports
+# its largest trunk gradient)
 TRUNK_PARAM = {"dla": "img_backbone.level5.tree2.conv2.weight",
-               "resnet": "img_backbone.layer3_0.conv2_dcn_weight"}
+               "resnet": "img_backbone.layer3_0.conv2_dcn_weight",
+               "internimage": "img_backbone.stage2_block0.dcn.offset.weight"}
 TRAIN_GRAD_NORM_TOL = 2e-2
 TRAIN_GRAD_FLOOR = 1e-6
 WITNESS_EPS = 1e-6
@@ -326,7 +380,16 @@ WITNESSES = (("images", 1), ("images", 2), ("images", 3), ("weights", 1))
 # loss_bbox by 2e-6, 2e-5, 5e-5, 1e-3 and 3.7e-3 relative at decoder layers
 # 1-5 and the last decoder's sampling-offset gradient by 98.9% of its
 # largest element, and the witness moved them as much (95.3%; H100 chip
-# run), which no limit can tell from a fault.
+# run), which no limit can tell from a fault. bev_tiny_det's f32 step,
+# whose decoders sample the same 200x200 BEV, is held at the same depth: at
+# its 3 + 6 layers the kernels moved head.bev_embedding's gradient by 49.6%
+# of its largest element, the image witnesses by 33.1%, 11.4% and 7.6% and
+# the weight witness by 70.3% (H100 chip run). bev_tiny_occ_intern_s's f32
+# step is held at the same depth too (its 33 InternImage blocks cannot be
+# cut by a config field): at its 3 + 6 layers the plain step sat on a kink,
+# where the kernels and each image witness moved decoder layer 4's
+# sampling-offset gradient by the same 15.37% of its largest element
+# (15.373%, 15.376%, 15.370%, 15.376%; H100 chip run).
 BASE_CMP_SIZES = dict(encoder_layers=1, decoder_layers=2, map_decoder_layers=2)
 # the overfit run must bring loss_total to this share of its first value in
 # OVERFIT_STEPS steps (warmup 30, cosine to 300). The JAX package's run
@@ -801,6 +864,60 @@ def mapv2_cases(dev):
     return [msda_case("map_decoder_v2_train", g, dev, B=1,
                       hw=(m.bev_h, m.bev_w), H=8, D=m.embed_dims // 8, Q=nq,
                       P=4, ref_xy=ref.expand(1, nq, 4, 2))]
+
+
+def dcnv3_cases(dev):
+    """The four DCNv3 call shapes of an InternImage-S frame (the six 480x800
+    cameras folded into the batch): stage i samples its (120, 200) / 2^i map
+    with 5·2^i groups of 16 channels as heads, 9 taps as points, one level;
+    locations from ``ops.dcnv3.sampling_locations`` on N(0, 1) px offsets,
+    masks softmaxed over the taps. f32 is what the path runs (the value is
+    cast to f32 in every config); on the plain entry's vector variant and
+    msda_bwd's gather plan in both dtypes."""
+    m = bev_tiny_occ_intern_s().model
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, K = m.num_cams, 9
+    h, w = m.img_shape[0] // 4, m.img_shape[1] // 4
+    cases = []
+    for i, G in enumerate(internimage.GROUPS):
+        D = internimage.CHANNELS * 2**i // G
+        off = torch.randn((B, h, w, G, K, 2), generator=g, device=dev)
+        attn = _softmax_attn(g, dev, (B, h * w, G * K), K)
+        cases.append(dict(
+            name=f"dcnv3_stage{i}", kind="msda",
+            value=torch.randn((B, h * w, G, D), generator=g, device=dev),
+            shapes=((h, w),), loc=sampling_locations(off),
+            attn=attn.reshape(B, h * w, G, 1, K), tile_mask=None, q_tile=32,
+            variant=dict.fromkeys(("float32", "bfloat16"), "vector"),
+            bwd_variant=dict.fromkeys(("float32", "bfloat16"), "gather")))
+        # a stride-2 'SAME' conv rounds up
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return cases
+
+
+def tiny_det_cases(dev):
+    """bev_tiny_det's SCA: the 200x200 pillars over the six cameras' single
+    15x25 map (R50 stage 4 through one FPN level), tiles of 32 masked by
+    the camera ring's visibility; its TSA over 200x200 is the base TSA's
+    geometry (``tsa_base``)."""
+    cfg = bev_tiny_det()
+    m = cfg.model
+    g = torch.Generator(device=dev).manual_seed(9)
+    Q = m.bev_h * m.bev_w
+    fh, fw = m.img_shape[0] // 32, m.img_shape[1] // 32
+    N, H, D, P, qt = m.num_cams, 8, m.embed_dims // 8, 8, 32
+    ref_cam, tile_mask = sca_geometry(cfg, dev, qt)
+    ref_flat = ref_cam.reshape(N, Q, -1).repeat(1, 1, P // ref_cam.shape[2])
+    off = torch.randn((1, Q, H * P * 2), generator=g, device=dev) * 2.0
+    attn = torch.softmax(torch.randn((1, Q, H, P), generator=g, device=dev), -1)
+    loc, attn = materialize_factored(ref_flat, off, attn.reshape(1, Q, -1),
+                                     ((fh, fw),), H, P)
+    return [dict(name="sca_tiny_det", kind="msda",
+                 value=torch.randn((N, fh * fw, H, D), generator=g, device=dev),
+                 shapes=((fh, fw),),
+                 loc=loc.reshape(N, Q, H, 1, P, 2).contiguous(),
+                 attn=attn.reshape(N, Q, H, 1, P).contiguous(),
+                 tile_mask=tile_mask, q_tile=qt)]
 
 
 def occ_tsa_cases(dev):
@@ -1468,7 +1585,8 @@ def conv3x3_ms(case, dtype):
 def phase_kernels(dev):
     rows, outs = [], {}
     cases = (flagship_cases(dev) + occ_cases(dev) + [occ_tsa_cases(dev)[1]]
-             + mapv2_cases(dev) + base_msda_cases(dev)
+             + mapv2_cases(dev) + dcnv3_cases(dev) + tiny_det_cases(dev)
+             + base_msda_cases(dev)
              + msda_edge_cases(dev) + factored_edge_cases(dev) + dcn_cases(dev))
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1526,7 +1644,8 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     base = [c for c in base_msda_cases(dev) if c["name"] != "sca_base_materialized"]
     rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev)
-                     + list(occ_tsa_cases(dev)) + mapv2_cases(dev) + base
+                     + list(occ_tsa_cases(dev)) + mapv2_cases(dev)
+                     + dcnv3_cases(dev) + tiny_det_cases(dev) + base
                      + base_factored_bwd_cases(next(
                          c for c in base if c["name"] == "sca_base_factored"))
                      + msda_edge_cases(dev) + factored_edge_cases(dev)
@@ -1692,27 +1811,134 @@ def phase_stream(dev):
 def f32_frame_vs_plain(phase, model32, dev, frames, tol):
     """One f32 frame with history (frame 1 after frame 0) on the GPU,
     kernels against the plain versions of the same frame from the same
-    carried BEV; no kernel may launch under the plain versions."""
+    carried BEV; no kernel may launch under the plain versions. A third
+    frame, plain versions with the kernels' BEV put into the det decoder,
+    splits the decoder's difference (``decoder_split``). Every output is
+    held at ``tol``; the BEV and the decoder's first cross-attention at
+    UNAMPLIFIED_REL_TOL."""
     m = model32.head
     deltas = first_deltas(frames)
     _, prev = frame_step(model32, dev, frames[0], deltas[0], torch.zeros(
         (1, m.bev_h * m.bev_w, m.embed_dims), device=dev))
-    got, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
-    torch.cuda.synchronize()
-    before = read_launch_counts()
-    t0 = time.perf_counter()
-    with ops.plain_versions():
-        want, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    with decoder_taps(model32) as (calls, swap):
+        got, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
+        torch.cuda.synchronize()
+        before = read_launch_counts()
+        t0 = time.perf_counter()
+        with ops.plain_versions():
+            want, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_launches = {k: v - before[k] for k, v in read_launch_counts().items()}
+        swap["memory"] = calls[0]["memory"]
+        with ops.plain_versions():
+            mixed, _ = frame_step(model32, dev, frames[1], deltas[1], prev)
     errs = {k: _rel_err(got[k], want[k]) for k in got}
     emit({"phase": phase, "has_prev": deltas[1][1], "rel_err": errs,
-          "tol": tol, "plain_frame_s": plain_s,
-          "plain_launches": {k: v - before[k]
-                             for k, v in read_launch_counts().items()}})
+          "tol": tol, "plain_frame_s": plain_s, "plain_launches": plain_launches})
+    split = decoder_split(phase + "_split", model32, lidar2img=frames[1]["lidar2img"],
+                          outs=(got, want, mixed), calls=calls)
+    emit(split)
+    first = split["layers"][0]["AB"]["cross_attn"]
     if (deltas[1][1] != 1.0 or max(errs.values()) > tol
+            or max(errs["bev_embed"], first) > UNAMPLIFIED_REL_TOL
             or read_launch_counts() != before):
-        raise AssertionError(f"{phase}: GPU f32 frame disagrees with plain: {errs}")
+        raise AssertionError(f"{phase}: GPU f32 frame disagrees with plain: {errs}, "
+                             f"first decoder cross-attention {first}")
+
+
+@contextlib.contextmanager
+def decoder_taps(model):
+    """Records, on every call of the model's det decoder, its BEV input,
+    its (states, refs, regs) and each layer's self-attention,
+    cross-attention and FFN outputs; a BEV put into ``swap["memory"]``
+    replaces the decoder's input."""
+    dec = next(x for x in model.modules()
+               if isinstance(x, DetectionTransformerDecoder) and x.ref_mode == "det3d")
+    calls, swap = [], {}
+    subs = {}
+
+    def pre(mod, args, kwargs):
+        subs.clear()
+        if "memory" in swap:
+            return (args[0], swap["memory"], *args[2:]), kwargs
+        return None
+
+    def post(mod, args, kwargs, out):
+        states, refs, regs = out
+        calls.append({"memory": args[1].clone(), "states": states, "refs": refs,
+                      "regs": regs, **{k: torch.stack(v) for k, v in subs.items()}})
+
+    def sub(name):
+        return lambda mod, args, out: subs.setdefault(name, []).append(out)
+
+    hooks = [dec.register_forward_pre_hook(pre, with_kwargs=True),
+             dec.register_forward_hook(post, with_kwargs=True)]
+    for layer in dec.layers:
+        hooks += [getattr(layer, n).register_forward_hook(sub(n))
+                  for n in ("self_attn", "cross_attn", "ffn")]
+    try:
+        yield calls, swap
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _row_rel(a, b):
+    """max over rows of |a - b| / |b|, each row's max magnitude its scale."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs().amax(-1) / b.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def decoder_split(phase, model, lidar2img, outs, calls):
+    """Where an f32 frame's det difference, kernels (A) against plain
+    versions (B), arises. C is the plain frame with A's BEV put into the
+    decoder: C against B is the BEV's difference carried through the
+    decoder, A against C the decoder's own MSDA kernels. For each decoder
+    layer: the worst query's relative difference of the self-attention,
+    cross-attention, FFN output and state (each row against its own
+    magnitude), the refs' largest difference in BEV cells and the
+    regressions' (``_rel_err``). For the worst box channel of the last
+    layer: its query, the query's state difference and ref after each layer,
+    and whether a camera sees the BEV cell under each ref. The BEV's
+    difference per cell against each cell's magnitude, seen and unseen."""
+    head = model.head
+    (ka, kb, kc), (oa, ob, oc) = calls, outs
+    cells = float(max(head.bev_h, head.bev_w))
+    pairs = {"AB": (ka, kb), "CB": (kc, kb), "AC": (ka, kc)}
+    layers = []
+    for lvl in range(ka["states"].shape[0]):
+        row = {}
+        for name, (x, y) in pairs.items():
+            row[name] = {
+                **{k: _row_rel(x[k][lvl], y[k][lvl])
+                   for k in ("self_attn", "cross_attn", "ffn", "states")},
+                "ref_cells": float((x["refs"][lvl] - y["refs"][lvl])[..., :2]
+                                   .abs().max()) * cells,
+                "regs": _rel_err(x["regs"][lvl], y["regs"][lvl])}
+        layers.append(row)
+    final = {name: {k: _rel_err(x[k], y[k]) for k in ("cls_scores", "bbox_preds")}
+             for name, (x, y) in {"AB": (oa, ob), "CB": (oc, ob), "AC": (oa, oc)}.items()}
+    diff = (oa["bbox_preds"] - ob["bbox_preds"]).abs()[0]       # (Q, code)
+    q, c = divmod(int(diff.argmax()), diff.shape[-1])
+    _, _, bev_mask = head._geometry(lidar2img.to(ka["memory"].device)[None])
+    seen = bev_mask.any(-1).any(0)[0]                           # (HW,)
+    refs = kb["refs"][:, 0, q]                                  # (Lyr, 3)
+    ix = (refs[:, 0] * head.bev_w).long().clamp(0, head.bev_w - 1)
+    iy = (refs[:, 1] * head.bev_h).long().clamp(0, head.bev_h - 1)
+    worst = {"query": q, "channel": c, "abs_err": float(diff[q, c]),
+             "state": [_row_rel(ka["states"][lvl, 0, q], kb["states"][lvl, 0, q])
+                       for lvl in range(refs.shape[0])],
+             "ref": [[round(float(v), 6) for v in r] for r in refs],
+             "ref_cell_seen": [bool(seen[i * head.bev_w + j]) for i, j in zip(iy, ix)]}
+    bev = (oa["bev_embed"] - ob["bev_embed"]).abs().amax(-1)[0] \
+        / ob["bev_embed"].abs().amax(-1)[0].clamp_min(1e-30)
+    edge = torch.minimum(kb["refs"][..., :2], 1 - kb["refs"][..., :2])
+    return {"phase": phase, "layers": layers, "final": final, "worst": worst,
+            "bev_cell_rel": {"seen": float(bev[seen].max()) if bool(seen.any()) else None,
+                             "unseen": float(bev[~seen].max()) if bool((~seen).any()) else None,
+                             "unseen_share": float((~seen).float().mean())},
+            "refs_within_1e-3_of_edge": float((edge < 1e-3).float().mean())}
 
 
 def occ_bf16_vs_f32(phase, cfg, model, model32, dev, frames):
@@ -1761,40 +1987,49 @@ def occ_bf16_vs_f32(phase, cfg, model, model32, dev, frames):
         raise AssertionError(f"{phase}: {line}")
 
 
-def phase_stream_model(dev, cfg, phase, n_fps=20):
-    """A det+occ or MapTRv2 model at full width through the streaming
-    runner: TSA per encoder layer and cross-attention per det (and map)
-    decoder layer on the plain entry, SCA per encoder layer on the masked
-    one, plus one TSA and one SCA with the refinement pass (``occ_tsa``),
-    all on the vector variants; the occupancy grid's class histogram (and
-    the flows' shape with a flow branch) or both segmentation logits'
-    shapes; the f32 frame against plain versions; with an occupancy head,
-    the bf16 occupancy against the f32 one (``occ_bf16_vs_f32``); frames/s
-    and profiles."""
+def phase_stream_model(dev, cfg, phase, n_fps=20, f32=True):
+    """A det, det+occ or MapTRv2 model at full width through the streaming
+    runner: TSA per encoder layer, cross-attention per det (and map)
+    decoder layer and, with InternImage, DCNv3 per trunk block on the plain
+    entry, SCA per encoder layer on the masked one, plus one TSA and one
+    SCA with the refinement pass (``occ_tsa``), all on the vector variants;
+    the occupancy grid's class histogram (and the flows' shape with a flow
+    branch) or both segmentation logits' shapes; offset predictors seeded
+    as ``new_model`` seeds them; frames/s and a profile in the configured
+    dtype. With ``f32``: the f32 frame against plain versions and, for a
+    bf16 config, the bf16 occupancy against the f32 one
+    (``occ_bf16_vs_f32``, with an occupancy head) and f32 frames/s and a
+    profile."""
     cfg32 = f32_config(cfg)
     m = cfg.model
     torch.cuda.reset_peak_memory_stats()
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
-    model = build_model(cfg, device=dev, seed=0)
+    model = new_model(cfg, dev)
     n_sca = m.encoder_layers + occ_tsa_layers(cfg)
-    n_plain = n_sca + m.decoder_layers + (m.map_decoder_layers if m.with_map else 0)
+    n_plain = (n_sca + dcnv3_blocks(cfg) + m.decoder_layers
+               + (m.map_decoder_layers if m.with_map else 0))
     launches = drive(phase, cfg, model, frames, {
         **dict.fromkeys(read_launch_counts(), 0),
         "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
         "msda_fwd_masked": n_sca, "msda_fwd_masked.vector": n_sca})
-    model32 = build_model(cfg32, device=dev, seed=0)
-    model32.load_state_dict(model.state_dict())
-    f32_frame_vs_plain(phase + "_f32_vs_plain", model32, dev, frames,
-                       STREAM_REL_TOL)
-    if m.with_occupancy:
-        occ_bf16_vs_f32(phase + "_bf16_vs_f32", cfg, model, model32, dev,
-                        frames)
-    fps = {name: frames_per_s(c, mdl, frames, n_fps)
-           for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32))}
+    dname = "bf16" if cfg.compute_dtype == "bfloat16" else "f32"
+    runs = [(dname, cfg, model)]
+    if f32:
+        model32 = model
+        if dname != "f32":
+            model32 = build_model(cfg32, device=dev, seed=0)
+            model32.load_state_dict(model.state_dict())
+            runs.append(("f32", cfg32, model32))
+        f32_frame_vs_plain(phase + "_f32_vs_plain", model32, dev, frames,
+                           STREAM_REL_TOL)
+        if m.with_occupancy and dname != "f32":
+            occ_bf16_vs_f32(phase + "_bf16_vs_f32", cfg, model, model32, dev,
+                            frames)
+    fps = {name: frames_per_s(c, mdl, frames, n_fps) for name, c, mdl in runs}
     emit({"phase": phase + "_fps", "frames_per_s": fps,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32)):
+    for name, c, mdl in runs:
         profile_frames("profile_" + phase.removeprefix("stream_"), name, c,
                        mdl, frames, 1e3 / fps[name])
     return launches
@@ -1819,15 +2054,43 @@ def phase_stream_occ_aggr(dev):
 
 @torch.no_grad()
 def perturb_offset_predictors(model, seed):
-    """Seeded N(0, 1/fan_in) noise on the zero-initialized DCN offset convs
-    and deformable-attention offset layers, so that samples land between
-    pixels and cells (with zero kernels every DCN tap samples a whole pixel
-    and every attention offset is a constant)."""
+    """Seeded N(0, 1/fan_in) noise on the zero-initialized offset
+    predictors: the DCN offset convs (``conv2_offset``), the
+    deformable-attention offset layers (``sampling_offsets``) and
+    InternImage's DCNv3 ``offset`` and ``mask`` layers, so that samples
+    land between pixels and cells (with zero kernels every DCN and DCNv3
+    tap samples a whole pixel, at a kink of the bilinear weights, every
+    DCNv3 tap weighs 1/9 and every attention offset is a constant). On the
+    unit-scale ``dw_norm`` output the DCNv3 offsets come out ~N(0, 1) px."""
     g = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
-        if name.endswith(("conv2_offset.weight", "sampling_offsets.weight")):
+        if name.endswith(("conv2_offset.weight", "sampling_offsets.weight",
+                          "dcn.offset.weight", "dcn.mask.weight")):
             noise = torch.randn(p.shape, generator=g) / math.sqrt(p[0].numel())
             p.add_(noise.to(p.device))
+
+
+@torch.no_grad()
+def perturb_trunk_stem_biases(model, seed):
+    """Seeded N(0, 1/fan_in) noise on the biases of InternImage's stem and
+    downsampling convs (zero-initialized, as flax initializes them). Where
+    the grid mask blanks the image, a zero bias makes every LayerNorm of
+    the trunk normalize an all-zero vector, whose backward gain is
+    1/sqrt(1e-6) = 1,000 a norm: through the 33 blocks the gradient of
+    such a pixel overflows to inf, with the kernels and with the plain
+    versions alike, and the step's clip turns every gradient into NaN.
+    The JAX package's trunk overflows in the same parameters
+    (tests/test_torch_internimage.py,
+    ``test_zero_stem_biases_over_a_blanked_stripe_overflow_as_in_jax``), so
+    this is the model's own behaviour at flax's init, not the port's. With
+    the bias noise the blanked pixels carry a generic vector from the first
+    conv on."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        if re.fullmatch(r"img_backbone\.(stem[12]|down\d+)\.bias", name):
+            conv = model.get_submodule(name.rsplit(".", 1)[0])
+            std = 1.0 / math.sqrt(conv.weight[0].numel())
+            p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
 
 
 def phase_stream_base(dev):
@@ -1864,24 +2127,27 @@ def phase_stream_base(dev):
     return launches
 
 
-def phase_base_occ(dev):
+def phase_base_occ(dev, cfg=None, phase="base_occ", train=True):
     """bev_base_occ at full width (the base trunk, 200x200 BEV, the MLP
-    occupancy head on a 200x200x16 grid): streamed frames with exact launch
-    counts per frame (12 plain: 6 TSA and 6 det decoder, 6 factored, 26
-    DCN; vector), finite outputs, its f32 frame with history against the
-    same frame under ``ops.plain_versions()``, bf16 frames/s and a
-    profile; then its train step: 3 bf16 steps with exact launch counts,
-    steps/s, peak memory and a profile."""
-    cfg = bev_base_occ()
+    occupancy head on a 200x200x16 grid), or another base-scale occupancy
+    config (``bev_base_occ_intern_s``: InternImage-S stages 2-4 in place of
+    R101-DCN): streamed frames with exact launch counts per frame (12
+    plain: 6 TSA and 6 det decoder, plus 33 DCNv3 with InternImage-S; 6
+    factored; 26 DCN with R101-DCN; vector), finite outputs, its f32 frame
+    with history against the same frame under ``ops.plain_versions()``,
+    bf16 frames/s and a profile; then, with ``train``, its train step: 3
+    bf16 steps with exact launch counts, steps/s, peak memory and a
+    profile."""
+    cfg = cfg or bev_base_occ()
     cfg32 = f32_config(cfg)
     m = cfg.model
     torch.cuda.reset_peak_memory_stats()
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
     model = new_model(cfg, dev)
-    n_plain = m.encoder_layers + m.decoder_layers
+    n_plain = m.encoder_layers + m.decoder_layers + dcnv3_blocks(cfg)
     n_dcn = dcn_blocks(cfg)
-    stream = drive("base_occ", cfg, model, frames, {
+    stream = drive(phase, cfg, model, frames, {
         **dict.fromkeys(read_launch_counts(), 0),
         "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
         "msda_fwd_factored": m.encoder_layers,
@@ -1889,16 +2155,19 @@ def phase_base_occ(dev):
         "dcn_fwd": n_dcn, "dcn_fwd.vector": n_dcn})
     model32 = build_model(cfg32, device=dev, seed=0)
     model32.load_state_dict(model.state_dict())
-    f32_frame_vs_plain("base_occ_f32_vs_plain", model32, dev, frames,
+    f32_frame_vs_plain(phase + "_f32_vs_plain", model32, dev, frames,
                        BASE_REL_TOL)
     del model32
     fps = frames_per_s(cfg, model, frames, 10)
-    emit({"phase": "base_occ_fps", "frames_per_s": {"bf16": fps},
+    emit({"phase": phase + "_fps", "frames_per_s": {"bf16": fps},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    profile_frames("profile_base_occ", "bf16", cfg, model, frames, 1e3 / fps)
+    profile_frames("profile_" + phase.removeprefix("stream_"), "bf16", cfg,
+                   model, frames, 1e3 / fps)
     del model
     torch.cuda.empty_cache()
-    train = phase_train(dev, cfg, "base_occ_train", f32=False, compare=False)
+    if not train:
+        return stream
+    train = phase_train(dev, cfg, phase + "_train", f32=False, compare=False)
     return stream, train
 
 
@@ -1913,12 +2182,20 @@ def occ_tsa_layers(cfg) -> int:
 
 def dcn_blocks(cfg) -> int:
     """DCN convolutions a frame runs: every block of the ResNet's DCN
-    stages (23 + 3 in R101 stages 3-4), none in DLA."""
+    stages (23 + 3 in R101 stages 3-4), none in DLA or InternImage."""
     m = cfg.model
     if m.backbone_type != "resnet":
         return 0
     return sum(n for n, dcn in zip(STAGE_BLOCKS[m.backbone_depth],
                                    m.backbone_dcn_stages) if dcn)
+
+
+def dcnv3_blocks(cfg) -> int:
+    """DCNv3 calls a frame runs on the plain MSDA entry: one a block of
+    InternImage-S (4 + 4 + 21 + 4), none in the other trunks."""
+    if cfg.model.backbone_type != "internimage":
+        return 0
+    return sum(internimage.DEPTHS)
 
 
 # the variant each entry takes on the main paths where it is not "vector"
@@ -1936,16 +2213,19 @@ def train_launches_per_step(cfg) -> dict:
     history replay is under no_grad). The occupancy refinement pass adds
     one TSA and one SCA on the supervised frame, forward and backward.
     MapTRv2's decoupled map layers make one cross-attention call each, as
-    MapTR v1's do, over all 350 vectors in training."""
+    MapTR v1's do, over all 350 vectors in training. InternImage-S's 33
+    DCNv3 blocks run the plain entry in each frame and its backward on the
+    supervised one."""
     m = cfg.model
     T, E, R = m.queue_length, m.encoder_layers, occ_tsa_layers(cfg)
     dec = m.decoder_layers + (m.map_decoder_layers if m.with_map else 0)
+    n_v3 = dcnv3_blocks(cfg)
     multi = m.num_feature_levels > 1
     sca_fwd = "msda_fwd_factored" if multi else "msda_fwd_masked"
     sca_bwd = "msda_bwd_factored" if multi else "msda_bwd_masked"
     n_dcn = dcn_blocks(cfg)
-    n = {"msda_fwd": T * E + R + dec, sca_fwd: T * E + R,
-         "msda_bwd": E + R + dec, sca_bwd: E + R, "dcn_fwd": T * n_dcn,
+    n = {"msda_fwd": T * (E + n_v3) + R + dec, sca_fwd: T * E + R,
+         "msda_bwd": E + n_v3 + R + dec, sca_bwd: E + R, "dcn_fwd": T * n_dcn,
          "dcn_bwd": n_dcn}
     out = dict.fromkeys(read_launch_counts(), 0)
     out.update({k: v for k, v in n.items() if v})
@@ -1956,11 +2236,14 @@ def train_launches_per_step(cfg) -> dict:
 
 def new_model(cfg, dev):
     """The config's model from seed 0, with seeded noise on its
-    zero-initialized offset predictors where the trunk has DCN (as
-    ``phase_stream_base``)."""
+    zero-initialized offset predictors where the trunk has DCN or DCNv3 (as
+    ``phase_stream_base``), and on InternImage's stem and downsampling
+    biases (``perturb_trunk_stem_biases``)."""
     model = build_model(cfg, device=dev, seed=0)
-    if dcn_blocks(cfg):
+    if dcn_blocks(cfg) or dcnv3_blocks(cfg):
         perturb_offset_predictors(model, seed=0)
+    if dcnv3_blocks(cfg):
+        perturb_trunk_stem_biases(model, seed=0)
     return model
 
 
@@ -2183,7 +2466,10 @@ def f32_step_vs_plain(dev, cfg32, phase, batch, gen):
           "trunk_grad_param": trunk,
           "trunk_grad_max": float(want_g[trunk].abs().max())})
     bad = ([(k, v) for k, v in rel.items() if v > TRAIN_GRAD_REL_TOL]
-           + [(k, v) for k, v in norm.items() if v > TRAIN_GRAD_NORM_TOL])
+           + [(k, v) for k, v in norm.items() if v > TRAIN_GRAD_NORM_TOL]
+           + [(k, "non-finite") for k in set(want_g) & set(got_g)
+              if not (bool(torch.isfinite(want_g[k]).all())
+                      and bool(torch.isfinite(got_g[k]).all()))])
     if (max(loss_err.values()) > TRAIN_REL_TOL or bad
             or set(got_g) != set(want_g) or any(plain_launches.values())
             or len(want_g) != len(dict(model32.named_parameters()))):
@@ -2392,6 +2678,28 @@ def main() -> int:
                                                   "stream_mapv2")
     torch.cuda.empty_cache()
     launches["train_mapv2"] = phase_train(dev, bev_tiny_det_mapv2(), "train_mapv2")
+    torch.cuda.empty_cache()
+    launches["stream_intern_s"] = phase_stream_model(
+        dev, bev_tiny_occ_intern_s(), "stream_intern_s", n_fps=10)
+    torch.cuda.empty_cache()
+    launches["train_intern_s"] = phase_train(dev, bev_tiny_occ_intern_s(),
+                                             "train_intern_s",
+                                             cmp_sizes=BASE_CMP_SIZES)
+    torch.cuda.empty_cache()
+    launches["stream_tiny_det"] = phase_stream_model(dev, bev_tiny_det(),
+                                                     "stream_tiny_det", n_fps=10)
+    torch.cuda.empty_cache()
+    launches["train_tiny_det"] = phase_train(dev, bev_tiny_det(), "train_tiny_det",
+                                             cmp_sizes=BASE_CMP_SIZES)
+    torch.cuda.empty_cache()
+    launches["stream_kitti"] = phase_stream_model(
+        dev, semantic_kitti_occ(), "stream_kitti", n_fps=10, f32=False)
+    torch.cuda.empty_cache()
+    launches["train_kitti"] = phase_train(dev, semantic_kitti_occ(), "train_kitti",
+                                          f32=False, compare=False)
+    torch.cuda.empty_cache()
+    launches["stream_base_intern_s"] = phase_base_occ(
+        dev, bev_base_occ_intern_s(), "stream_base_intern_s", train=False)
     torch.cuda.empty_cache()
     # the chamfer bar alone: the JAX package's own 800-step run of this
     # config reached chamfer mAP 0.7315 but det mAP 0.041

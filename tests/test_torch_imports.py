@@ -42,6 +42,7 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.ops._build",
     "apollo_vision_net_tpu_torch.ops.dcn",
     "apollo_vision_net_tpu_torch.ops.dcn_cuda",
+    "apollo_vision_net_tpu_torch.ops.dcnv3",
     "apollo_vision_net_tpu_torch.ops.grid_sample",
     "apollo_vision_net_tpu_torch.ops.msda",
     "apollo_vision_net_tpu_torch.ops.msda_cuda",
@@ -49,6 +50,7 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.utils.geometry",
     "apollo_vision_net_tpu_torch.models.detector",
     "apollo_vision_net_tpu_torch.models.fpn",
+    "apollo_vision_net_tpu_torch.models.internimage",
     "apollo_vision_net_tpu_torch.models.resnet",
     "apollo_vision_net_tpu_torch.runtime.inference",
 ]
@@ -98,6 +100,22 @@ def test_base_config_equals_the_jax_one():
     t = port_configs.bev_base_det_map()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.model.map_patch_size == j.model.map_patch_size
+
+
+@pytest.mark.parametrize("name", ["bev_tiny_det", "bev_smoke_det",
+                                  "bev_tiny_det_occ", "bev_tiny_occ",
+                                  "semantic_kitti_occ", "bev_tiny_occ_intern_s",
+                                  "bev_base_occ_intern_s"])
+def test_r50_and_internimage_configs_equal_the_jax_ones(name):
+    """The R50 BEVFormer configs and the InternImage-S ones (the base one
+    built with ``dataclasses.replace`` on ``bev_base_occ``, as JAX builds
+    it), field for field."""
+    j = getattr(jax_configs, name)()
+    t = getattr(port_configs, name)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.map_patch_size == j.model.map_patch_size
+    assert t.model.backbone_type == (
+        "internimage" if name.endswith("intern_s") else "resnet")
 
 
 def test_data_copies_equal_the_jax_ones():
