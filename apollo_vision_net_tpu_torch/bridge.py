@@ -38,7 +38,13 @@ named as the encoder's scanned layer), ``occ_tsa_head``, ``flow_branches``,
 ``stem_ln1``, ``stage{i}_block{b}`` (``dcn/{input_proj, dw_conv, dw_norm,
 offset, mask, output_proj}``, ``norm1``, ``norm2``, ``mlp_fc1``,
 ``mlp_fc2`` and the layer scales ``gamma1``/``gamma2``, which keep their
-name), ``down{i}`` and ``down_ln{i}``.
+name), ``down{i}`` and ``down_ln{i}``; the VoxelFormer head's
+``voxel_embedding``, ``voxel_pos`` (``z_embed``, ``row_embed``,
+``col_embed``), ``encoder_layer{i}`` (``tsa``, ``sca``, ``ffn``,
+``norm1``-``norm3``), ``voxel2bev``, ``occ_proj`` and its ``decoder`` (a
+scanned stack, as above); the HybridFormer head's ``bev_embedding``,
+``positional_encoding``, ``pos_stage{i}``, ``bev_layer{i}``,
+``voxel_stage{s}_layer{i}``, ``transition{i}`` and ``value_proj_stage{i}``.
 
 Every flax leaf is used exactly once.
 """

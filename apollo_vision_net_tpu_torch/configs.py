@@ -403,3 +403,104 @@ def semantic_kitti_occ() -> ExperimentConfig:
         ),
         compute_dtype="bfloat16",
     )
+
+
+def voxel_tiny_occ() -> ExperimentConfig:
+    """projects/configs/voxelformer/voxel_tiny_occ.py — VoxelFormer with
+    bev_z=4 voxel queries, R50, det+occ."""
+    return ExperimentConfig(
+        name="voxel_tiny_occ",
+        model=ModelConfig(
+            bev_h=50, bev_w=50, bev_z=4, head_family="voxel",
+            with_occupancy=True, occ_dims=64,
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def hybrid_tiny_occ() -> ExperimentConfig:
+    """projects/configs/hybrid/hybrid_tiny_occ.py — OccNet cascade encoder
+    dims [256,128,64,32,16], z [1,2,4,8,16]."""
+    return ExperimentConfig(
+        name="hybrid_tiny_occ",
+        model=ModelConfig(
+            bev_h=50, bev_w=50, head_family="hybrid",
+            with_occupancy=True, occ_dims=16,
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def voxel_base_occ() -> ExperimentConfig:
+    """projects/configs/voxelformer/voxel_base_occ.py — voxel queries at
+    the 100×100×4 base grid."""
+    return ExperimentConfig(
+        name="voxel_base_occ",
+        model=ModelConfig(
+            bev_h=100, bev_w=100, head_family="voxel", bev_z=4,
+            backbone_depth=101,
+            backbone_dcn_stages=(False, False, True, True),
+            with_occupancy=True, occ_dims=32,
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def hybrid_base_occ() -> ExperimentConfig:
+    """projects/configs/hybrid/hybrid_base_occ.py — the OccNet cascade at
+    base resolution (100×100 BEV stage 0)."""
+    return ExperimentConfig(
+        name="hybrid_base_occ",
+        model=ModelConfig(
+            bev_h=100, bev_w=100, head_family="hybrid",
+            backbone_depth=101,
+            backbone_dcn_stages=(False, False, True, True),
+            with_occupancy=True, occ_dims=16,
+        ),
+        compute_dtype="bfloat16",
+    )
+
+
+def hybrid_tiny_occ_intern_s() -> ExperimentConfig:
+    """projects/configs/hybrid/hybrid_tiny_occ_intern_s.py: hybrid_tiny_occ
+    with InternImage-S in place of R50."""
+    cfg = hybrid_tiny_occ()
+    return dataclasses.replace(
+        cfg, name="hybrid_tiny_occ_intern_s",
+        model=dataclasses.replace(
+            cfg.model, backbone_type="internimage",
+            backbone_out_indices=(3,)))
+
+
+def smoke_voxel_occ() -> ExperimentConfig:
+    """CI-sized VoxelFormer det+occ."""
+    return ExperimentConfig(
+        name="smoke_voxel_occ",
+        model=ModelConfig(
+            bev_h=6, bev_w=6, bev_z=2, head_family="voxel", num_query=12,
+            embed_dims=32, encoder_layers=1, decoder_layers=2,
+            feedforward_channels=64, num_cams=2, img_shape=(64, 96),
+            queue_length=2, with_occupancy=True,
+            occ_xdim=12, occ_ydim=12, occ_zdim=4, occ_dims=16,
+        ),
+        data=DataConfig(max_gt_boxes=8),
+        optim=OptimConfig(warmup_iters=2, total_steps=100),
+    )
+
+
+def smoke_hybrid_occ() -> ExperimentConfig:
+    """CI-sized HybridFormer det+occ."""
+    return ExperimentConfig(
+        name="smoke_hybrid_occ",
+        model=ModelConfig(
+            bev_h=6, bev_w=6, head_family="hybrid", num_query=12,
+            embed_dims=32, decoder_layers=2, feedforward_channels=64,
+            num_cams=2, img_shape=(64, 96), queue_length=2,
+            hybrid_encoder_embed_dims=(32, 16, 8),
+            hybrid_feature_map_z=(1, 2, 4),
+            with_occupancy=True,
+            occ_xdim=12, occ_ydim=12, occ_zdim=4, occ_dims=8,
+        ),
+        data=DataConfig(max_gt_boxes=8),
+        optim=OptimConfig(warmup_iters=2, total_steps=100),
+    )

@@ -10,7 +10,7 @@ starts from (and, with ``keep_bev_history``, the history BEVs whose
 occupancy the head supervises too). ``forward_test_frame`` is the stateful
 streaming step.
 ``build_model`` builds a det, det+map (MapTR v1 or v2) or det+occupancy
-model from a config,
+model (a BEV, VoxelFormer or HybridFormer head) from a config,
 with DLA-34 + SECONDFPNV2 (the flagship, Apollo's det+occ model), ResNet
 (optionally with DCN stages) + FPN (the R50 and base configs, the smoke
 configs) or InternImage-S + FPN (the ``*_intern_s`` configs), with random
@@ -36,6 +36,7 @@ from apollo_vision_net_tpu_torch.models.heads.det_head import (
 from apollo_vision_net_tpu_torch.models.heads.map_head import BEVFormerDetMapHead
 from apollo_vision_net_tpu_torch.models.heads.map_head_v2 import BEVFormerDetMapHeadV2
 from apollo_vision_net_tpu_torch.models.heads.occ_head import BEVFormerOccupancyHead
+from apollo_vision_net_tpu_torch.models.hybrid import HybridFormerOccupancyHead
 from apollo_vision_net_tpu_torch.models.internimage import (
     LAYER_SCALE,
     DCNv3Block,
@@ -48,6 +49,11 @@ from apollo_vision_net_tpu_torch.models.layers import (
 )
 from apollo_vision_net_tpu_torch.models.resnet import CHANNELS, ResNet
 from apollo_vision_net_tpu_torch.models.second_fpn import SECONDFPNV2
+from apollo_vision_net_tpu_torch.models.voxel import (
+    VoxelDetOccHead,
+    VoxelFormerOccupancyHead,
+    VoxelTemporalSelfAttention,
+)
 from apollo_vision_net_tpu_torch.utils.grid_mask import grid_mask
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -83,10 +89,18 @@ class BEVFormer(nn.Module):
             f.permute(0, 2, 3, 1).reshape((B, N) + f.shape[2:] + f.shape[1:2]).float()
             for f in feats)
 
-    def _zero_bev(self, img: torch.Tensor) -> torch.Tensor:
-        h = self.head
-        return torch.zeros((img.shape[0], h.bev_h * h.bev_w, h.embed_dims),
-                           dtype=torch.float32, device=img.device)
+    @property
+    def prev_tokens(self) -> int:
+        """Tokens of the temporal carry: bev_h·bev_w for a BEV head, the
+        voxels of a VoxelFormer head, every stage's voxels of a HybridFormer
+        head."""
+        return self.head.prev_tokens
+
+    def zero_carry(self, batch: int, device) -> torch.Tensor:
+        """The carry of a stream with no history: (batch, prev_tokens,
+        embed_dims) zeros."""
+        return torch.zeros((batch, self.prev_tokens, self.head.embed_dims),
+                           dtype=torch.float32, device=device)
 
     @torch.no_grad()
     def obtain_history_bev(self, imgs_queue, can_bus_queue, lidar2img_queue,
@@ -99,7 +113,7 @@ class BEVFormer(nn.Module):
         was_training = self.training
         self.eval()
         try:
-            prev_bev = self._zero_bev(imgs_queue)
+            prev_bev = self.zero_carry(imgs_queue.shape[0], imgs_queue.device)
             history = []
             for t in range(imgs_queue.shape[1]):
                 feats = self.extract_img_feat(imgs_queue[:, t])
@@ -128,7 +142,7 @@ class BEVFormer(nn.Module):
             if self.keep_bev_history:
                 kwargs["prev_bevs"] = history
         else:
-            prev_bev = self._zero_bev(img)
+            prev_bev = self.zero_carry(img.shape[0], img.device)
         feats = self.extract_img_feat(img[:, -1])
         return self.head(feats, can_bus=can_bus[:, -1],
                          lidar2img=lidar2img[:, -1], prev_bev=prev_bev,
@@ -161,6 +175,23 @@ def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
         # config pins them
         dtype=_DTYPES[m.transformer_dtype or cfg.compute_dtype],
     )
+    if m.head_family in ("voxel", "hybrid"):
+        # the JAX package builds these heads' modules without a dtype: f32
+        kw = {k: common[k] for k in (
+            "bev_h", "bev_w", "num_query", "num_classes", "embed_dims",
+            "code_size", "pc_range", "img_shape", "num_cams",
+            "num_feature_levels", "decoder_layers", "feedforward_channels",
+            "rotate_prev_bev", "use_shift", "use_can_bus",
+            "shift_current_refs")}
+        kw.update(occupancy_classes=m.occupancy_classes, occ_xdim=m.occ_xdim,
+                  occ_ydim=m.occ_ydim, occ_zdim=m.occ_zdim, occ_dims=m.occ_dims,
+                  num_points_in_voxel=m.num_points_in_voxel)
+        if m.head_family == "voxel":
+            return VoxelFormerOccupancyHead(
+                bev_z=m.bev_z, encoder_layers=m.encoder_layers, **kw)
+        return HybridFormerOccupancyHead(
+            encoder_embed_dims=m.hybrid_encoder_embed_dims,
+            feature_map_z=m.hybrid_feature_map_z, **kw)
     if m.with_occupancy:
         return BEVFormerOccupancyHead(
             occupancy_classes=m.occupancy_classes, occ_xdim=m.occ_xdim,
@@ -215,10 +246,12 @@ def _check_supported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {m.backbone_type} + {m.neck_type} is not ported yet "
             f"(port has {sorted(trunks)})")
-    if m.head_family != "bev":
+    if m.head_family not in ("bev", "voxel", "hybrid"):
+        raise ValueError(f"{cfg.name}: head_family={m.head_family!r}")
+    if m.head_family != "bev" and m.with_map:
         raise NotImplementedError(
-            f"{cfg.name}: head_family={m.head_family!r} is not ported yet "
-            "(port has 'bev')")
+            f"{cfg.name}: head_family={m.head_family!r} has no map branch "
+            "(nor has the JAX package's)")
     if m.with_map and m.with_occupancy:
         raise NotImplementedError(
             f"{cfg.name}: with_map together with with_occupancy is not ported "
@@ -237,17 +270,36 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     lecun-normal convs with zero biases, a zero DCN offset conv and a
     truncated-normal DCN weight (variance scaling 2.0, fan_out),
     xavier-uniform dense layers, zero sampling-offset and attention kernels
-    with the grid offset bias, focal-prior classification bias, N(0, 1) BEV
-    and level/camera embeddings, U[0, 1) query and positional tables,
-    identity norms and frozen BN statistics. InternImage's dense layers
-    take flax's default lecun-normal kernels (truncated normal) with zero
-    biases, its DCNv3 ``offset`` and ``mask`` layers zeros and its layer
-    scales ``gamma1``/``gamma2`` the constant ``LAYER_SCALE``."""
+    with the grid offset bias (z = 0 in the voxel TSA's), focal-prior
+    classification bias, N(0, 1) BEV, voxel and level/camera embeddings,
+    U[0, 1) query and positional tables, identity norms and frozen BN
+    statistics. InternImage's dense layers take flax's default lecun-normal
+    kernels (truncated normal) with zero biases, its DCNv3 ``offset`` and
+    ``mask`` layers zeros and its layer scales ``gamma1``/``gamma2`` the
+    constant ``LAYER_SCALE``. So do the voxel and hybrid heads' dense
+    layers, as the JAX package gives them no kernel_init, but for the
+    attention projections (``value_proj``, ``output_proj``: xavier-uniform)
+    and the zero offset and weight layers."""
     def normal_(t, std=1.0):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
     def uniform_(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
+
+    def trunc_normal_(t, std):
+        # N(0, std) truncated at two std, by its inverse CDF: one draw an
+        # element (torch's trunc_normal_ redraws in a loop: tens of seconds
+        # for InternImage-S on a CPU)
+        lo = 0.5 * math.erfc(math.sqrt(2.0))
+        u = torch.rand(t.shape, generator=generator, dtype=torch.float64)
+        x = torch.erfinv((lo + u * (1.0 - 2.0 * lo)) * 2.0 - 1.0)
+        t.copy_((x * (std * math.sqrt(2.0))).clamp(-2.0 * std, 2.0 * std))
+
+    def lecun_normal_(dense):
+        # flax lecun_normal: variance_scaling(1.0, "fan_in",
+        # "truncated_normal"), truncated at two std
+        trunc_normal_(dense.weight,
+                      math.sqrt(1.0 / dense.in_features) / 0.87962566103423978)
 
     for name, mod in model.named_modules():
         leaf = name.rsplit(".", 1)[-1]
@@ -263,6 +315,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 mod.bias.zero_()
                 if leaf == "sampling_offsets":
                     attn = model.get_submodule(name.rsplit(".", 1)[0])
+                    if isinstance(attn, VoxelTemporalSelfAttention):
+                        mod.bias.copy_(torch.as_tensor(attn.offset_bias()))
+                        continue
                     groups = mod.out_features // (2 * attn.num_heads * attn.num_points)
                     mod.bias.copy_(torch.as_tensor(grid_offset_bias(
                         attn.num_heads, groups, attn.num_points)))
@@ -282,15 +337,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             mod.running_var.fill_(1.0)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("bev_embedding", "level_embeds", "cams_embeds"):
+        if leaf in ("bev_embedding", "voxel_embedding", "level_embeds",
+                    "cams_embeds"):
             normal_(p)
         elif leaf == "conv2_dcn_weight":
             # flax variance_scaling(2.0, "fan_out", "truncated_normal") on
             # (9, C, O): fan_out = 9·O, truncated at two std
             std = math.sqrt(2.0 / (p.shape[0] * p.shape[2])) / 0.87962566103423978
-            nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-        elif leaf in ("query_embedding", "row_embed", "col_embed",
+            trunc_normal_(p, std)
+        elif leaf in ("query_embedding", "row_embed", "col_embed", "z_embed",
                       "map_instance_embedding", "map_pts_embedding"):
             uniform_(p, 0.0, 1.0)
         elif name.endswith("Dense_2.bias") and "cls_branches" in name:
@@ -300,11 +355,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             continue
         for mod in trunk.modules():
             if isinstance(mod, nn.Linear):
-                # flax lecun_normal: variance_scaling(1.0, "fan_in",
-                # "truncated_normal"), truncated at two std
-                std = math.sqrt(1.0 / mod.in_features) / 0.87962566103423978
-                nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=generator)
+                lecun_normal_(mod)
                 mod.bias.zero_()
             elif isinstance(mod, InternImageLayer):
                 mod.gamma1.fill_(LAYER_SCALE)
@@ -315,6 +366,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 for dense in (mod.offset, mod.mask):
                     dense.weight.zero_()
                     dense.bias.zero_()
+    for head in model.modules():
+        if not isinstance(head, VoxelDetOccHead):
+            continue
+        # the biases stay as the first pass left them (zero, or the focal
+        # prior of the classification)
+        for name, mod in head.named_modules():
+            if isinstance(mod, nn.Linear) and name.rsplit(".", 1)[-1] not in (
+                    "value_proj", "output_proj", "sampling_offsets",
+                    "attention_weights"):
+                lecun_normal_(mod)
 
 
 def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:

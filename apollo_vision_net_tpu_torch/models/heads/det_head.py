@@ -86,6 +86,11 @@ class BEVFormerHead(nn.Module):
         pc = self.pc_range
         return (pc[4] - pc[1], pc[3] - pc[0])
 
+    @property
+    def prev_tokens(self) -> int:
+        """Tokens of the temporal carry: the BEV's cells."""
+        return self.bev_h * self.bev_w
+
     def _geometry(self, lidar2img: torch.Tensor):
         """Pillar refs + per-sample camera projection, cameras leading:
         ref_2d (Q, 2), ref_cam (N, B, Q, D, 2), bev_mask (N, B, Q, D)."""
@@ -125,20 +130,27 @@ class BEVFormerHead(nn.Module):
             can_bus=can_bus, ref_2d=ref_2d, reference_points_cam=ref_cam,
             bev_mask=bev_mask)
 
-        pc = np.asarray(self.pc_range, np.float32)
-        cls_scores, bbox_preds = [], []
-        for lvl in range(hs.shape[0]):
-            ref = inverse_sigmoid(init_ref if lvl == 0 else inter_refs[lvl - 1])
-            tmp = inter_regs[lvl]
-            xy = torch.sigmoid(tmp[..., 0:2] + ref[..., 0:2])
-            z = torch.sigmoid(tmp[..., 4:5] + ref[..., 2:3])
-            x = xy[..., 0:1] * float(pc[3] - pc[0]) + float(pc[0])
-            y = xy[..., 1:2] * float(pc[4] - pc[1]) + float(pc[1])
-            z = z * float(pc[5] - pc[2]) + float(pc[2])
-            cls_scores.append(self.cls_branches[lvl](hs[lvl]))
-            bbox_preds.append(torch.cat([x, y, tmp[..., 2:4], z, tmp[..., 5:]], -1))
-        return {
-            "bev_embed": bev_embed,
-            "all_cls_scores": torch.stack(cls_scores),
-            "all_bbox_preds": torch.stack(bbox_preds),
-        }
+        return {"bev_embed": bev_embed, **decode_layers(
+            hs, init_ref, inter_refs, inter_regs, self.cls_branches,
+            self.pc_range)}
+
+
+def decode_layers(hs, init_ref, inter_refs, inter_regs, cls_branches,
+                  pc_range) -> dict:
+    """Every decoder layer's class scores and boxes: centres from the
+    layer's regression on the reference points it started from, decoded into
+    pc_range meters -> {"all_cls_scores", "all_bbox_preds"}, (Lyr, B, Q, ·)."""
+    pc = np.asarray(pc_range, np.float32)
+    cls_scores, bbox_preds = [], []
+    for lvl in range(hs.shape[0]):
+        ref = inverse_sigmoid(init_ref if lvl == 0 else inter_refs[lvl - 1])
+        tmp = inter_regs[lvl]
+        xy = torch.sigmoid(tmp[..., 0:2] + ref[..., 0:2])
+        z = torch.sigmoid(tmp[..., 4:5] + ref[..., 2:3])
+        x = xy[..., 0:1] * float(pc[3] - pc[0]) + float(pc[0])
+        y = xy[..., 1:2] * float(pc[4] - pc[1]) + float(pc[1])
+        z = z * float(pc[5] - pc[2]) + float(pc[2])
+        cls_scores.append(cls_branches[lvl](hs[lvl]))
+        bbox_preds.append(torch.cat([x, y, tmp[..., 2:4], z, tmp[..., 5:]], -1))
+    return {"all_cls_scores": torch.stack(cls_scores),
+            "all_bbox_preds": torch.stack(bbox_preds)}

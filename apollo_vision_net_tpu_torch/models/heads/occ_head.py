@@ -56,13 +56,16 @@ from apollo_vision_net_tpu_torch.utils import geometry
 
 
 class OccMLPBranch(nn.Module):
-    """(Dense -> LN -> ReLU) x num_fcs -> Dense, computed in f32."""
+    """(Dense -> LN -> ReLU) x num_fcs -> Dense, computed in f32, on
+    ``in_dims``-wide features (occ_dims unless given, as flax infers it)."""
 
-    def __init__(self, occ_dims: int, out_dims: int, num_fcs: int = 2):
+    def __init__(self, occ_dims: int, out_dims: int, num_fcs: int = 2,
+                 in_dims: int | None = None):
         super().__init__()
         self.num_fcs = num_fcs
         for i in range(num_fcs):
-            self.add_module(f"Dense_{i}", Dense(occ_dims, occ_dims))
+            self.add_module(f"Dense_{i}", Dense(
+                (in_dims or occ_dims) if i == 0 else occ_dims, occ_dims))
             self.add_module(f"LayerNorm_{i}", LayerNorm(occ_dims))
         self.add_module(f"Dense_{num_fcs}", Dense(occ_dims, out_dims))
 

@@ -66,9 +66,9 @@ class StreamingRunner:
         self.post_center_range = post_center_range
         self.max_dets = max_dets
         self.state = StreamingState()
-        m = cfg.model
-        self.prev = torch.zeros((1, m.bev_h * m.bev_w, m.embed_dims),
-                                dtype=torch.float32, device=self.device)
+        # the carry's tokens are the head's (the BEV, the voxels, or every
+        # HybridFormer stage's voxels)
+        self.prev = model.zero_carry(1, self.device)
 
     def _tensor(self, x):
         return torch.as_tensor(x).to(self.device, torch.float32)[None]

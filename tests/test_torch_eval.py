@@ -28,6 +28,10 @@ from apollo_vision_net_tpu_torch.evaluation.ssc_metrics import SSCMetrics
 from apollo_vision_net_tpu_torch.runtime.inference import evaluate_results
 from apollo_vision_net_tpu_torch.runtime.train_loop import format_losses
 from apollo_vision_net_tpu_torch.tools import overfit_check
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+# torch on one thread (see test_torch_occ.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _records(seed, n_samples=4, lidar2global=True):
@@ -204,7 +208,7 @@ def test_overfit_check_trains_and_evaluates_on_the_cpu(tmp_path, monkeypatch):
     (as they must after 8 steps) and --assert exits non-zero."""
     cfg = overfit_check.overfit_config(port_configs.bev_smoke_det_occ(), 8)
     assert cfg.optim.warmup_iters == 10 and cfg.optim.total_steps == 8
-    model, batch, curve = overfit_check.overfit(cfg, steps=8, batch_size=2,
+    model, batch, curve = overfit_check.overfit(cfg, steps=8, batch_size=1,
                                                 device="cpu")
     assert [c["step"] for c in curve] == [0, 7]
     assert curve[-1]["loss_total"] < curve[0]["loss_total"]

@@ -51,6 +51,9 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.models.detector",
     "apollo_vision_net_tpu_torch.models.fpn",
     "apollo_vision_net_tpu_torch.models.internimage",
+    "apollo_vision_net_tpu_torch.models.voxel",
+    "apollo_vision_net_tpu_torch.models.hybrid",
+    "apollo_vision_net_tpu_torch.ops.msda3d",
     "apollo_vision_net_tpu_torch.models.resnet",
     "apollo_vision_net_tpu_torch.runtime.inference",
 ]
@@ -116,6 +119,21 @@ def test_r50_and_internimage_configs_equal_the_jax_ones(name):
     assert t.model.map_patch_size == j.model.map_patch_size
     assert t.model.backbone_type == (
         "internimage" if name.endswith("intern_s") else "resnet")
+
+
+@pytest.mark.parametrize("name", ["voxel_tiny_occ", "voxel_base_occ",
+                                  "smoke_voxel_occ", "hybrid_tiny_occ",
+                                  "hybrid_base_occ", "smoke_hybrid_occ",
+                                  "hybrid_tiny_occ_intern_s"])
+def test_voxel_and_hybrid_configs_equal_the_jax_ones(name):
+    """The VoxelFormer and HybridFormer configs (the InternImage-S one
+    built with ``dataclasses.replace`` on ``hybrid_tiny_occ``, as JAX
+    builds it), field for field."""
+    j = getattr(jax_configs, name)()
+    t = getattr(port_configs, name)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.head_family == name.split("_")[name.startswith("smoke")]
+    assert t.model.with_occupancy
 
 
 def test_data_copies_equal_the_jax_ones():

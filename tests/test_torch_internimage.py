@@ -42,7 +42,11 @@ from apollo_vision_net_tpu_torch.bridge import state_dict_from_flax
 from apollo_vision_net_tpu_torch.models import internimage as tii
 from apollo_vision_net_tpu_torch.ops import dcnv3 as tdcn
 from apollo_vision_net_tpu_torch.parallel.optim import param_label
+from test_torch_occ import one_torch_thread  # noqa: F401
 from test_torch_r50 import small, stream_against_jax
+
+# torch on one thread (see test_torch_occ.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DCN_TOL = 1e-5
 REL_TOL = 1e-4

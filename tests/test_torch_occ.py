@@ -19,7 +19,9 @@
   ``deterministic=False`` and the port's training mode compute the same
   function.
 - ``_check_supported`` refuses by name what the det+occ model still does
-  not run (tests/test_torch_occ_options.py holds the ported options).
+  not run (tests/test_torch_occ_options.py holds the ported options, and
+  tests/test_torch_voxel.py and test_torch_hybrid.py the voxel and hybrid
+  head families).
 """
 import dataclasses
 import functools
@@ -64,6 +66,21 @@ LOSS_REL_TOL = 1e-5
 STREAM_TOL = 1e-3
 STEP_LOSS_REL_TOL = 1e-4
 GRAD_REL_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module's tests (modules opt in
+    with ``pytestmark``). The suite runs several pytest workers on the
+    machine's cores, and torch's parallel regions spin while they wait for
+    their threads, so under that load small ops run tens of times slower:
+    the CPU overfit test of tests/test_torch_eval.py took 4 s alone, 28 s at
+    one thread and ~290 s at eight beside five busy processes. Every limit
+    of the modules that opt in holds at one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def small(cfg, **kw):
@@ -473,15 +490,17 @@ def test_train_step_gradients_match_jax(train_step):
 
 @pytest.mark.parametrize("key, fields", [
     ("with_map", {"with_map": True}),
-    ("head_family", {"head_family": "voxel"}),
-    ("head_family", {"head_family": "hybrid"}),
+    ("head_family", {"head_family": "voxel", "with_map": True}),
+    ("head_family", {"head_family": "hybrid", "with_map": True}),
     ("with_map", {"with_map": True, "map_version": 2}),
     ("occ_tsa", {"occ_tsa": True, "keep_bev_history": True}),
 ])
 def test_unported_occupancy_options_are_refused_by_name(key, fields):
     """What the det+occ model still refuses: a map head beside it (MapTR v1
-    or v2), the voxel and hybrid head families, and the refinement pass
-    together with multi-frame supervision (the JAX package asserts it)."""
+    or v2), a map head on the voxel and hybrid head families (which the
+    port builds otherwise: tests/test_torch_voxel.py, test_torch_hybrid.py),
+    and the refinement pass together with multi-frame supervision (the JAX
+    package asserts it)."""
     cfg = bev_tiny_det_occ_apollo()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **fields))
     with pytest.raises(NotImplementedError, match=key):

@@ -16,7 +16,8 @@
   ``strict=True``.
 - A small ``semantic_kitti_occ`` copy takes one train step on the CPU
   through ``parallel.train.train_step`` with a finite CE loss.
-- The trunks and head families the port has not yet got stay refused.
+- The voxel and hybrid head families build on the R50 det config; the
+  trunk the port has not yet got (VoVNet) stays refused.
 """
 import dataclasses
 import functools
@@ -36,9 +37,15 @@ from apollo_vision_net_tpu_torch.bridge import state_dict_from_flax
 from apollo_vision_net_tpu_torch.data.synthetic import make_batch, make_stream
 from apollo_vision_net_tpu_torch.models import detector
 from apollo_vision_net_tpu_torch.models.detector import build_model
+from apollo_vision_net_tpu_torch.models.hybrid import HybridFormerOccupancyHead
+from apollo_vision_net_tpu_torch.models.voxel import VoxelFormerOccupancyHead
 from apollo_vision_net_tpu_torch.parallel import train as train_lib
 from apollo_vision_net_tpu_torch.parallel.optim import make_optimizer
 from apollo_vision_net_tpu_torch.runtime.inference import StreamingRunner
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+# torch on one thread (see test_torch_occ.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = dict(bev_h=8, bev_w=8, embed_dims=32, num_cams=2, img_shape=(64, 96),
              encoder_layers=2, decoder_layers=2, feedforward_channels=64,
@@ -203,12 +210,22 @@ def test_semantic_kitti_geometry_and_train_step():
     ("head_family", {"head_family": "hybrid"}),
 ])
 def test_unported_trunks_and_head_families_are_refused(key, fields):
-    """InternImage is ported; VoVNet and the voxel and hybrid head
-    families are not yet, and build_model refuses them by name."""
+    """InternImage and the voxel and hybrid head families are ported: the
+    R50 det config with ``head_family`` voxel or hybrid builds that head
+    (on the meta device: the shapes alone); VoVNet is not ported yet, and
+    build_model refuses it by name."""
     cfg = port_configs.bev_tiny_det()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **fields))
-    with pytest.raises(NotImplementedError, match=key):
-        build_model(cfg, device="cpu")
+    if key == "vovnet":
+        with pytest.raises(NotImplementedError, match=key):
+            build_model(cfg, device="cpu")
+        return
+    heads = {"voxel": VoxelFormerOccupancyHead, "hybrid": HybridFormerOccupancyHead}
+    detector._check_supported(cfg)
+    with torch.device("meta"):
+        head = detector.build_head(cfg)
+    assert type(head) is heads[fields["head_family"]]
+    assert head.prev_tokens > cfg.model.bev_h * cfg.model.bev_w
 
 
 def test_ce_loss_at_twenty_classes_matches_jax():

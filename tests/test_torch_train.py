@@ -62,6 +62,10 @@ from apollo_vision_net_tpu_torch.utils.grid_mask import (
     grid_mask,
     grid_mask_from_draws,
 )
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+# torch on one thread (see test_torch_occ.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = dict(bev_h=8, bev_w=8, embed_dims=32, num_cams=2, img_shape=(64, 96),
              encoder_layers=2, decoder_layers=2, map_decoder_layers=2,
