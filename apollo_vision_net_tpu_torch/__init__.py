@@ -10,6 +10,8 @@ replaced by its plain PyTorch version.
 """
 import torch
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the GPU: raise when there is none instead of quietly
@@ -21,3 +23,13 @@ def resolve_device(device=None) -> torch.device:
                 "PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def set_f32_precision(conv_tf32: bool) -> None:
+    """The port's f32 arithmetic on the card, a process-wide setting:
+    matmuls in full f32 always, cuDNN's convolutions in TF32 only where
+    ``conv_tf32`` (PyTorch's own default, TF32 convolutions everywhere, is
+    not kept). ``build_model`` sets it for each model it puts on the card
+    (``models.detector.conv_tf32``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = conv_tf32

@@ -38,7 +38,9 @@ named as the encoder's scanned layer), ``occ_tsa_head``, ``flow_branches``,
 ``stem_ln1``, ``stage{i}_block{b}`` (``dcn/{input_proj, dw_conv, dw_norm,
 offset, mask, output_proj}``, ``norm1``, ``norm2``, ``mlp_fc1``,
 ``mlp_fc2`` and the layer scales ``gamma1``/``gamma2``, which keep their
-name), ``down{i}`` and ``down_ln{i}``; the VoxelFormer head's
+name), ``down{i}`` and ``down_ln{i}``; VoVNet's ``stem{1,2,3}_{conv,bn}``
+and ``stage{s}_osa{b}`` (``osa{i}_conv``, ``osa{i}_bn``, ``concat_conv``,
+``concat_bn``, ``ese/fc``); the VoxelFormer head's
 ``voxel_embedding``, ``voxel_pos`` (``z_embed``, ``row_embed``,
 ``col_embed``), ``encoder_layer{i}`` (``tsa``, ``sca``, ``ffn``,
 ``norm1``-``norm3``), ``voxel2bev``, ``occ_proj`` and its ``decoder`` (a

@@ -1,8 +1,9 @@
 """Vector-map GT packing for the map loss, pure numpy.
 
 Copy of the part of the JAX package's data/vector_map.py that the training
-slice uses (``InstanceLines`` with its shift protocols,
-``order_mask_from_shifts``, ``pack_map_gt``), with ``resample_line`` from
+slice and the map-GT extraction use (``InstanceLines`` with its shift
+protocols, ``order_mask_from_shifts``, ``pack_map_gt``, ``MAP_CLASS2LABEL``,
+``global_to_patch``, ``clip_polyline_to_box``), with ``resample_line`` from
 the port's copy of evaluation/map_eval.py as in the JAX package; the port
 keeps its own copy so that it imports nothing of the JAX package, and a
 test holds the copy equal to the original.
@@ -15,13 +16,15 @@ value -10000 for invalid shift rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from apollo_vision_net_tpu_torch.evaluation.map_eval import resample_line
 
 PADDING_VALUE = -10000.0
+MAP_CLASS2LABEL = {"divider": 0, "ped_crossing": 1, "boundary": 2,
+                   "centerline": 3}
 
 
 def _is_closed(pts: np.ndarray) -> bool:
@@ -138,6 +141,67 @@ class InstanceLines:
 def order_mask_from_shifts(shifts: np.ndarray) -> np.ndarray:
     """(N, O, P, 2) -> (N, O) validity from the padding sentinel."""
     return ~(shifts <= PADDING_VALUE + 1).all(axis=(-1, -2))
+
+
+# ---------------------------------------------------------------------------
+# local patch geometry (VectorizedLocalMap core)
+# ---------------------------------------------------------------------------
+
+def global_to_patch(pts: np.ndarray, patch_center: Sequence[float],
+                    patch_yaw: float) -> np.ndarray:
+    """Rotate/translate global-frame points into the ego patch frame
+    (reference :412-432 rotate -patch_angle then translate)."""
+    c, s = np.cos(-patch_yaw), np.sin(-patch_yaw)
+    rel = pts - np.asarray(patch_center, np.float64)[None, :2]
+    return rel @ np.array([[c, -s], [s, c]], np.float64).T
+
+
+def clip_polyline_to_box(pts: np.ndarray, half_w: float, half_h: float
+                         ) -> List[np.ndarray]:
+    """Clip an ego-frame polyline to the patch box, splitting into pieces —
+    the reference intersects shapely geometries with the patch and keeps
+    split segments separate (:547-552). Pure-numpy segment clipping
+    (Liang-Barsky per segment, pieces stitched while contiguous)."""
+    lo = np.array([-half_w, -half_h])
+    hi = np.array([half_w, half_h])
+    pieces: List[List[np.ndarray]] = []
+    cur: List[np.ndarray] = []
+
+    def emit():
+        nonlocal cur
+        if len(cur) >= 2:
+            pieces.append(cur)
+        cur = []
+
+    for a, b in zip(pts[:-1], pts[1:]):
+        d = b - a
+        t0, t1 = 0.0, 1.0
+        ok = True
+        for dim in range(2):
+            if abs(d[dim]) < 1e-12:
+                if a[dim] < lo[dim] or a[dim] > hi[dim]:
+                    ok = False
+                    break
+            else:
+                ta = (lo[dim] - a[dim]) / d[dim]
+                tb = (hi[dim] - a[dim]) / d[dim]
+                ta, tb = min(ta, tb), max(ta, tb)
+                t0, t1 = max(t0, ta), min(t1, tb)
+                if t0 > t1:
+                    ok = False
+                    break
+        if not ok:
+            emit()
+            continue
+        pa, pb = a + t0 * d, a + t1 * d
+        if not cur:
+            cur = [pa]
+        elif np.linalg.norm(cur[-1] - pa) > 1e-9:
+            emit()
+            cur = [pa]
+        cur.append(pb)
+    emit()
+    return [np.stack(p) for p in pieces]
 
 
 def pack_map_gt(

@@ -13,8 +13,9 @@ streaming step.
 model (a BEV, VoxelFormer or HybridFormer head) from a config,
 with DLA-34 + SECONDFPNV2 (the flagship, Apollo's det+occ model), ResNet
 (optionally with DCN stages) + FPN (the R50 and base configs, the smoke
-configs) or InternImage-S + FPN (the ``*_intern_s`` configs), with random
-weights made from a seed.
+configs), InternImage-S + FPN (the ``*_intern_s`` configs) or VoVNet
+V-99-eSE + FPN (``backbone_type="vovnet"``, DD3D's pretrained trunk), with
+random weights made from a seed.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from apollo_vision_net_tpu_torch import resolve_device
+from apollo_vision_net_tpu_torch import resolve_device, set_f32_precision
 from apollo_vision_net_tpu_torch.configs import ExperimentConfig
 from apollo_vision_net_tpu_torch.models.attention import grid_offset_bias
 from apollo_vision_net_tpu_torch.models.dla import DLA
@@ -49,6 +50,7 @@ from apollo_vision_net_tpu_torch.models.layers import (
 )
 from apollo_vision_net_tpu_torch.models.resnet import CHANNELS, ResNet
 from apollo_vision_net_tpu_torch.models.second_fpn import SECONDFPNV2
+from apollo_vision_net_tpu_torch.models.vovnet import VoVNet
 from apollo_vision_net_tpu_torch.models.voxel import (
     VoxelDetOccHead,
     VoxelFormerOccupancyHead,
@@ -215,7 +217,9 @@ def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
 
 def build_trunk(cfg: ExperimentConfig) -> Tuple[nn.Module, nn.Module]:
     """(img_backbone, img_neck) of the config: DLA-34 + SECONDFPNV2, or
-    ResNet or InternImage-S + FPN with ``num_feature_levels`` outputs."""
+    ResNet, InternImage-S or VoVNet V-99-eSE + FPN with
+    ``num_feature_levels`` outputs, its input widths the trunk's stages at
+    ``backbone_out_indices``."""
     m = cfg.model
     if m.backbone_type == "dla":
         dla_ch = (16, 32, 64, 128, 256, 512)
@@ -225,11 +229,14 @@ def build_trunk(cfg: ExperimentConfig) -> Tuple[nn.Module, nn.Module]:
     if m.backbone_type == "internimage":
         trunk = InternImage(out_indices=m.backbone_out_indices,
                             dtype=_DTYPES[cfg.compute_dtype])
-        return trunk, FPN(trunk.out_channels(), m.embed_dims,
-                          num_outs=m.num_feature_levels)
-    return (ResNet(m.backbone_depth, m.backbone_out_indices, m.backbone_dcn_stages),
-            FPN([CHANNELS[i] for i in m.backbone_out_indices], m.embed_dims,
-                num_outs=m.num_feature_levels))
+    elif m.backbone_type == "vovnet":
+        trunk = VoVNet(out_indices=m.backbone_out_indices)
+    else:
+        return (ResNet(m.backbone_depth, m.backbone_out_indices, m.backbone_dcn_stages),
+                FPN([CHANNELS[i] for i in m.backbone_out_indices], m.embed_dims,
+                    num_outs=m.num_feature_levels))
+    return trunk, FPN(trunk.out_channels(), m.embed_dims,
+                      num_outs=m.num_feature_levels)
 
 
 def keep_bev_history(cfg: ExperimentConfig) -> bool:
@@ -241,7 +248,8 @@ def keep_bev_history(cfg: ExperimentConfig) -> bool:
 
 def _check_supported(cfg: ExperimentConfig) -> None:
     m = cfg.model
-    trunks = {("dla", "secondfpn"), ("resnet", "fpn"), ("internimage", "fpn")}
+    trunks = {("dla", "secondfpn"), ("resnet", "fpn"), ("internimage", "fpn"),
+              ("vovnet", "fpn")}
     if (m.backbone_type, m.neck_type) not in trunks:
         raise NotImplementedError(
             f"{cfg.name}: {m.backbone_type} + {m.neck_type} is not ported yet "
@@ -378,13 +386,25 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 lecun_normal_(mod)
 
 
+def conv_tf32(cfg: ExperimentConfig) -> bool:
+    """Whether the model's f32 convolutions run in TF32 on the card: on a
+    VoVNet trunk only, where cuDNN's true-f32 algorithms for V-99's 3x3
+    convolutions are FFTs at 13x the time of TF32 (chip_smoke.py's
+    ``stream_vovnet_trunk`` times both and holds the TF32 trunk to the f32
+    one). Every other model's f32 is f32."""
+    return cfg.model.backbone_type == "vovnet"
+
+
 def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:
     """The config's model on ``device`` (default: the GPU; raises without
     one unless ``device="cpu"``), in eval mode (``.train()`` for training),
     with random weights from ``seed``. Load bridged weights with
-    ``load_state_dict`` afterwards."""
+    ``load_state_dict`` afterwards. On the card it also sets the process's
+    f32 precision for this model (``conv_tf32``)."""
     dev = resolve_device(device)
     _check_supported(cfg)
+    if dev.type == "cuda":
+        set_f32_precision(conv_tf32(cfg))
     with torch.device("meta"):
         model = BEVFormer(build_head(cfg), *build_trunk(cfg),
                           compute_dtype=_DTYPES[cfg.compute_dtype],

@@ -5,18 +5,22 @@ bevformer/apis/test.py:44-209, tools/test.py:336-359): a stateful frame
 loop in which ``StreamingState`` resets the history at a scene change and
 turns absolute can_bus readings into deltas, ``forward_test_frame`` carries
 the BEV, and each frame's last-layer outputs are decoded into detections,
-map vectors and the dense occupancy class grid; ``evaluate_results`` runs
-the nuScenes detection, MapTR chamfer/IoU and SSC occupancy evaluators
-(numpy copies under ``evaluation/``) on the formatted records.
+map vectors and the dense occupancy class grid. ``run_streaming_eval``
+drives the runner over a split's frames and formats each frame's results
+as the evaluators' records (boxes in the global frame when the frame
+carries its ``lidar2global``); ``evaluate_results`` runs the nuScenes
+detection, MapTR chamfer/IoU and SSC occupancy evaluators (numpy copies
+under ``evaluation/``) on them.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import torch
 
 from apollo_vision_net_tpu_torch.configs import ExperimentConfig
 from apollo_vision_net_tpu_torch.data.temporal import StreamingState
+from apollo_vision_net_tpu_torch.evaluation import formatting
 from apollo_vision_net_tpu_torch.evaluation.map_eval import evaluate_map
 from apollo_vision_net_tpu_torch.evaluation.nuscenes_det import evaluate_detection
 from apollo_vision_net_tpu_torch.evaluation.ssc_metrics import SSCMetrics
@@ -99,6 +103,32 @@ class StreamingRunner:
             out["occ"] = occupancy_prediction(res["occupancy_preds"],
                                               occupancy_rule(self.cfg))[0]
         return out
+
+
+def run_streaming_eval(cfg: ExperimentConfig, model,
+                       frames: Iterable[dict]) -> Dict[str, list]:
+    """The stateful frame loop over ``frames`` (StreamingRunner's frame
+    dicts, each with an optional ``lidar2global`` (4, 4)) -> {"det": one
+    detection record a frame, "map": one map record a frame (det+map
+    models), "occ": one (voxels,) class grid a frame (occupancy models)},
+    numpy on the host (the JAX package's run_streaming_eval)."""
+    runner = StreamingRunner(cfg, model)
+    det_records, map_records, occ_preds = [], [], []
+    for frame in frames:
+        out = runner.step(frame)
+        det = out["det"]
+        det_records.append(formatting.detections_to_sample_record(
+            det.boxes.cpu().numpy(), det.scores.cpu().numpy(),
+            det.labels.cpu().numpy(), det.valid.cpu().numpy(),
+            frame.get("lidar2global")))
+        if "map" in out:
+            mr = out["map"]
+            map_records.append(formatting.map_results_record(
+                mr["vectors"][0].cpu().numpy(), mr["scores"][0].cpu().numpy(),
+                mr["labels"][0].cpu().numpy()))
+        if "occ" in out:
+            occ_preds.append(out["occ"].cpu().numpy())
+    return {"det": det_records, "map": map_records, "occ": occ_preds}
 
 
 def evaluate_results(cfg: ExperimentConfig, results: Dict[str, list],

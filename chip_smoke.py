@@ -183,6 +183,41 @@ Phases, each printing JSON lines:
                (its last stage 160,000 voxels) and hybrid_tiny_occ_intern_s
                (InternImage-S, 33 DCNv3 calls a frame) served: exact
                launches a frame, bf16 frames/s and a profile.
+  stream_vovnet, train_vovnet  bev_tiny_det on VoVNet V-99-eSE (stage 3,
+               1024 channels at 15x25, into the one FPN level; f32 as
+               configured, with the convolutions in TF32 as the port runs a
+               VoVNet model, ``models.detector.conv_tf32``; every other
+               model's f32 is f32) as ``stream_tiny_det`` and
+               ``train_tiny_det``: the same launches a frame and a step,
+               the f32 frame against plain versions, the f32 step at 1
+               encoder and 2 decoder layers with the witnesses, frames/s,
+               steps/s, peak memory, profiles; then the trunk alone at the
+               frame's shape in f32 with TF32 off and on and in bf16
+               (``stream_vovnet_trunk``: without TF32 cuDNN runs V-99's f32
+               3x3 convolutions as FFTs), the TF32 output within
+               VOVNET_TF32_LIMIT of the f32 one and below the bf16 one's
+               difference.
+  cli_nuscenes  the flagship through the port's CLIs, in-process, on a
+               nuScenes tree written from a seed into a temporary directory
+               (``write_fake_nuscenes``: v1.0-mini tables for a train and a
+               val scene, CAN poses, six 1600x900 JPEGs a sample, a city
+               map): ``tools.create_data`` nuscenes and nuscenes-map-gt,
+               ``tools.train --data nuscenes --img-scale 0.5 --num-workers
+               2`` for 4 steps from a DLA-34 checkpoint in the reference
+               naming (``fake_dla34_checkpoint``; the import alone holds
+               every trunk tensor to the saved one), ``--resume`` to 6
+               steps ("resumed from step 4"), ``tools.test --eval bbox
+               chamfer --dump-results`` over the val scene. Fails unless the
+               infos carry map vectors, metrics.jsonl has a train record a
+               step, both checkpoints exist with the imported BN statistics
+               kept, NDS and chamfer mAP are finite, the results JSON
+               reloads, and each step and frame ran the train and stream
+               phases' launches. Prints the loader's host seconds at full
+               size (PIL decode and the numpy pipeline a camera ring, over
+               the train samples; a queue sample whole, CLI_QUEUE_SAMPLES
+               times), each step's seconds and wait for its batch, and the
+               streaming eval's frames/s over CLI_EVAL_PASSES passes, each
+               as a median and a spread.
   train_overfit_voxel_s0-3  smoke_voxel_occ through the overfit tool as
                the JAX package's run of it: 1,500 steps at lr 6e-4
                (VOXEL_OVERFIT_LR), at seeds 0-3 (VOXEL_OVERFIT_SEEDS);
@@ -406,7 +441,8 @@ TRAIN_GRAD_REL_TOL = 5e-2
 # its largest trunk gradient)
 TRUNK_PARAM = {"dla": "img_backbone.level5.tree2.conv2.weight",
                "resnet": "img_backbone.layer3_0.conv2_dcn_weight",
-               "internimage": "img_backbone.stage2_block0.dcn.offset.weight"}
+               "internimage": "img_backbone.stage2_block0.dcn.offset.weight",
+               "vovnet": "img_backbone.stage4_osa0.concat_conv.weight"}
 TRAIN_GRAD_NORM_TOL = 2e-2
 TRAIN_GRAD_FLOOR = 1e-6
 # The step is split (``kernel_split``) where the kernels move the parameter
@@ -2172,12 +2208,7 @@ def phase_stream_model(dev, cfg, phase, n_fps=20, f32=True):
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
     model = new_model(cfg, dev)
-    n_sca = m.encoder_layers + occ_tsa_layers(cfg)
-    n_plain = (n_sca + dcnv3_blocks(cfg) + m.decoder_layers
-               + (m.map_decoder_layers if m.with_map else 0))
-    expect = {**dict.fromkeys(read_launch_counts(), 0),
-              "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
-              "msda_fwd_masked": n_sca, "msda_fwd_masked.vector": n_sca}
+    expect = stream_launches_per_frame(cfg)
     if m.head_family != "bev":
         expect = voxel_family_launches(cfg, train=False)
     launches = drive(phase, cfg, model, frames, expect)
@@ -2807,10 +2838,11 @@ def profile_train(phase, cfg, model, optimizer, batch, gen, name, step_ms):
     train_steps(cfg, model, optimizer, batch, gen, 200, 1)
     torch.cuda.synchronize()
     n = 2
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         train_steps(cfg, model, optimizer, batch, gen, 201, n)
         torch.cuda.synchronize()
-    summarize_profile(prof, phase, name, n, "step", step_ms)
+    summarize_profile(prof, phase, name, n, "step", step_ms, t0)
 
 
 def phase_train_overfit(dev, cfg, phase, term, share, steps=OVERFIT_STEPS,
@@ -2870,27 +2902,45 @@ def voxel_overfit_parity(metrics_by_seed):
         raise AssertionError(f"train_overfit_voxel: medians below JAX's lowest {below}")
 
 
-def summarize_profile(prof, phase, name, n, unit, unit_ms):
+# host calls that wait for the device (a pageable host-to-device copy
+# synchronizes the stream): each one lets the device run dry
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def profile_kernels(prof):
+    """A finished torch.profiler window's device kernels as (name, us) and
+    its count of SYNC_CALLS, read from the profiler's raw events, as
+    ``prof.events()`` would give them but without building its Python
+    object per event (that parse took 411 s of a 1,130-s run over the 49
+    windows here, on an H100 host). A user annotation (the optimizer's
+    step range) is also a device event, and is not a kernel."""
+    kern, syncs = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                kern.append((e.name(), (e.end_ns() - e.start_ns()) / 1e3))
+        elif e.name() in SYNC_CALLS:
+            syncs += 1
+    return kern, syncs
+
+
+def summarize_profile(prof, phase, name, n, unit, unit_ms, t0):
     """Device busy time per ``unit`` (sum of kernel durations), kernels and
     host synchronizations per unit and the top kernels by device time; idle
-    share against the unprofiled time ``unit_ms``."""
-    events = prof.events()
-    # kernels only: a user annotation (the optimizer's step range) is
-    # also a device event
-    kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    # host calls that wait for the device (a pageable host-to-device copy
-    # synchronizes the stream): each one lets the device run dry
-    syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                           "cudaMemcpy") for e in events)
+    share against the unprofiled time ``unit_ms``; the host seconds of the
+    window since ``t0``, the profiler's event processing included."""
+    kern, syncs = profile_kernels(prof)
     if not kern:
-        emit({"phase": phase, "dtype": name, "device_time": "not measured"})
+        emit({"phase": phase, "dtype": name, "device_time": "not measured",
+              "seconds": time.perf_counter() - t0})
         return
     by_name = {}
-    for e in kern:
-        k = e.name[:80]
+    for kname, us in kern:
+        k = kname[:80]
         t, c = by_name.get(k, (0.0, 0))
-        by_name[k] = (t + e.time_range.elapsed_us(), c + 1)
+        by_name[k] = (t + us, c + 1)
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     # F.grid_sample on volumes: ops.msda3d (voxel TSA) and the flow warps
@@ -2902,6 +2952,7 @@ def summarize_profile(prof, phase, name, n, unit, unit_ms):
           f"host_syncs_per_{unit}": syncs / n,
           f"{unit}_ms_unprofiled": unit_ms,
           "device_idle_share": 1.0 - busy_ms / unit_ms,
+          "seconds": time.perf_counter() - t0,
           "top": [{"name": k, f"ms_per_{unit}": t / 1e3 / n,
                    f"calls_per_{unit}": c / n} for k, (t, c) in top]})
 
@@ -2915,11 +2966,506 @@ def profile_frames(phase, name, cfg, model, frames, frame_ms):
         run.step(f)
     torch.cuda.synchronize()
     n = 4
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for f in frames[2:2 + n]:
             run.step(f)
         torch.cuda.synchronize()
-    summarize_profile(prof, phase, name, n, "frame", frame_ms)
+    summarize_profile(prof, phase, name, n, "frame", frame_ms, t0)
+
+
+# ------------------------------------------------------------ cli_nuscenes
+
+CLI_CAMS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT", "CAM_BACK",
+            "CAM_BACK_LEFT", "CAM_BACK_RIGHT")
+# nuScenes' camera yaws (degrees, ego frame) and image size
+CLI_CAM_YAW = (0.0, -55.0, 55.0, 180.0, 110.0, -110.0)
+CLI_IMG_WH = (1600, 900)
+# (scene name, samples): v1.0-mini routes scene-0061 to train, scene-0103
+# to val
+CLI_SCENES = (("scene-0061", 4), ("scene-0103", 3))
+CLI_LOCATION = "singapore-onenorth"
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS = 4, 6
+
+
+def _rot_to_quat(r):
+    """3x3 rotation -> (w, x, y, z)."""
+    w = math.sqrt(max(0.0, 1.0 + r[0][0] + r[1][1] + r[2][2])) / 2.0
+    x = math.copysign(math.sqrt(max(0.0, 1.0 + r[0][0] - r[1][1] - r[2][2])) / 2.0,
+                      r[2][1] - r[1][2])
+    y = math.copysign(math.sqrt(max(0.0, 1.0 - r[0][0] + r[1][1] - r[2][2])) / 2.0,
+                      r[0][2] - r[2][0])
+    z = math.copysign(math.sqrt(max(0.0, 1.0 - r[0][0] - r[1][1] + r[2][2])) / 2.0,
+                      r[1][0] - r[0][1])
+    return [w, x, y, z]
+
+
+def _yaw_quat(yaw):
+    return [math.cos(yaw / 2), 0.0, 0.0, math.sin(yaw / 2)]
+
+
+def fake_city_map():
+    """A map-expansion JSON: a 14 m road along x with two lanes (a lane and a
+    lane connector with straight arcline paths, connected), a lane divider
+    and a road divider, and a pedestrian crossing."""
+    nodes, lines, polygons = [], [], []
+
+    def points(tok, pts):
+        toks = [f"n_{tok}_{i}" for i in range(len(pts))]
+        nodes.extend({"token": t, "x": float(x), "y": float(y)}
+                     for t, (x, y) in zip(toks, pts))
+        return toks
+
+    def line(tok, pts):
+        lines.append({"token": tok, "node_tokens": points(tok, pts)})
+
+    def polygon(tok, x0, y0, x1, y1):
+        polygons.append({"token": tok, "holes": [], "exterior_node_tokens": points(
+            tok, [(x0, y0), (x1, y0), (x1, y1), (x0, y1)])})
+
+    line("ln_lane", [(-40.0, 0.0), (80.0, 0.0)])
+    line("ln_road", [(-40.0, 3.5), (80.0, 3.5)])
+    polygon("pg_road", -40.0, -7.0, 80.0, 7.0)
+    polygon("pg_lane_a", -40.0, 0.0, 20.0, 3.5)
+    polygon("pg_lane_b", 20.0, 0.0, 80.0, 3.5)
+    polygon("pg_ped", 12.0, -7.0, 16.0, 7.0)
+
+    def straight(x0, x1):
+        return [{"start_pose": [x0, 1.75, 0.0], "end_pose": [x1, 1.75, 0.0],
+                 "shape": "LSR", "radius": 999.0,
+                 "segment_length": [0.0, x1 - x0, 0.0]}]
+
+    return {"node": nodes, "line": lines, "polygon": polygons,
+            "lane_divider": [{"token": "ld", "line_token": "ln_lane"}],
+            "road_divider": [{"token": "rd", "line_token": "ln_road"}],
+            "ped_crossing": [{"token": "ped", "polygon_token": "pg_ped"}],
+            "road_segment": [{"token": "rs", "polygon_token": "pg_road"}],
+            "lane": [{"token": "lane_a", "polygon_token": "pg_lane_a"}],
+            "lane_connector": [{"token": "lane_b", "polygon_token": "pg_lane_b"}],
+            "arcline_path_3": [{"token": "lane_a", "arcline_paths": straight(-40.0, 20.0)},
+                               {"token": "lane_b", "arcline_paths": straight(20.0, 80.0)}],
+            "connectivity": [
+                {"token": "lane_a", "connectivity": {"incoming": [], "outgoing": ["lane_b"]}},
+                {"token": "lane_b", "connectivity": {"incoming": ["lane_a"], "outgoing": []}}]}
+
+
+def write_fake_nuscenes(root, seed: int = 0):
+    """A nuScenes tree at ``root`` from ``seed``: v1.0-mini tables for the
+    CLI_SCENES (the ego driving +x at 4 m/s, three moving objects a scene:
+    two cars and a pedestrian), CAN pose messages, six 1600x900 JPEGs a
+    sample from nuScenes-like cameras (intrinsics fx = fy = 1266, principal
+    point at the centre; yaws CLI_CAM_YAW), and the city map
+    (``fake_city_map``) under maps/expansion."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    tdir = root / "v1.0-mini"
+    for d in (tdir, root / "can_bus", root / "samples", root / "maps" / "expansion"):
+        d.mkdir(parents=True)
+    (root / "maps" / "expansion" / f"{CLI_LOCATION}.json").write_text(
+        json.dumps(fake_city_map()))
+    t = {name: [] for name in ("category", "instance", "sensor", "calibrated_sensor",
+                               "ego_pose", "log", "scene", "sample", "sample_data",
+                               "sample_annotation")}
+    t["category"] = [{"token": "cat_car", "name": "vehicle.car"},
+                     {"token": "cat_ped", "name": "human.pedestrian.adult"}]
+    t["sensor"].append({"token": "sen_lidar", "channel": "LIDAR_TOP"})
+    t["calibrated_sensor"].append({"token": "cs_lidar", "sensor_token": "sen_lidar",
+                                   "translation": [0.94, 0.0, 1.84],
+                                   "rotation": [1.0, 0.0, 0.0, 0.0],
+                                   "camera_intrinsic": []})
+    w, h = CLI_IMG_WH
+    for cam, yaw in zip(CLI_CAMS, CLI_CAM_YAW):
+        c, s = math.cos(math.radians(yaw)), math.sin(math.radians(yaw))
+        # camera x right, y down, z forward, turned by the yaw about ego z
+        rot = [[s, 0.0, c], [-c, 0.0, s], [0.0, -1.0, 0.0]]
+        t["sensor"].append({"token": f"sen_{cam}", "channel": cam})
+        t["calibrated_sensor"].append({
+            "token": f"cs_{cam}", "sensor_token": f"sen_{cam}",
+            "translation": [1.5 * c, 0.5 * s, 1.55], "rotation": _rot_to_quat(rot),
+            "camera_intrinsic": [[1266.0, 0.0, w / 2], [0.0, 1266.0, h / 2],
+                                 [0.0, 0.0, 1.0]]})
+    noise = rng.normal(0, 12, (h, w, 3)).astype(np.float32)
+    base_ts = 1_532_402_927_647_951
+    for si, (scene_name, n) in enumerate(CLI_SCENES):
+        toks = [f"s{si}_{k}" for k in range(n)]
+        t["log"].append({"token": f"log{si}", "location": CLI_LOCATION})
+        t["scene"].append({"token": f"scene{si}", "name": scene_name,
+                           "log_token": f"log{si}", "nbr_samples": n,
+                           "first_sample_token": toks[0], "last_sample_token": toks[-1]})
+        objects = [("cat_car", [12.0, -2.0], [3.0, 0.0], [1.9, 4.6, 1.7]),
+                   ("cat_car", [-9.0, 4.5], [5.0, 0.0], [2.0, 4.9, 1.8]),
+                   ("cat_ped", [6.0, 6.0], [0.0, -1.2], [0.7, 0.7, 1.8])]
+        for oi, (cat, *_) in enumerate(objects):
+            t["instance"].append({"token": f"inst{si}_{oi}", "category_token": cat})
+        can = []
+        for k in range(n):
+            ts = base_ts + si * 60_000_000 + k * 500_000
+            ego = [30.0 * si + 2.0 * k, 1.75, 0.0]
+            yaw = 0.02 * k
+            t["sample"].append({"token": toks[k], "scene_token": f"scene{si}",
+                                "timestamp": ts, "prev": toks[k - 1] if k else "",
+                                "next": toks[k + 1] if k + 1 < n else ""})
+            t["ego_pose"].append({"token": f"ep{si}_{k}", "timestamp": ts,
+                                  "translation": ego, "rotation": _yaw_quat(yaw)})
+            t["sample_data"].append({
+                "token": f"sd_lidar{si}_{k}", "sample_token": toks[k],
+                "calibrated_sensor_token": "cs_lidar", "ego_pose_token": f"ep{si}_{k}",
+                "timestamp": ts, "is_key_frame": True,
+                "filename": f"samples/LIDAR_TOP/{toks[k]}.bin"})
+            for ci, cam in enumerate(CLI_CAMS):
+                name = f"samples/{cam}/{toks[k]}.jpg"
+                (root / name).parent.mkdir(parents=True, exist_ok=True)
+                # a low-frequency scene plus pixel noise, as a JPEG of camera size
+                low = rng.uniform(0, 255, (h // 100, w // 100, 3))
+                img = np.repeat(np.repeat(low, 100, 0), 100, 1) + np.roll(
+                    noise, 37 * (k * len(CLI_CAMS) + ci), axis=1)
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    root / name, quality=90)
+                t["ego_pose"].append({"token": f"ep_{cam}{si}_{k}", "timestamp": ts + 1000,
+                                      "translation": ego, "rotation": _yaw_quat(yaw)})
+                t["sample_data"].append({
+                    "token": f"sd_{cam}{si}_{k}", "sample_token": toks[k],
+                    "calibrated_sensor_token": f"cs_{cam}",
+                    "ego_pose_token": f"ep_{cam}{si}_{k}", "timestamp": ts + 1000,
+                    "is_key_frame": True, "filename": name})
+            for oi, (cat, xy, vel, size) in enumerate(objects):
+                dt = 0.5 * k
+                t["sample_annotation"].append({
+                    "token": f"a{si}_{oi}_{k}", "sample_token": toks[k],
+                    "instance_token": f"inst{si}_{oi}",
+                    "translation": [ego[0] - 2.0 * k + xy[0] + vel[0] * dt,
+                                    xy[1] + vel[1] * dt, 0.9],
+                    "size": size, "rotation": _yaw_quat(0.1 * oi),
+                    "prev": f"a{si}_{oi}_{k - 1}" if k else "",
+                    "next": f"a{si}_{oi}_{k + 1}" if k + 1 < n else "",
+                    "num_lidar_pts": 20, "num_radar_pts": 1,
+                    "visibility_token": "4"})
+            for j in range(2):
+                can.append({"utime": ts - 20_000 + j * 250_000,
+                            "pos": [ego[0] + j, ego[1], 0.0],
+                            "orientation": _yaw_quat(yaw),
+                            "accel": [0.2, 0.0, 9.8], "rotation_rate": [0.0, 0.0, 0.04],
+                            "vel": [4.0, 0.0, 0.0]})
+        (root / "can_bus" / f"{scene_name}_pose.json").write_text(json.dumps(can))
+    for name, rows in t.items():
+        (tdir / f"{name}.json").write_text(json.dumps(rows))
+
+
+def fake_dla34_checkpoint(path, seed: int = 0) -> dict:
+    """A DLA-34 state dict in the reference naming (models/backbones/
+    dla.py: ``base_layer``, ``level{i}``, norms as ``<conv>.norm``) drawn
+    from ``seed``, saved as a full detector's mmcv checkpoint
+    (``state_dict`` with ``img_backbone.`` keys, a head key, BN counters);
+    returns {port trunk key: tensor} of what the import must give."""
+    from apollo_vision_net_tpu_torch.models.dla import DLA
+    from apollo_vision_net_tpu_torch.utils.torch_import import dla_rule
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        trunk = DLA(out_indices=(3, 4, 5))
+    want, sd = {}, {}
+    for key, p in trunk.state_dict().items():
+        if key.endswith("weight") and p.dim() == 4:
+            v = torch.randn(p.shape, generator=g) / math.sqrt(p[0].numel())
+        elif key.endswith(("weight", "running_var")):
+            v = 0.5 + torch.rand(p.shape, generator=g)
+        else:
+            v = 0.1 * torch.randn(p.shape, generator=g)
+        want[key] = v
+        tkey = dla_rule(key)[0]
+        sd[f"img_backbone.{tkey}"] = v
+        if tkey.endswith("running_var"):
+            sd[f"img_backbone.{tkey[:-len('running_var')]}num_batches_tracked"] = \
+                torch.tensor(1000)
+    sd["pts_bbox_head.query_embedding.weight"] = torch.zeros(900, 512)
+    torch.save({"state_dict": sd, "meta": {"seed": seed}}, path)
+    return want
+
+
+def stream_launches_per_frame(cfg) -> dict:
+    """Launches of one served frame of a BEV-head model: TSA, the det (and
+    map) decoder layers and InternImage's DCNv3 blocks on the plain entry,
+    SCA (and the refinement pass's) on the masked one, all vector."""
+    m = cfg.model
+    n_sca = m.encoder_layers + occ_tsa_layers(cfg)
+    n_plain = (n_sca + dcnv3_blocks(cfg) + m.decoder_layers
+               + (m.map_decoder_layers if m.with_map else 0))
+    return {**dict.fromkeys(read_launch_counts(), 0),
+            "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
+            "msda_fwd_masked": n_sca, "msda_fwd_masked.vector": n_sca}
+
+
+CLI_QUEUE_SAMPLES, CLI_EVAL_PASSES = 3, 7
+
+
+def spread(xs) -> dict:
+    """Median, least and most of repeated readings, and the readings."""
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "n": len(xs), "all": list(xs)}
+
+
+def loader_seconds(cfg, infos_path, data_root) -> dict:
+    """Host seconds of the nuScenes loader at full size (six 1600x900
+    JPEGs, scale 0.5, pad to 32, training mode), one thread: per camera
+    ring over every train sample, the PIL decode and the numpy pipeline
+    apart; a queue sample (3 frames, GT and map GT packed) whole,
+    CLI_QUEUE_SAMPLES times."""
+    from apollo_vision_net_tpu_torch.data import pipeline as pipe
+    from apollo_vision_net_tpu_torch.data.infos import CAM_ORDER, lidar2img_from_info
+    from apollo_vision_net_tpu_torch.data.nuscenes_dataset import NuScenesTemporalDataset
+
+    ds = NuScenesTemporalDataset(cfg, infos_path, data_root=data_root,
+                                 training=True, img_scale=0.5, seed=0)
+    decode, pipeline = [], []
+    for info in ds.infos:
+        t0 = time.perf_counter()
+        imgs = ds._load_images(info)
+        t1 = time.perf_counter()
+        img, _ = pipe.preprocess_frame(imgs, lidar2img_from_info(info, CAM_ORDER),
+                                       scale=0.5, training=True, rng=ds.rng)
+        decode.append(t1 - t0)
+        pipeline.append(time.perf_counter() - t1)
+    sample = []
+    for _ in range(CLI_QUEUE_SAMPLES):
+        t0 = time.perf_counter()
+        ds.get_queue_sample(len(ds) - 1)
+        sample.append(time.perf_counter() - t0)
+    return {"decode_s_per_frame": spread(decode),
+            "pipeline_s_per_frame": spread(pipeline),
+            "queue_sample_s": spread(sample),
+            "frames_per_sample": cfg.model.queue_length,
+            "raw_shape": list(imgs.shape), "img_shape": list(img.shape)}
+
+
+def phase_cli_nuscenes(dev):
+    """The flagship through the port's CLIs on a fake nuScenes tree
+    (``write_fake_nuscenes``): create_data nuscenes and nuscenes-map-gt,
+    train from a DLA-34 checkpoint (``fake_dla34_checkpoint``) for
+    CLI_TRAIN_STEPS steps, resumed to CLI_RESUME_STEPS, then test over the
+    val scene with the bbox and chamfer evaluators and the results dumped;
+    every step's and frame's launches exactly the train and stream phases'
+    (counts set to 0 before each CLI call, read after); the loader's host
+    seconds, its wait for a batch, the step time and the streaming eval's
+    frames/s, each as the median and spread of its readings."""
+    import logging
+    import pathlib
+    import pickle
+    import tempfile
+    import types
+
+    from apollo_vision_net_tpu_torch.evaluation.formatting import load_results_json
+    from apollo_vision_net_tpu_torch.runtime.checkpoint import CheckpointManager
+    from apollo_vision_net_tpu_torch.runtime.inference import run_streaming_eval
+    from apollo_vision_net_tpu_torch.runtime.metrics_log import read_metrics
+    from apollo_vision_net_tpu_torch.runtime.train_loop import load_pretrained
+    from apollo_vision_net_tpu_torch.tools import create_data
+    from apollo_vision_net_tpu_torch.tools import test as test_cli
+    from apollo_vision_net_tpu_torch.tools import train as train_cli
+
+    cfg = bev_tiny_det_map_apollo()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        root, out, work = tmp / "nuscenes", tmp / "infos", tmp / "work"
+        t0 = time.perf_counter()
+        write_fake_nuscenes(root)
+        write_s = time.perf_counter() - t0
+        train_pkl = str(out / "nuscenes_infos_temporal_train.pkl")
+        val_pkl = str(out / "nuscenes_infos_temporal_val.pkl")
+        create_data.main(["nuscenes", "--root-path", str(root), "--version",
+                          "v1.0-mini", "--out-dir", str(out)])
+        create_data.main(["nuscenes-map-gt", "--root-path", str(root), "--infos",
+                          train_pkl, "--map-version", "1"])
+        infos = {}
+        for split, path in (("train", train_pkl), ("val", val_pkl)):
+            with open(path, "rb") as f:
+                infos[split] = pickle.load(f)["infos"]
+        ckpt = str(tmp / "dla34.pth")
+        want_trunk = fake_dla34_checkpoint(ckpt)
+        # the import alone, on the card: every trunk tensor as saved
+        model = build_model(dataclasses.replace(cfg, pretrained_path=ckpt), device=dev)
+        load_pretrained(model, dataclasses.replace(cfg, pretrained_path=ckpt))
+        import_ok = all(torch.equal(v.cpu(), want_trunk[k])
+                        for k, v in model.img_backbone.state_dict().items())
+        del model
+
+        logged = []
+        handler = logging.Handler()
+        handler.emit = lambda rec: logged.append(rec.getMessage())
+        logging.getLogger("avnet").addHandler(handler)
+        argv = ["bev_tiny_det_map_apollo", "--data", "nuscenes", "--infos", train_pkl,
+                "--data-root", str(root), "--img-scale", "0.5", "--num-workers", "2",
+                "--pretrained", ckpt, "--work-dir", str(work), "--log-interval", "1"]
+        per_step = train_launches_per_step(cfg)
+        try:
+            for name, steps, extra in (("train", CLI_TRAIN_STEPS, []),
+                                       ("resume", CLI_RESUME_STEPS, ["--resume"])):
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                train_cli.main(argv + ["--steps", str(steps)] + extra)
+                torch.cuda.synchronize()
+                launches[name] = (read_launch_counts(), time.perf_counter() - t0)
+        finally:
+            logging.getLogger("avnet").removeHandler(handler)
+        metrics_path, results_path = tmp / "metrics.json", tmp / "results.json"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        test_cli.main(["bev_tiny_det_map_apollo", "--data", "nuscenes", "--infos",
+                       val_pkl, "--data-root", str(root), "--img-scale", "0.5",
+                       "--checkpoint", str(work), "--eval", "bbox", "chamfer",
+                       "--num-frames", "0", "--dump-results", str(results_path),
+                       "--out", str(metrics_path)])
+        torch.cuda.synchronize()
+        launches["test"] = (read_launch_counts(), time.perf_counter() - t0)
+        metrics = json.loads(metrics_path.read_text())
+        results = load_results_json(str(results_path))
+        records = read_metrics(str(work))
+        mgr = CheckpointManager(str(work))
+        ckpt_steps = mgr.steps()
+        saved = torch.load(mgr.path(CLI_RESUME_STEPS), map_location="cpu",
+                           weights_only=True)["model"]
+        frozen_ok = all(torch.equal(saved[f"img_backbone.{k}"], v)
+                        for k, v in want_trunk.items() if "_bn" in k or ".bn" in k)
+
+        # the streaming eval's frames/s on the val scene (frames decoded
+        # and on the host; a warm pass, then CLI_EVAL_PASSES timed ones,
+        # each from a scene reset as the test CLI runs it)
+        frames, _ = test_cli.nuscenes_frames(cfg, types.SimpleNamespace(
+            infos=val_pkl, data_root=str(root), img_scale=0.5, num_frames=0), False)
+        model = build_model(cfg, device=dev)
+        mgr.restore(model, cfg=cfg)
+        run_streaming_eval(cfg, model, frames)
+        torch.cuda.synchronize()
+        eval_fps = []
+        for _ in range(CLI_EVAL_PASSES):
+            t0 = time.perf_counter()
+            run_streaming_eval(cfg, model, frames)
+            eval_fps.append(len(frames) / (time.perf_counter() - t0))
+        loader = loader_seconds(cfg, train_pkl, str(root))
+        del model
+
+    train_recs = [r for r in records if r["kind"] == "train"]
+    steady = [r for r in train_recs if r["step"] not in (1, CLI_TRAIN_STEPS + 1)]
+    n_val = len(infos["val"])
+    expect = {"train": {k: v * CLI_TRAIN_STEPS for k, v in per_step.items()},
+              "resume": {k: v * (CLI_RESUME_STEPS - CLI_TRAIN_STEPS)
+                         for k, v in per_step.items()},
+              "test": {k: v * n_val for k, v in stream_launches_per_frame(cfg).items()}}
+    checks = {
+        "infos_map_vectors": all(i["map_vectors"] for s in infos.values() for i in s),
+        "pretrained_import": import_ok, "frozen_bn_kept": frozen_ok,
+        "resumed": f"resumed from step {CLI_TRAIN_STEPS}" in logged,
+        "train_records": [r["step"] for r in train_recs] == list(
+            range(1, CLI_RESUME_STEPS + 1)),
+        "checkpoints": ckpt_steps == [CLI_TRAIN_STEPS, CLI_RESUME_STEPS],
+        "finite_nds_chamfer": all(math.isfinite(metrics[k]) for k in (
+            "NDS", "NuscMap_chamfer/mAP")),
+        "results_json": len(results["det"]) == len(results["map"]) == n_val,
+        **{f"launches_{k}": launches[k][0] == expect[k] for k in expect}}
+    emit({"phase": "cli_nuscenes", "config": cfg.name, "nvidia_smi": nvidia_smi_line(),
+          "samples": {k: len(v) for k, v in infos.items()},
+          "map_vectors_per_sample": statistics.mean(
+              len(i["map_vectors"]) for i in infos["train"]),
+          "write_tree_s": write_s, "loader": loader,
+          "step_s": [r["step_s"] for r in train_recs],
+          "data_wait_s": [r["data_wait_s"] for r in train_recs],
+          "steady_step_s": spread([r["step_s"] for r in steady]),
+          "steady_data_wait_s": spread([r["data_wait_s"] for r in steady]),
+          "loss_total": [r["loss_total"] for r in train_recs],
+          "eval_frames_per_s": spread(eval_fps), "eval_frames": len(frames),
+          "cli_s": {k: v[1] for k, v in launches.items()},
+          "launches": {k: v[0] for k, v in launches.items()},
+          "metrics": {k: metrics[k] for k in ("NDS", "mean_ap", "NuscMap_chamfer/mAP")},
+          "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cli_nuscenes: failed {failed}; launches "
+                             f"{ {k: v[0] for k, v in launches.items()} } expected {expect}")
+    total = {}
+    for counts, _ in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# the V-99-eSE trunk in TF32 against f32 at a frame's images: largest
+# absolute difference over the f32 output's largest magnitude. TF32 keeps
+# 10 of f32's 23 mantissa bits and bf16 7, so the TF32 trunk must also sit
+# below the bf16 trunk's difference
+VOVNET_TF32_LIMIT = 2e-2
+
+
+def phase_stream_vovnet(dev):
+    """``stream_vovnet`` (``phase_stream_model``; the model's f32
+    convolutions in TF32, ``models.detector.conv_tf32``), then the
+    V-99-eSE trunk alone at the frame's shape (six 480x800 images, forward,
+    CUDA events) in f32 with TF32 off, f32 with TF32 and bf16, with the
+    kernels a forward launches, the TF32 and bf16 outputs held to the f32
+    one (VOVNET_TF32_LIMIT). Without TF32 cuDNN runs V-99's f32 3x3
+    convolutions as FFTs (~26,000 kernels a forward), ten times slower; the
+    f32 frame against plain versions runs the same convolutions on both
+    sides."""
+    from apollo_vision_net_tpu_torch import set_f32_precision
+    from apollo_vision_net_tpu_torch.models.detector import conv_tf32
+    from apollo_vision_net_tpu_torch.models.vovnet import VoVNet
+
+    cfg = vovnet_det()
+    launches = phase_stream_model(dev, cfg, "stream_vovnet", n_fps=5)
+    trunk = VoVNet(out_indices=(3,)).to(dev).eval()
+    x = torch.randn((6, 3) + tuple(cfg.model.img_shape), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    rows, outs = {}, {}
+    for name, dtype, tf32 in (("f32", torch.float32, False),
+                              ("f32_tf32", torch.float32, True),
+                              ("bf16", torch.bfloat16, False)):
+        set_f32_precision(tf32)
+        xx = x.to(dtype)
+        try:
+            with torch.inference_mode():
+                outs[name] = trunk(xx)[-1].float()
+                ms = time_ms(lambda: trunk(xx), warmup=2, iters=3)
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    trunk(xx)
+                    torch.cuda.synchronize()
+        finally:
+            set_f32_precision(conv_tf32(cfg))
+        kern, _ = profile_kernels(prof)
+        by_name = {}
+        for kname, us in kern:
+            by_name[kname[:60]] = by_name.get(kname[:60], 0.0) + us
+        rows[name] = {"ms": ms, "kernels": len(kern),
+                      "top": sorted(by_name, key=lambda k: -by_name[k])[:3]}
+    ref = outs["f32"]
+    scale = ref.abs().max().item()
+    for name in ("f32_tf32", "bf16"):
+        rows[name]["rel_err_vs_f32"] = (outs[name] - ref).abs().max().item() / scale
+    emit({"phase": "stream_vovnet_trunk", "images": list(x.shape),
+          "out_shape": list(ref.shape), "out_max_abs": scale,
+          "limit": VOVNET_TF32_LIMIT, "forward": rows})
+    tf32_err = rows["f32_tf32"]["rel_err_vs_f32"]
+    if not (math.isfinite(tf32_err) and tf32_err <= VOVNET_TF32_LIMIT
+            and tf32_err < rows["bf16"]["rel_err_vs_f32"]):
+        raise AssertionError(f"stream_vovnet_trunk: TF32 vs f32 {tf32_err} (limit "
+                             f"{VOVNET_TF32_LIMIT}, bf16 {rows['bf16']['rel_err_vs_f32']})")
+    del trunk, outs
+    return launches
+
+
+def phase_train_vovnet(dev):
+    """``train_vovnet``: ``phase_train`` at 1 + 2 layers for the f32
+    comparison (TF32 convolutions, as ``phase_stream_vovnet``)."""
+    return phase_train(dev, vovnet_det(), "train_vovnet", cmp_sizes=BASE_CMP_SIZES)
+
+
+def vovnet_det():
+    """bev_tiny_det on VoVNet V-99-eSE (DD3D's pretrained trunk): stage 3,
+    1024 channels at 15x25, into the one FPN level (f32, as configured)."""
+    cfg = bev_tiny_det()
+    return dataclasses.replace(cfg, name="bev_tiny_det_vovnet", model=dataclasses.replace(
+        cfg.model, backbone_type="vovnet"))
 
 
 def kernels_line(rows, launches_by_path):
@@ -3072,6 +3618,9 @@ def main() -> int:
           for name, cfg in (("stream_voxel_base", voxel_base_occ()),
                             ("stream_hybrid_base", hybrid_base_occ()),
                             ("stream_hybrid_intern_s", hybrid_tiny_occ_intern_s()))),
+        ("stream_vovnet", lambda: phase_stream_vovnet(dev)),
+        ("train_vovnet", lambda: phase_train_vovnet(dev)),
+        ("cli_nuscenes", lambda: phase_cli_nuscenes(dev)),
     ]
     launches = {}
     for names, run in phases:

@@ -56,6 +56,21 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.ops.msda3d",
     "apollo_vision_net_tpu_torch.models.resnet",
     "apollo_vision_net_tpu_torch.runtime.inference",
+    "apollo_vision_net_tpu_torch.runtime.metrics_log",
+    "apollo_vision_net_tpu_torch.data.geometry2d",
+    "apollo_vision_net_tpu_torch.data.infos",
+    "apollo_vision_net_tpu_torch.data.loader",
+    "apollo_vision_net_tpu_torch.data.map_extract",
+    "apollo_vision_net_tpu_torch.data.nusc_map",
+    "apollo_vision_net_tpu_torch.data.nusc_tables",
+    "apollo_vision_net_tpu_torch.data.nuscenes_dataset",
+    "apollo_vision_net_tpu_torch.data.pipeline",
+    "apollo_vision_net_tpu_torch.data.semantic_kitti",
+    "apollo_vision_net_tpu_torch.models.vovnet",
+    "apollo_vision_net_tpu_torch.utils.torch_import",
+    "apollo_vision_net_tpu_torch.tools.create_data",
+    "apollo_vision_net_tpu_torch.tools.test",
+    "apollo_vision_net_tpu_torch.tools.train",
 ]
 
 
@@ -67,9 +82,15 @@ def _env():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module listed, and every other module of the package (walked,
+    tools/ included), imports without JAX or the JAX package."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, pkgutil, sys\n"
+        "import apollo_vision_net_tpu_torch as p\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "walked = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        f"assert set({PORT_MODULES!r}) - {{p.__name__}} <= set(walked)\n"
+        "for m in walked: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apollo_vision_net_tpu'))\n"
         "assert not bad, bad\n"
@@ -138,8 +159,41 @@ def test_voxel_and_hybrid_configs_equal_the_jax_ones(name):
 
 def test_data_copies_equal_the_jax_ones():
     """camera_ring_lidar2img, make_batch (inference and det-GT keys) and
-    StreamingState behave as the JAX package's originals."""
+    StreamingState behave as the JAX package's originals, and the tables of
+    the real-data copies (camera order, class maps, normalization, table
+    and layer names, splits, map classes) equal theirs
+    (tests/test_torch_data.py holds their functions)."""
     import numpy as np
+
+    from apollo_vision_net_tpu.data import infos as jinfos
+    from apollo_vision_net_tpu.data import map_extract as jme
+    from apollo_vision_net_tpu.data import nusc_map as jnm
+    from apollo_vision_net_tpu.data import nusc_tables as jnt
+    from apollo_vision_net_tpu.data import nuscenes_dataset as jds
+    from apollo_vision_net_tpu.data import pipeline as jpipe
+    from apollo_vision_net_tpu.data import vector_map as jvm
+    from apollo_vision_net_tpu_torch.data import infos as tinfos
+    from apollo_vision_net_tpu_torch.data import map_extract as tme
+    from apollo_vision_net_tpu_torch.data import nusc_map as tnm
+    from apollo_vision_net_tpu_torch.data import nusc_tables as tnt
+    from apollo_vision_net_tpu_torch.data import nuscenes_dataset as tds
+    from apollo_vision_net_tpu_torch.data import pipeline as tpipe
+    from apollo_vision_net_tpu_torch.data import vector_map as tvm
+
+    for (jmod, tmod), names in (
+            ((jinfos, tinfos), ("CAM_ORDER", "DETECTION_NAME_MAP")),
+            ((jpipe, tpipe), ("IMG_MEAN", "IMG_STD")),
+            ((jnt, tnt), ("TABLE_NAMES", "MINI_TRAIN", "MINI_VAL")),
+            ((jnm, tnm), ("MAP_LOCATIONS", "LINE_LAYERS", "POLYGON_LAYERS",
+                          "CENTERLINE_LAYERS")),
+            ((jds, tds), ("DET_CLASSES",)),
+            ((jvm, tvm), ("MAP_CLASS2LABEL", "PADDING_VALUE"))):
+        for name in names:
+            np.testing.assert_array_equal(getattr(tmod, name), getattr(jmod, name),
+                                          err_msg=name)
+    for cls in ("VectorizedLocalMap", "VectorizedLocalMapV2"):
+        for attr in ("vec_classes", "line_layers", "ped_layers", "contour_layers"):
+            assert getattr(getattr(tme, cls), attr) == getattr(getattr(jme, cls), attr)
 
     from apollo_vision_net_tpu.data import synthetic as jsyn
     from apollo_vision_net_tpu.data.temporal import StreamingState as JState
@@ -188,6 +242,25 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         overfit(port_configs.bev_smoke_det_occ(), steps=1)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("tool", ["train", "test"])
+def test_clis_raise_without_a_gpu_unless_asked_for_the_cpu(tool, monkeypatch, tmp_path):
+    """The train and test CLIs run on the card unless ``--device cpu``;
+    without a card and without the flag they raise before any work, and
+    with it they run (one synthetic step, one synthetic frame).
+    ``tools.create_data`` runs no model: it reads tables and maps with
+    numpy on any machine."""
+    import importlib
+
+    main = importlib.import_module(f"apollo_vision_net_tpu_torch.tools.{tool}").main
+    argv = {"train": ["bev_smoke_det", "--steps", "1", "--work-dir", str(tmp_path)],
+            "test": ["bev_smoke_det", "--num-frames", "1"]}[tool]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    assert not list(tmp_path.iterdir())
+    assert main(argv + ["--device", "cpu"]) == 0
 
 
 def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):

@@ -16,8 +16,9 @@
   ``strict=True``.
 - A small ``semantic_kitti_occ`` copy takes one train step on the CPU
   through ``parallel.train.train_step`` with a finite CE loss.
-- The voxel and hybrid head families build on the R50 det config; the
-  trunk the port has not yet got (VoVNet) stays refused.
+- The voxel and hybrid head families build on the R50 det config, and so
+  does the VoVNet trunk (tests/test_torch_vovnet.py holds it against
+  flax).
 """
 import dataclasses
 import functools
@@ -210,18 +211,24 @@ def test_semantic_kitti_geometry_and_train_step():
     ("head_family", {"head_family": "hybrid"}),
 ])
 def test_unported_trunks_and_head_families_are_refused(key, fields):
-    """InternImage and the voxel and hybrid head families are ported: the
-    R50 det config with ``head_family`` voxel or hybrid builds that head
-    (on the meta device: the shapes alone); VoVNet is not ported yet, and
-    build_model refuses it by name."""
+    """Every trunk and head family is ported now, so none is refused: the
+    R50 det config with ``head_family`` voxel or hybrid builds that head,
+    and with ``backbone_type="vovnet"`` the VoVNet V-99-eSE trunk with the
+    FPN's input width its stage 3's 1024 channels (on the meta device: the
+    shapes alone)."""
     cfg = port_configs.bev_tiny_det()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **fields))
+    detector._check_supported(cfg)
     if key == "vovnet":
-        with pytest.raises(NotImplementedError, match=key):
-            build_model(cfg, device="cpu")
+        from apollo_vision_net_tpu_torch.models.vovnet import VoVNet
+
+        with torch.device("meta"):
+            trunk, neck = detector.build_trunk(cfg)
+        assert isinstance(trunk, VoVNet) and trunk.out_channels() == [1024]
+        assert neck.lateral_0.in_channels == 1024
+        assert neck.lateral_0.out_channels == cfg.model.embed_dims
         return
     heads = {"voxel": VoxelFormerOccupancyHead, "hybrid": HybridFormerOccupancyHead}
-    detector._check_supported(cfg)
     with torch.device("meta"):
         head = detector.build_head(cfg)
     assert type(head) is heads[fields["head_family"]]
