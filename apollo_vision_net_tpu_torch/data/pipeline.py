@@ -9,17 +9,23 @@ Parity (reference file:line, datasets/pipelines/transform_3d.py):
   lidar2img intrinsics rows
 - PadMultiViewImage (:8): bottom/right zero-pad to a size divisor (32)
 
-Copy of the JAX package's data/pipeline.py, its numpy path: the JAX
-package's eval path first tries a fused native resize-normalize-pad
-(data/native.py over csrc/host_ops.cpp, which its header calls
-bit-compatible with this numpy path); the port has no copy of that library
-yet, so every frame takes the numpy path.
+Copy of the JAX package's data/pipeline.py. On the eval path (not
+training, uint8 images) ``preprocess_frame`` takes the fused native resize
++ normalize + pad of the port's host library (``data/native.py`` over
+``csrc/host_ops.cpp``, built at first use; it raises where it cannot be
+built or loaded), as the JAX package's eval path does; training frames take
+the numpy path (photometric distortion, normalize, scale, pad), which is
+also the native call's plain version (``plain_resize_normalize_pad``: the
+same bilinear convention, normalizing before the resize where the native
+call normalizes after it, so the two agree to rounding).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+
+from apollo_vision_net_tpu_torch.data import native
 
 IMG_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 IMG_STD = np.array([58.395, 57.12, 57.375], np.float32)
@@ -102,6 +108,17 @@ def pad_images(imgs: np.ndarray, size_divisor: int = 32) -> np.ndarray:
     return out
 
 
+def plain_resize_normalize_pad(imgs_u8: np.ndarray, scale: float,
+                               mean: np.ndarray = IMG_MEAN,
+                               std: np.ndarray = IMG_STD,
+                               size_divisor: int = 32) -> np.ndarray:
+    """The numpy path's images: the plain version of
+    ``native.resize_normalize_pad`` (same arguments and result)."""
+    eye = np.eye(4, dtype=np.float32)[None]
+    imgs, _ = scale_images(normalize_images(imgs_u8, mean, std), eye, scale)
+    return pad_images(imgs, size_divisor)
+
+
 def preprocess_frame(
     imgs_u8: np.ndarray,            # (N, H, W, 3) RGB
     lidar2img: np.ndarray,          # (N, 4, 4)
@@ -114,6 +131,14 @@ def preprocess_frame(
     std: np.ndarray = IMG_STD,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Full train/test pipeline for one frame's camera ring."""
+    if not training and imgs_u8.dtype == np.uint8:
+        # eval path: fused native resize + normalize + pad (csrc/host_ops.cpp)
+        out = native.resize_normalize_pad(
+            imgs_u8, scale, np.asarray(mean, np.float32),
+            np.asarray(std, np.float32), size_divisor)
+        scale_mat = np.eye(4, dtype=lidar2img.dtype)
+        scale_mat[0, 0] = scale_mat[1, 1] = scale
+        return out, scale_mat @ lidar2img
     imgs = imgs_u8.astype(np.float32)
     if training:
         imgs = photometric_distortion(imgs, rng or np.random.default_rng())

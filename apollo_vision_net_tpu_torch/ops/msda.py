@@ -14,7 +14,13 @@ Shapes (batch-first, the JAX package's layout):
 ``ms_deform_attn`` runs the plain version for CPU tensors and the CUDA
 kernel (ops/msda_cuda.py) for CUDA tensors, through ``MSDAFunction``, whose
 backward is the hand-written CUDA backward (``msda_cuda.msda_bwd``); the
-plain version's backward is autograd through it. ``ms_deform_attn_factored``
+plain version's backward is autograd through it, each (level, corner)
+term under ``torch.utils.checkpoint``: the term's gathered rows (B, H, Q·P,
+D) in f32 are formed again in the backward instead of kept, the same
+values and gradients in a fraction of the memory (by count, a base SCA
+layer's 16 copies are 31.5 GB and InternImage-S's 33 DCNv3 calls' ~19 GB
+at six 480x800 images: the f32 step of ``bev_base_occ_intern_s`` under
+plain versions did not fit in 80 GB). ``ms_deform_attn_factored``
 does the same for multi-level SCA on factored operands (per-camera
 reference points, offsets and weights shared by the cameras of a sample),
 through ``FactoredMSDAFunction`` (``msda_cuda.msda_fwd_factored`` and
@@ -26,10 +32,22 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from apollo_vision_net_tpu_torch.ops import use_plain
 
 Shapes = Sequence[Tuple[int, int]]
+
+
+def _corner_term(v_l: torch.Tensor, idx_t: torch.Tensor,
+                 wgt: torch.Tensor) -> torch.Tensor:
+    """One bilinear corner of one level: the rows ``idx_t`` (B, H, Q·P, 1)
+    of ``v_l`` (B, H, hw, D) weighted by ``wgt`` (B, H, Q, P) and summed
+    over the points: (B, H, Q, D)."""
+    B, H, Q, P = wgt.shape
+    D = v_l.shape[-1]
+    g = torch.gather(v_l, 2, idx_t.expand(B, H, Q * P, D))
+    return torch.einsum("bhqpd,bhqp->bhqd", g.reshape(B, H, Q, P, D), wgt)
 
 
 def ms_deform_attn_ref(
@@ -77,9 +95,11 @@ def ms_deform_attn_ref(
             idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
             wgt = (cw * valid * attn).permute(0, 2, 1, 3)  # (B, H, Q, P)
             idx_t = idx.permute(0, 2, 1, 3).reshape(B, H, Q * P, 1)
-            g = torch.gather(v_l, 2, idx_t.expand(B, H, Q * P, D))
-            out = out + torch.einsum(
-                "bhqpd,bhqp->bhqd", g.reshape(B, H, Q, P, D), wgt)
+            if torch.is_grad_enabled() and (v_l.requires_grad or wgt.requires_grad):
+                term = checkpoint(_corner_term, v_l, idx_t, wgt, use_reentrant=False)
+            else:
+                term = _corner_term(v_l, idx_t, wgt)
+            out = out + term
     out = out.permute(0, 2, 1, 3).reshape(B, Q, H * D)
     if tile_mask is not None:
         keep = tile_mask.to(torch.bool).repeat_interleave(q_tile, dim=1)[:, :Q]

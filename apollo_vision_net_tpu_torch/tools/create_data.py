@@ -1,22 +1,29 @@
-"""Offline data converter: raw nuScenes tables -> temporal infos pkl, and
-the vector-map GT that the map head trains on.
+"""Offline data converter: raw nuScenes tables -> temporal infos pkl, the
+vector-map GT that the map head trains on, and SemanticKITTI's infos and
+dense occupancy GT.
 
-Counterpart of the JAX package's tools/create_data.py, its ``nuscenes``
-and ``nuscenes-map-gt`` subcommands (reference tools/create_data.py +
-tools/data_converter/nuscenes_converter.py:29-675): per-sample records
-with the 18-dim can_bus from the CAN pose messages, per-camera
-sensor2lidar extrinsics and intrinsics, annotations, map_location and
-scene metadata, sorted by timestamp, split into train and val; then, from
+Counterpart of the JAX package's tools/create_data.py, its ``nuscenes``,
+``nuscenes-map-gt`` and ``semantic-kitti`` subcommands (reference
+tools/create_data.py + tools/data_converter/nuscenes_converter.py:29-675):
+per-sample records with the 18-dim can_bus from the CAN pose messages,
+per-camera sensor2lidar extrinsics and intrinsics, annotations,
+map_location and scene metadata, sorted by timestamp, split into train and val; then, from
 the map-expansion JSONs under ``<root>/maps/expansion``, each sample's
 ego-frame map polylines and labels. Devkit-free: ``data/nusc_tables.py``
 reads the v1.0 JSON tables and can_bus blobs, ``data/map_extract.py`` the
-map. Numpy only: nothing here runs on a device.
+map. ``semantic-kitti`` reads ``<root>/sequences/<s>/`` (calib.txt,
+poses.txt, voxels/*.label|.invalid) through ``data/semantic_kitti_reader.py``
+and writes ``semantic_kitti_infos.pkl`` and ``occ_gt/occ_gt_<s>_<f>.npy``
+(256x256x32 uint8: 0 empty, 1-19 classes, 255 invalid). Numpy only:
+nothing here runs on a device.
 
     python3 -m apollo_vision_net_tpu_torch.tools.create_data nuscenes \\
         --root-path <nuscenes> --version v1.0-trainval --out-dir <dir> \\
         [--splits <json>]
     python3 -m apollo_vision_net_tpu_torch.tools.create_data nuscenes-map-gt \\
         --root-path <nuscenes> --infos <pkl> [--out <pkl>] [--map-version 2]
+    python3 -m apollo_vision_net_tpu_torch.tools.create_data semantic-kitti \\
+        --root-path <kitti> --out-dir <dir>
 """
 from __future__ import annotations
 
@@ -223,11 +230,36 @@ def add_map_gt_to_infos(
     return out_path
 
 
+def create_semantic_kitti(root_path: str, out_dir: str, sequences=None):
+    """SemanticKITTI infos + dense occ-GT npys from the raw sequence files
+    (devkit-free; data/semantic_kitti_reader.py parses .bin/.label/voxels/
+    calib/poses directly). Returns the infos pkl's path."""
+    from apollo_vision_net_tpu_torch.data.semantic_kitti_reader import (
+        create_semantic_kitti_infos)
+
+    if sequences is None:
+        seq_root = os.path.join(root_path, "sequences")
+        sequences = sorted(
+            d for d in os.listdir(seq_root)
+            if os.path.isdir(os.path.join(seq_root, d)))
+    infos = create_semantic_kitti_infos(
+        root_path, sequences, os.path.join(out_dir, "occ_gt"))
+    out = os.path.join(out_dir, "semantic_kitti_infos.pkl")
+    with open(out, "wb") as f:
+        pickle.dump({"infos": infos,
+                     "metadata": {"version": "semantic-kitti"}}, f)
+    print(f"wrote {len(infos)} infos to {out}")
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
-        description="nuScenes tables -> temporal infos pkl (nuscenes), or "
-                    "map GT added to an infos pkl (nuscenes-map-gt)")
-    p.add_argument("dataset", choices=["nuscenes", "nuscenes-map-gt"])
+        description="nuScenes tables -> temporal infos pkl (nuscenes), "
+                    "map GT added to an infos pkl (nuscenes-map-gt), or "
+                    "SemanticKITTI sequences -> infos pkl and occupancy GT "
+                    "(semantic-kitti)")
+    p.add_argument("dataset",
+                   choices=["nuscenes", "nuscenes-map-gt", "semantic-kitti"])
     p.add_argument("--root-path", required=True)
     p.add_argument("--version", default="v1.0-trainval")
     p.add_argument("--out-dir", default="")
@@ -239,7 +271,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="JSON with {'train': [...], 'val': [...]} scene "
                         "names (trainval split lists; mini is built in)")
     a = p.parse_args(argv)
-    if a.dataset == "nuscenes":
+    if a.dataset == "semantic-kitti":
+        if not a.out_dir:
+            raise SystemExit("--out-dir required for semantic-kitti conversion")
+        create_semantic_kitti(a.root_path, a.out_dir)
+    elif a.dataset == "nuscenes":
         if not a.out_dir:
             raise SystemExit("--out-dir required for nuscenes conversion")
         create_nuscenes_infos(a.root_path, a.version, a.out_dir,

@@ -183,6 +183,36 @@ Phases, each printing JSON lines:
                (its last stage 160,000 voxels) and hybrid_tiny_occ_intern_s
                (InternImage-S, 33 DCNv3 calls a frame) served: exact
                launches a frame, bf16 frames/s and a profile.
+  train_voxel_base, train_hybrid_base, train_base_intern_s,
+  train_hybrid_intern_s  the train steps of voxel_base_occ, hybrid_base_occ,
+               bev_base_occ_intern_s (after ``stream_base_intern_s``) and
+               hybrid_tiny_occ_intern_s at full width as ``train_voxel``:
+               3 bf16 steps with exact launch counts by entry and variant
+               (``train_launches_per_step``: R101's 26 DCN and 26 dcn_bwd,
+               InternImage-S's 33 DCNv3 calls a frame and their msda_bwd,
+               the hybrids' D = 2 stage on the scalar forward and
+               msda_bwd's general plan, the base SCA on the factored
+               entries), loss terms finite and moving, steps/s, peak memory
+               of the steps, a profile with ``grid_sampler_3d``'s device
+               time; the f32 step against plain versions beside the
+               witnesses at 1 encoder and 2 decoder layers (BASE_CMP_SIZES;
+               the hybrids' five stages whole), with ``train``'s limits.
+  kitti_files  semantic_kitti_occ trained from a SemanticKITTI tree: one
+               sequence written from a seed into a temporary directory at
+               full size (``write_fake_kitti``: 1241x376 PNGs, scans of
+               KITTI_POINTS points with their labels, 256x256x32 voxel
+               labels, occupancy and invalid bitmaps, calib.txt,
+               poses.txt), ``tools.create_data semantic-kitti`` over it,
+               then 3 bf16 train steps on a batch read from its files (each
+               image through the port's training pipeline onto the
+               config's 480x800 canvas, lidar2img from the infos, the GT
+               through ``dense_gt_to_training_labels``); fails unless the
+               launches equal ``train_kitti``'s and the losses are finite.
+               Prints the host seconds of reading a frame, of the native
+               voxelizer against ``voxelize_numpy`` on a full scan (their
+               outputs equal) and of the native eval pipeline against the
+               numpy one on a 1600x900 six-camera ring (within
+               NATIVE_PIPE_RTOL / NATIVE_PIPE_ATOL).
   stream_vovnet, train_vovnet  bev_tiny_det on VoVNet V-99-eSE (stage 3,
                1024 channels at 15x25, into the one FPN level; f32 as
                configured, with the convolutions in TF32 as the port runs a
@@ -214,8 +244,9 @@ Phases, each printing JSON lines:
                reloads, and each step and frame ran the train and stream
                phases' launches. Prints the loader's host seconds at full
                size (PIL decode and the numpy pipeline a camera ring, over
-               the train samples; a queue sample whole, CLI_QUEUE_SAMPLES
-               times), each step's seconds and wait for its batch, and the
+               the train samples, and the eval pipeline on each ring both
+               ways, native and numpy; a queue sample whole,
+               CLI_QUEUE_SAMPLES times), each step's seconds and wait for its batch, and the
                streaming eval's frames/s over CLI_EVAL_PASSES passes, each
                as a median and a spread.
   train_overfit_voxel_s0-3  smoke_voxel_occ through the overfit tool as
@@ -271,7 +302,9 @@ map decoder, 7,000 queries over 50x50 (``map_decoder_v2_train``, forward
 too), InternImage-S's four DCNv3 shapes (``dcnv3_stage0``-``3``) and
 bev_tiny_det's SCA (``sca_tiny_det``), forward too, and the voxel and
 hybrid SCAs (``sca_voxel``, ``sca_hybrid_stage1``-``4``, forward too; at D = 2
-the general plan); each MSDA
+the general plan) and their base shapes (``sca_voxel_base``,
+``tsa_hybrid_base``, ``sca_hybrid_base_stage0``-``4``, ``det_decoder_base100``
+over the 100x100 BEV, forward too); each MSDA
 backward row counts its value rows' list lengths, ``corners_per_row``),
 the base TSA over 200x200 and both base decoders, and the MSDA edge
 shapes (the
@@ -290,8 +323,9 @@ The full overfit-to-metric check (det mAP, map chamfer mAP, occ IoU/mIoU
 bars) is ``python3 -m apollo_vision_net_tpu_torch.tools.overfit_check``,
 not part of this run.
 Each phase is followed by a ``seconds`` line (its wall time); the seven
-overfit phases run last, side by side, one spawned process each (their
-steps are host-bound), and share one ``seconds`` line. Then the
+overfit phases run last, side by side in the spawned processes of
+OVERFIT_GROUPS (their steps are host-bound), and share one ``seconds``
+line. Then the
 run's seconds (kernel builds included), the ``{"kernels": [...]}``
 line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -494,6 +528,10 @@ WITNESSES = (("images", 1), ("images", 2), ("images", 3), ("weights", 1))
 # sampling-offset gradient by the same 15.37% of its largest element
 # (15.373%, 15.376%, 15.370%, 15.376%; H100 chip run).
 BASE_CMP_SIZES = dict(encoder_layers=1, decoder_layers=2, map_decoder_layers=2)
+# the depth of the f32 model whose steps/s and profile a bf16 train phase
+# reads beside its own: at full depth the run would not end within its
+# time limit with every config's train phase in it
+F32_SPEED_SIZES = BASE_CMP_SIZES
 # the overfit run must bring loss_total to this share of its first value in
 # OVERFIT_STEPS steps (warmup 30, cosine to 300). The JAX package's run
 # (artifacts/overfit_r3, a 3000-step schedule) stood at 16.1% of its first
@@ -1108,6 +1146,37 @@ def voxel_cases(dev):
         cases.append(voxel_sca_case(
             f"sca_hybrid_stage{s}", hyb, g, dev, m.hybrid_feature_map_z[s],
             m.hybrid_encoder_embed_dims[s]))
+    return cases
+
+
+def voxel_base_cases(dev):
+    """The MSDA shapes that the base voxel and hybrid heads add, at their
+    100x100 grid: voxel_base_occ's SCA over 4x100x100 = 40,000 voxels at
+    D = 32 (``sca_voxel_base``); hybrid_base_occ's BEV stage, TSA over the
+    100x100 grid (2, 10,000) and a dense SCA of its cells at one z-slice
+    (D = 32), and its voxel stages 1-4, 20,000 to 160,000 voxels at D =
+    16, 8, 4 and 2 (``sca_hybrid_base_stage{s}``); the det decoder over
+    both heads' 100x100 voxel2bev memory (``det_decoder_base100``)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    vox = voxel_base_occ()
+    cases = [voxel_sca_case("sca_voxel_base", vox, g, dev, vox.model.bev_z,
+                            vox.model.embed_dims)]
+    hyb = hybrid_base_occ()
+    m = hyb.model
+    bh, bw = m.bev_h, m.bev_w
+    Q, H, D = bh * bw, 8, m.hybrid_encoder_embed_dims[0] // 8
+    ref2d = torch.as_tensor(geometry.bev_reference_points_2d(bh, bw), device=dev)
+    cases.append(msda_case("tsa_hybrid_base", g, dev, B=2, hw=(bh, bw), H=H,
+                           D=D, Q=Q, P=4,
+                           ref_xy=ref2d[None, :, None].expand(2, Q, 4, 2)))
+    for s in range(len(m.hybrid_encoder_embed_dims)):
+        cases.append(voxel_sca_case(
+            f"sca_hybrid_base_stage{s}", hyb, g, dev, m.hybrid_feature_map_z[s],
+            m.hybrid_encoder_embed_dims[s]))
+    ref = torch.rand((1, m.num_query, 1, 2), generator=g, device=dev)
+    cases.append(msda_case("det_decoder_base100", g, dev, B=1, hw=(bh, bw),
+                           H=H, D=m.embed_dims // 8, Q=m.num_query, P=4,
+                           ref_xy=ref.expand(1, m.num_query, 4, 2)))
     return cases
 
 
@@ -1726,9 +1795,9 @@ def bwd_rows(dev, cases):
             del got, want
             if not case["name"].startswith("edge"):
                 row["ms"] = graph_time_ms(kernel)
-                row["parts"] = device_parts(kernel)
-                row["plain_ms"] = time_ms(plain, warmup=2, iters=5)
-                row["call_ms"] = time_ms(kernel)
+                row["parts"] = device_parts(kernel, n=10)
+                row["plain_ms"] = time_ms(plain, warmup=1, iters=3)
+                row["call_ms"] = time_ms(kernel, warmup=3, iters=20)
                 row["bound_ms"], row["bound_by"], row["design_bytes"] = bound()
                 if case["kind"] == "msda":
                     row["corners_per_row"] = corner_list_lengths(
@@ -1777,7 +1846,7 @@ def phase_kernels(dev):
     rows, outs = [], {}
     cases = (flagship_cases(dev) + occ_cases(dev) + [occ_tsa_cases(dev)[1]]
              + mapv2_cases(dev) + dcnv3_cases(dev) + tiny_det_cases(dev)
-             + voxel_cases(dev) + base_msda_cases(dev)
+             + voxel_cases(dev) + voxel_base_cases(dev) + base_msda_cases(dev)
              + msda_edge_cases(dev) + factored_edge_cases(dev) + dcn_cases(dev))
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1812,10 +1881,10 @@ def phase_kernels(dev):
                 # ms: device time (CUDA graph replay); call_ms: an eager call
                 # as the main path makes it; plain_ms: see bind()
                 row["ms"] = graph_time_ms(kernel)
-                row["plain_ms"] = (graph_time_ms(plain, iters=10)
+                row["plain_ms"] = (graph_time_ms(plain, iters=5)
                                    if case["kind"] == "msda"
-                                   else time_ms(plain, warmup=2, iters=5))
-                row["call_ms"] = time_ms(kernel)
+                                   else time_ms(plain, warmup=1, iters=3))
+                row["call_ms"] = time_ms(kernel, warmup=3, iters=20)
                 row["bound_ms"], row["bound_by"] = bound(got)
                 if case.get("tile_mask") is not None:
                     row["active_tiles"] = int(case["tile_mask"].sum())
@@ -1837,7 +1906,7 @@ def phase_kernels(dev):
     rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev)
                      + list(occ_tsa_cases(dev)) + mapv2_cases(dev)
                      + dcnv3_cases(dev) + tiny_det_cases(dev)
-                     + voxel_cases(dev) + base
+                     + voxel_cases(dev) + voxel_base_cases(dev) + base
                      + base_factored_bwd_cases(next(
                          c for c in base if c["name"] == "sca_base_factored"))
                      + msda_edge_cases(dev) + factored_edge_cases(dev)
@@ -2326,7 +2395,8 @@ def phase_stream_base(dev):
     return launches
 
 
-def phase_base_occ(dev, cfg=None, phase="base_occ", train=True):
+def phase_base_occ(dev, cfg=None, phase="base_occ", train=True,
+                   train_phase=None, cmp_sizes=None):
     """bev_base_occ at full width (the base trunk, 200x200 BEV, the MLP
     occupancy head on a 200x200x16 grid), or another base-scale occupancy
     config (``bev_base_occ_intern_s``: InternImage-S stages 2-4 in place of
@@ -2334,9 +2404,11 @@ def phase_base_occ(dev, cfg=None, phase="base_occ", train=True):
     plain: 6 TSA and 6 det decoder, plus 33 DCNv3 with InternImage-S; 6
     factored; 26 DCN with R101-DCN; vector), finite outputs, its f32 frame
     with history against the same frame under ``ops.plain_versions()``,
-    bf16 frames/s and a profile; then, with ``train``, its train step: 3
-    bf16 steps with exact launch counts, steps/s, peak memory and a
-    profile."""
+    bf16 frames/s and a profile; then, with ``train``, its train step
+    (``phase_train`` as ``train_phase``, by default ``phase`` + "_train"):
+    3 bf16 steps with exact launch counts, steps/s, peak memory and a
+    profile, and with ``cmp_sizes`` the f32 step against plain versions at
+    those sizes."""
     cfg = cfg or bev_base_occ()
     cfg32 = f32_config(cfg)
     m = cfg.model
@@ -2366,7 +2438,8 @@ def phase_base_occ(dev, cfg=None, phase="base_occ", train=True):
     torch.cuda.empty_cache()
     if not train:
         return stream
-    train = phase_train(dev, cfg, phase + "_train", f32=False, compare=False)
+    train = phase_train(dev, cfg, train_phase or phase + "_train", f32=False,
+                        compare=cmp_sizes is not None, cmp_sizes=cmp_sizes)
     return stream, train
 
 
@@ -2559,7 +2632,8 @@ def witness_step(model, cfg, batch, gen, seed, indices, kind, wseed):
     return losses, grads
 
 
-def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True, compare=True):
+def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True, compare=True,
+                split_on_general=True):
     """A train step (the flagship's, ``phase`` "train", the det+occ
     models', "train_occ", "train_occ_tsa", "train_occ_flow", the base
     models', "train_base" and "base_occ_train", at full width; the smoke
@@ -2567,9 +2641,10 @@ def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True, compare=True):
     with exact launch counts, finite loss terms (``loss_flow`` > 0 with a
     flow branch) and the peak memory of those steps; with ``compare``, the
     f32 step with kernels against plain versions beside the witnesses (with
-    the model fields ``cmp_sizes`` where given, see BASE_CMP_SIZES); with
-    ``f32``, steady-state steps/s of the f32 model at full depth beside the
-    configured dtype's; a profile of each."""
+    the model fields ``cmp_sizes`` where given, see BASE_CMP_SIZES; with
+    ``split_on_general``, split by kernel where a general variant ran); with
+    ``f32``, steady-state steps/s of the f32 model at F32_SPEED_SIZES beside
+    the configured dtype's at full depth; a profile of each."""
     cfg32 = f32_config(cfg)
     torch.cuda.reset_peak_memory_stats()
     batch = train_lib.batch_to_device(
@@ -2612,29 +2687,39 @@ def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True, compare=True):
         raise AssertionError(f"{phase}: loss_total does not move {history}")
 
     dname = "bf16" if cfg.compute_dtype == "bfloat16" else "f32"
+    t0 = time.perf_counter()
     sps = {dname: steps_per_s(cfg, model, optimizer, batch, gen, 5)}
     runs = [(dname, cfg, model, optimizer)]
+    parts = {"steps": seconds, "steps_per_s": time.perf_counter() - t0}
     if compare:
+        t0 = time.perf_counter()
         cfg_cmp = cfg32
         if cmp_sizes is not None:
             cfg_cmp = dataclasses.replace(cfg32, model=dataclasses.replace(
                 cfg32.model, **cmp_sizes))
-        f32_step_vs_plain(dev, cfg_cmp, phase, batch, gen)
+        f32_step_vs_plain(dev, cfg_cmp, phase, batch, gen,
+                          split_on_general=split_on_general)
+        parts["f32_vs_plain"] = time.perf_counter() - t0
     if f32 and dname != "f32":
-        model32 = new_model(cfg32, dev).train()
-        optimizer32 = make_optimizer(model32, cfg32.optim)
-        sps["f32"] = steps_per_s(cfg32, model32, optimizer32, batch, gen, 5)
-        runs.append(("f32", cfg32, model32, optimizer32))
+        t0 = time.perf_counter()
+        cfg_speed = dataclasses.replace(cfg32, model=dataclasses.replace(
+            cfg32.model, **F32_SPEED_SIZES))
+        model32 = new_model(cfg_speed, dev).train()
+        optimizer32 = make_optimizer(model32, cfg_speed.optim)
+        sps["f32"] = steps_per_s(cfg_speed, model32, optimizer32, batch, gen, 5)
+        runs.append(("f32", cfg_speed, model32, optimizer32))
+        parts["f32_steps_per_s"] = time.perf_counter() - t0
     emit({"phase": phase + "_steps_per_s", "steps_per_s": sps,
           "peak_mem_gb_steps": steps_peak,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds_by_part": parts})
     for name, c, mdl, opt in runs:
         profile_train("profile_" + phase, c, mdl, opt, batch, gen, name,
                       1e3 / sps[name])
     return launches
 
 
-def f32_step_vs_plain(dev, cfg32, phase, batch, gen):
+def f32_step_vs_plain(dev, cfg32, phase, batch, gen, split_on_general=True):
     """One f32 step with kernels against the same step under plain
     versions (same weights, batch, generator draws and the kernels' run's
     assignment), beside the witnesses of the step's own sensitivity
@@ -2699,7 +2784,8 @@ def f32_step_vs_plain(dev, cfg32, phase, batch, gen):
         top_param["witnesses"].append(wit_rel[top])
         del wit_g
     split = None
-    if general or rel[top] > SPLIT_SHARE * max(top_param["witnesses"] + [SPLIT_FLOOR]):
+    if ((general and split_on_general)
+            or rel[top] > SPLIT_SHARE * max(top_param["witnesses"] + [SPLIT_FLOOR])):
         split = kernel_split(model32, cfg32, batch, gen, seed, indices, top,
                              rel_errs, got_g, want_g)
     emit({"phase": phase + "_f32_vs_plain", "config": cfg32.name,
@@ -2985,7 +3071,7 @@ CLI_IMG_WH = (1600, 900)
 # to val
 CLI_SCENES = (("scene-0061", 4), ("scene-0103", 3))
 CLI_LOCATION = "singapore-onenorth"
-CLI_TRAIN_STEPS, CLI_RESUME_STEPS = 4, 6
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS = 3, 4
 
 
 def _rot_to_quat(r):
@@ -3197,7 +3283,7 @@ def stream_launches_per_frame(cfg) -> dict:
             "msda_fwd_masked": n_sca, "msda_fwd_masked.vector": n_sca}
 
 
-CLI_QUEUE_SAMPLES, CLI_EVAL_PASSES = 3, 7
+CLI_QUEUE_SAMPLES, CLI_EVAL_PASSES = 2, 4
 
 
 def spread(xs) -> dict:
@@ -3210,23 +3296,32 @@ def loader_seconds(cfg, infos_path, data_root) -> dict:
     """Host seconds of the nuScenes loader at full size (six 1600x900
     JPEGs, scale 0.5, pad to 32, training mode), one thread: per camera
     ring over every train sample, the PIL decode and the numpy pipeline
-    apart; a queue sample (3 frames, GT and map GT packed) whole,
-    CLI_QUEUE_SAMPLES times."""
+    apart, and the eval pipeline on the same ring, native
+    (``preprocess_frame`` in eval mode) and numpy (its plain version); a
+    queue sample (3 frames, GT and map GT packed) whole, CLI_QUEUE_SAMPLES
+    times."""
     from apollo_vision_net_tpu_torch.data import pipeline as pipe
     from apollo_vision_net_tpu_torch.data.infos import CAM_ORDER, lidar2img_from_info
     from apollo_vision_net_tpu_torch.data.nuscenes_dataset import NuScenesTemporalDataset
 
     ds = NuScenesTemporalDataset(cfg, infos_path, data_root=data_root,
                                  training=True, img_scale=0.5, seed=0)
-    decode, pipeline = [], []
+    decode, pipeline, eval_native, eval_numpy = [], [], [], []
     for info in ds.infos:
         t0 = time.perf_counter()
         imgs = ds._load_images(info)
         t1 = time.perf_counter()
-        img, _ = pipe.preprocess_frame(imgs, lidar2img_from_info(info, CAM_ORDER),
-                                       scale=0.5, training=True, rng=ds.rng)
+        l2i = lidar2img_from_info(info, CAM_ORDER)
+        img, _ = pipe.preprocess_frame(imgs, l2i, scale=0.5, training=True,
+                                       rng=ds.rng)
+        t2 = time.perf_counter()
+        pipe.preprocess_frame(imgs, l2i, scale=0.5, training=False)
+        t3 = time.perf_counter()
+        pipe.plain_resize_normalize_pad(imgs, 0.5)
         decode.append(t1 - t0)
-        pipeline.append(time.perf_counter() - t1)
+        pipeline.append(t2 - t1)
+        eval_native.append(t3 - t2)
+        eval_numpy.append(time.perf_counter() - t3)
     sample = []
     for _ in range(CLI_QUEUE_SAMPLES):
         t0 = time.perf_counter()
@@ -3234,6 +3329,8 @@ def loader_seconds(cfg, infos_path, data_root) -> dict:
         sample.append(time.perf_counter() - t0)
     return {"decode_s_per_frame": spread(decode),
             "pipeline_s_per_frame": spread(pipeline),
+            "eval_pipeline_native_s_per_frame": spread(eval_native),
+            "eval_pipeline_numpy_s_per_frame": spread(eval_numpy),
             "queue_sample_s": spread(sample),
             "frames_per_sample": cfg.model.queue_length,
             "raw_shape": list(imgs.shape), "img_shape": list(img.shape)}
@@ -3468,6 +3565,250 @@ def vovnet_det():
         cfg.model, backbone_type="vovnet"))
 
 
+# ------------------------------------------------------------ kitti_files
+
+KITTI_IMG_WH = (1241, 376)
+KITTI_POINTS = 120_000
+# KITTI odometry sequence 00's P2 and velodyne-to-camera Tr (calib.txt)
+KITTI_P2 = ((718.856, 0.0, 607.1928, 45.38225),
+            (0.0, 718.856, 185.2157, -0.1130887),
+            (0.0, 0.0, 1.0, 0.003779761))
+KITTI_TR = ((4.276802e-04, -9.999672e-01, -8.084491e-03, -1.198459e-02),
+            (-7.210626e-03, 8.081198e-03, -9.999413e-01, -5.403984e-02),
+            (9.999738e-01, 4.859485e-04, -7.206933e-03, -2.921968e-01))
+# raw SemanticKITTI ids of the scan's surfaces and objects (ground rings by
+# lateral distance; boxes of objects: id, (length, width, height), count)
+KITTI_GROUND = (40, 48, 72)
+KITTI_OBJECTS = ((10, (4.2, 1.8, 1.5), 14), (252, (4.2, 1.8, 1.5), 3),
+                 (50, (12.0, 1.0, 6.0), 8), (70, (3.0, 3.0, 4.0), 10),
+                 (80, (0.3, 0.3, 5.0), 8), (30, (0.6, 0.6, 1.8), 5))
+# the fused eval pipeline against the numpy one (tests/test_native.py's)
+NATIVE_PIPE_RTOL, NATIVE_PIPE_ATOL = 2e-4, 2e-3
+
+
+def kitti_scan(rng, n=KITTI_POINTS):
+    """One labeled velodyne sweep: ground points out to 70 m around the car
+    (road, sidewalk, terrain by lateral distance; denser near), the rest on
+    boxes of cars, moving cars, buildings, vegetation, poles and people
+    ahead and beside it: (n, 3) float32 xyz, raw semantic ids, instance
+    ids."""
+    import numpy as np
+
+    n_g = n * 11 // 20
+    r = 3.0 + 67.0 * rng.random(n_g) ** 2
+    az = rng.uniform(-math.pi, math.pi, n_g)
+    y = r * np.sin(az)
+    xyz = [np.stack([r * np.cos(az), y, -1.73 + 0.03 * rng.standard_normal(n_g)], 1)]
+    sem = [np.asarray(KITTI_GROUND)[(np.abs(y) >= 4.0).astype(int)
+                                    + (np.abs(y) >= 7.0).astype(int)]]
+    inst = [np.zeros(n_g, np.int64)]
+    boxes = [(sid, size, k) for sid, size, count in KITTI_OBJECTS for k in range(count)]
+    for b, (sid, size, k) in enumerate(boxes):
+        m = (n - n_g) // len(boxes) + (b < (n - n_g) % len(boxes))
+        lo = np.array([*rng.uniform((-10.0, -30.0), (60.0, 30.0)), -1.73])
+        lo[:2] -= np.asarray(size[:2]) / 2
+        xyz.append(lo + rng.random((m, 3)) * size)
+        sem.append(np.full(m, sid))
+        inst.append(np.full(m, k + 1 if sid in (10, 252, 30) else 0))
+    return (np.concatenate(xyz).astype(np.float32), np.concatenate(sem),
+            np.concatenate(inst))
+
+
+def write_fake_kitti(root, seed: int = 0, n_frames: int = 3):
+    """One SemanticKITTI sequence ("00") in the dataset's own formats under
+    ``root``, from ``seed``: per frame a 1241x376 PNG (image_2), a sweep of
+    KITTI_POINTS points (velodyne .bin) with its .label, and the
+    256x256x32 voxel files (.label: raw ids by majority of the sweep's
+    points, the native voxelizer's vote; .bin: occupancy bits; .invalid:
+    ~2% of the voxels), calib.txt (KITTI_P2, KITTI_TR) and poses.txt
+    (1 m forward a frame). Returns (sequence dir, the frames' points with
+    learning ids)."""
+    import numpy as np
+    from PIL import Image
+
+    from apollo_vision_net_tpu_torch.data import native
+    from apollo_vision_net_tpu_torch.data import semantic_kitti as sk
+
+    rng = np.random.default_rng(seed)
+    seq = root / "sequences" / "00"
+    for sub in ("image_2", "velodyne", "labels", "voxels"):
+        (seq / sub).mkdir(parents=True, exist_ok=True)
+    flat = lambda a: " ".join(repr(float(v)) for v in np.asarray(a).reshape(-1))  # noqa: E731
+    (seq / "calib.txt").write_text("".join(
+        f"{k}: {flat(v)}\n" for k, v in (("P0", np.zeros((3, 4))), ("P1", np.zeros((3, 4))),
+                                          ("P2", KITTI_P2), ("P3", KITTI_P2),
+                                          ("Tr", KITTI_TR))))
+    (seq / "poses.txt").write_text("".join(
+        flat(np.hstack([np.eye(3), [[0.0], [0.0], [float(f)]]])) + "\n"
+        for f in range(n_frames)))
+    lut = sk.build_learning_map_array()
+    raw_of = np.zeros(sk.OCCUPANCY_CLASSES + 1, np.uint16)
+    for raw_id in sorted(sk.LEARNING_MAP, reverse=True):
+        raw_of[sk.LEARNING_MAP[raw_id]] = raw_id  # the smallest raw id of each
+    W, H = KITTI_IMG_WH
+    scans = []
+    for f in range(n_frames):
+        name = f"{f:06d}"
+        img = rng.integers(0, 256, (H, W, 3), np.uint8)
+        img[:, :, 0] = np.linspace(0, 255, W, dtype=np.uint8)[None]
+        Image.fromarray(img).save(seq / "image_2" / f"{name}.png")
+        xyz, sem, inst = kitti_scan(rng)
+        pts = np.concatenate([xyz, rng.random((len(xyz), 1), np.float32)], 1)
+        pts.astype(np.float32).tofile(seq / "velodyne" / f"{name}.bin")
+        (sem.astype(np.uint32) | (inst.astype(np.uint32) << 16)).tofile(
+            seq / "labels" / f"{name}.label")
+        ids = np.concatenate([xyz, lut[sem][:, None]], 1).astype(np.float32)
+        dense = native.voxelize_points(
+            ids, sk.PC_RANGE, sk.OCCUPANCY_SIZE,
+            (sk.OCC_XDIM, sk.OCC_YDIM, sk.OCC_ZDIM), sk.OCCUPANCY_CLASSES + 1, 0)
+        vox = raw_of[dense.reshape(sk.OCC_ZDIM, sk.OCC_YDIM, sk.OCC_XDIM)
+                     .transpose(2, 1, 0)]                     # (x, y, z) order
+        vox.reshape(-1).tofile(seq / "voxels" / f"{name}.label")
+        np.packbits((vox > 0).reshape(-1)).tofile(seq / "voxels" / f"{name}.bin")
+        np.packbits((rng.random(vox.shape) < 0.02).reshape(-1)).tofile(
+            seq / "voxels" / f"{name}.invalid")
+        scans.append(ids)
+    return seq, scans
+
+
+def host_seconds(fn, n=3):
+    """``fn``'s result and the spread of its host seconds over ``n`` calls."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, spread(times)
+
+
+def kitti_frame(info, cfg, rng):
+    """One queue frame read from the SemanticKITTI files: image_2 through
+    the port's training pipeline at the scale that fits its width to the
+    config's (1241 -> 800 columns), onto the config's zero canvas (480x800:
+    the geometry's pixel frame is unchanged), lidar2img from the infos
+    scaled with it, and the dense GT as training labels."""
+    import numpy as np
+    from PIL import Image
+
+    from apollo_vision_net_tpu_torch.data import pipeline as pipe
+    from apollo_vision_net_tpu_torch.data.semantic_kitti import dense_gt_to_training_labels
+
+    cam = info["cams"]["image_2"]
+    img = np.asarray(Image.open(cam["data_path"]).convert("RGB"))[None]
+    H, W = cfg.model.img_shape
+    out, l2i = pipe.preprocess_frame(img, cam["lidar2img"][None].astype(np.float32),
+                                     scale=W / img.shape[2], training=True, rng=rng)
+    canvas = np.zeros((1, H, W, 3), np.float32)
+    canvas[:, :out.shape[1], :out.shape[2]] = out[:, :H, :W]
+    labels = dense_gt_to_training_labels(np.load(info["occ_gt_path"]))
+    return canvas, l2i.astype(np.float32), labels
+
+
+def phase_kitti_files(dev):
+    """semantic_kitti_occ's train step fed from a SemanticKITTI tree (see the
+    module docstring): the tree, ``tools.create_data semantic-kitti``, a
+    queue batch read from its files, 3 bf16 train steps with the launch
+    counts of ``train_kitti``; the host readings."""
+    import pickle
+    import pathlib
+    import tempfile
+
+    import numpy as np
+
+    from apollo_vision_net_tpu_torch.data import native
+    from apollo_vision_net_tpu_torch.data import pipeline as pipe
+    from apollo_vision_net_tpu_torch.data import semantic_kitti as sk
+    from apollo_vision_net_tpu_torch.tools import create_data
+    from apollo_vision_net_tpu_torch.tools.convert_lidar_to_occ import voxelize_numpy
+
+    cfg = semantic_kitti_occ()
+    m = cfg.model
+    T = m.queue_length
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        _, scans = write_fake_kitti(root, seed=0, n_frames=T)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        infos_path = create_data.create_semantic_kitti(str(root), str(root / "out"))
+        t_create = time.perf_counter() - t0
+        with open(infos_path, "rb") as f:
+            infos = pickle.load(f)["infos"]
+        rng = np.random.default_rng(0)
+        frames, read_s = [], []
+        for info in infos[:T]:
+            t0 = time.perf_counter()
+            frames.append(kitti_frame(info, cfg, rng))
+            read_s.append(time.perf_counter() - t0)
+        # the native voxelizer and its plain version on a full scan
+        grid = dict(pc_range=sk.PC_RANGE, voxel_size=sk.OCCUPANCY_SIZE,
+                    dims=(sk.OCC_XDIM, sk.OCC_YDIM, sk.OCC_ZDIM),
+                    num_classes=sk.OCCUPANCY_CLASSES + 1, empty_label=0)
+        vox_native, vox_native_s = host_seconds(
+            lambda: native.voxelize_points(scans[0], **grid))
+        vox_numpy, vox_numpy_s = host_seconds(lambda: voxelize_numpy(scans[0], **grid))
+    # the eval pipeline on a 1600x900 six-camera ring, native and numpy
+    ring = np.random.default_rng(1).integers(0, 256, (6, 900, 1600, 3), np.uint8)
+    pipe_native, pipe_native_s = host_seconds(lambda: native.resize_normalize_pad(
+        ring, 0.5, pipe.IMG_MEAN, pipe.IMG_STD, 32))
+    pipe_numpy, pipe_numpy_s = host_seconds(
+        lambda: pipe.plain_resize_normalize_pad(ring, 0.5))
+    pipe_ok = pipe_native.shape == pipe_numpy.shape and np.allclose(
+        pipe_native, pipe_numpy, rtol=NATIVE_PIPE_RTOL, atol=NATIVE_PIPE_ATOL)
+    vox_equal = bool(np.array_equal(vox_native, vox_numpy))
+
+    batch = make_batch(cfg, 1, seed=0, paint_gt=True)
+    batch["img"] = np.stack([f[0] for f in frames])[None]
+    batch["lidar2img"] = np.stack([f[1] for f in frames])[None]
+    batch["can_bus"] = np.stack([i["can_bus"] for i in infos[:T]])[None]
+    batch["gt_occupancy"] = frames[-1][2][None].astype(np.int32)
+    labels = frames[-1][2]
+    batch = train_lib.batch_to_device(batch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    model = new_model(cfg, dev).train()
+    optimizer = make_optimizer(model, cfg.optim)
+    gen = torch.Generator(device=dev)
+    reset_launch_counts()
+    history = []
+    t0 = time.perf_counter()
+    for i in range(3):
+        losses = train_steps(cfg, model, optimizer, batch, gen, i, 1)
+        history.append({k: float(v) for k, v in losses.items()})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    expect = {k: v * 3 for k, v in train_launches_per_step(cfg).items()}
+    finite = all(math.isfinite(v) for h in history for v in h.values())
+    emit({"phase": "kitti_files", "config": cfg.name, "frames": len(infos),
+          "image_wh": list(KITTI_IMG_WH), "points_per_scan": int(len(scans[0])),
+          "img": list(batch["img"].shape), "seconds_write_tree": t_write,
+          "seconds_create_data": t_create, "read_frame_s": spread(read_s),
+          "gt_voxels": {"classes": int((labels < 19).sum()),
+                        "empty": int((labels == 19).sum()),
+                        "ignore": int((labels == 255).sum())},
+          "voxelizer": {"native_s": vox_native_s, "numpy_s": vox_numpy_s,
+                        "equal": vox_equal,
+                        "occupied": int((vox_native != 0).sum())},
+          "eval_pipeline_1600x900x6": {
+              "native_s": pipe_native_s, "numpy_s": pipe_numpy_s,
+              "max_abs_diff": float(np.abs(pipe_native - pipe_numpy).max()),
+              "rtol": NATIVE_PIPE_RTOL, "atol": NATIVE_PIPE_ATOL,
+              "within": bool(pipe_ok)},
+          "steps": 3, "seconds_steps": seconds, "launches": launches,
+          "finite": finite, "loss_total": [h["loss_total"] for h in history],
+          "terms_last": history[-1],
+          "peak_mem_gb_steps": torch.cuda.max_memory_allocated() / 1e9})
+    if launches != expect:
+        raise AssertionError(f"kitti_files: launches {launches} != train_kitti's {expect}")
+    if not finite:
+        raise AssertionError(f"kitti_files: non-finite loss terms {history}")
+    if not vox_equal or not pipe_ok:
+        raise AssertionError("kitti_files: native host library disagrees with numpy "
+                             f"(voxelizer equal {vox_equal}, pipeline {pipe_ok})")
+    del model, optimizer, batch
+    return launches
+
+
 def kernels_line(rows, launches_by_path):
     """One entry per kernel entry point. Times are per-frame (per train
     step for the backward) sums, in bf16 (the configured dtype), of the
@@ -3533,14 +3874,22 @@ OVERFITS = {
 }
 
 
-def run_overfit(name: str):
-    """One overfit phase (OVERFITS) in a process of its own, on the
-    kernels the parent built, torch on one CPU thread (the processes share
-    the host's cores) -> (launch counts, metrics)."""
+# the overfits' processes: the four 1,500-step voxel runs, the 800-step
+# mapv2 run, and the two 300-step runs one after the other (each step is
+# host-bound: on the card's 8-core host a voxel step took 0.103 s alone,
+# 0.12 s beside three more and 0.153 s beside six)
+OVERFIT_GROUPS = (*((f"train_overfit_voxel_s{seed}",) for seed in VOXEL_OVERFIT_SEEDS),
+                  ("train_overfit_mapv2",), ("train_overfit", "train_overfit_occ"))
+
+
+def run_overfits(names):
+    """Overfit phases (OVERFITS) one after another in a process of their
+    own, on the kernels the parent built, torch on one CPU thread (the
+    processes share the host's cores) -> {name: (launch counts, metrics)}."""
     torch.set_num_threads(1)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    return OVERFITS[name](torch.device("cuda"))
+    return {name: OVERFITS[name](torch.device("cuda")) for name in names}
 
 
 def main() -> int:
@@ -3604,8 +3953,9 @@ def main() -> int:
             dev, semantic_kitti_occ(), "stream_kitti", n_fps=10, f32=False)),
         ("train_kitti", lambda: phase_train(
             dev, semantic_kitti_occ(), "train_kitti", f32=False, compare=False)),
-        ("stream_base_intern_s", lambda: phase_base_occ(
-            dev, bev_base_occ_intern_s(), "stream_base_intern_s", train=False)),
+        (("stream_base_intern_s", "train_base_intern_s"), lambda: phase_base_occ(
+            dev, bev_base_occ_intern_s(), "stream_base_intern_s",
+            train_phase="train_base_intern_s", cmp_sizes=BASE_CMP_SIZES)),
         ("stream_voxel", lambda: phase_stream_model(
             dev, voxel_tiny_occ(), "stream_voxel", n_fps=10)),
         ("train_voxel", lambda: phase_train(dev, voxel_tiny_occ(), "train_voxel")),
@@ -3618,6 +3968,15 @@ def main() -> int:
           for name, cfg in (("stream_voxel_base", voxel_base_occ()),
                             ("stream_hybrid_base", hybrid_base_occ()),
                             ("stream_hybrid_intern_s", hybrid_tiny_occ_intern_s()))),
+        # the hybrids' D = 2 stage runs the general variant, as in
+        # train_hybrid, whose f32 step is split by kernel for it
+        *((name, lambda name=name, cfg=cfg: phase_train(
+            dev, cfg, name, cmp_sizes=BASE_CMP_SIZES, f32=False,
+            split_on_general=False))
+          for name, cfg in (("train_voxel_base", voxel_base_occ()),
+                            ("train_hybrid_base", hybrid_base_occ()),
+                            ("train_hybrid_intern_s", hybrid_tiny_occ_intern_s()))),
+        ("kitti_files", lambda: phase_kitti_files(dev)),
         ("stream_vovnet", lambda: phase_stream_vovnet(dev)),
         ("train_vovnet", lambda: phase_train_vovnet(dev)),
         ("cli_nuscenes", lambda: phase_cli_nuscenes(dev)),
@@ -3632,13 +3991,13 @@ def main() -> int:
             launches[names] = out
         emit({"phase": "seconds", "of": names, "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
-    # the overfits are host-bound loops of small steps: one process each,
-    # side by side (the card has room for all seven), after the timed phases
+    # the overfits are host-bound loops of small steps: side by side in
+    # OVERFIT_GROUPS processes, after the timed phases
     t0 = time.perf_counter()
     with concurrent.futures.ProcessPoolExecutor(
-            len(OVERFITS), mp_context=multiprocessing.get_context("spawn")) as pool:
-        runs = {name: pool.submit(run_overfit, name) for name in OVERFITS}
-        results = {name: run.result() for name, run in runs.items()}
+            len(OVERFIT_GROUPS), mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = [pool.submit(run_overfits, names) for names in OVERFIT_GROUPS]
+        results = {name: r for run in runs for name, r in run.result().items()}
     launches.update({name: r[0] for name, r in results.items()})
     voxel_overfit_parity({seed: results[f"train_overfit_voxel_s{seed}"][1]
                           for seed in VOXEL_OVERFIT_SEEDS})

@@ -9,8 +9,9 @@ records, dtypes included):
 
 - the image pipeline (photometric distortion at one seed, normalize,
   bilinear scale with the patched lidar2img, pad to 32; the eval path with
-  the JAX package's native library switched off, since the port takes the
-  numpy path on every frame), the infos helpers, queue sampling and
+  both packages' native libraries switched off, so that both take the
+  numpy path: tests/test_torch_native.py holds the native paths), the
+  infos helpers, queue sampling and
   union2one, sparse occupancy GT;
 - the devkit-free table reader, the 2-D geometry, the map-expansion reader
   and the vector-map extraction (v1 and v2) on the JAX tests' fake city;
@@ -107,6 +108,7 @@ def test_image_pipeline_equals_the_jax_one(monkeypatch):
     from apollo_vision_net_tpu.data import native
 
     monkeypatch.setattr(native, "resize_normalize_pad", lambda *a: None)
+    monkeypatch.setattr(tpipe.native, "resize_normalize_pad", tpipe.plain_resize_normalize_pad)
     for training in (True, False):
         want = jpipe.preprocess_frame(imgs, l2i, scale=0.5, training=training,
                                       rng=np.random.default_rng(3))
@@ -285,13 +287,14 @@ def test_dataset_queue_samples_and_loader_equal_the_jax_ones(tmp_path, monkeypat
     want = list(jloader.PrefetchLoader(jset.get_queue_sample, idx, 2, num_workers=0))
     got = list(tloader.PrefetchLoader(tset.get_queue_sample, idx, 2, num_workers=0))
     assert_same(got, want)
-    # eval mode (the JAX package's fused native resize switched off: the
-    # port takes the numpy path)
+    # eval mode (both packages' fused native resize switched off: both
+    # take the numpy path)
     jeval = jds.NuScenesTemporalDataset(jcfg, str(infos_path), training=False, **kw)
     teval = tds.NuScenesTemporalDataset(port_cfg(jcfg), str(infos_path), training=False, **kw)
     from apollo_vision_net_tpu.data import native
 
     monkeypatch.setattr(native, "resize_normalize_pad", lambda *a: None)
+    monkeypatch.setattr(tpipe.native, "resize_normalize_pad", tpipe.plain_resize_normalize_pad)
     assert_same(teval.get_frame(1), jeval.get_frame(1))
     assert tds.scene_contiguous_eval_indices(teval.infos, 2, 1) == \
         jds.scene_contiguous_eval_indices(jeval.infos, 2, 1)
