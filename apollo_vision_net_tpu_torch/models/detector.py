@@ -56,6 +56,7 @@ from apollo_vision_net_tpu_torch.models.voxel import (
     VoxelFormerOccupancyHead,
     VoxelTemporalSelfAttention,
 )
+from apollo_vision_net_tpu_torch.utils import debug
 from apollo_vision_net_tpu_torch.utils.grid_mask import grid_mask
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -85,8 +86,12 @@ class BEVFormer(nn.Module):
         if self.use_grid_mask and self.training:
             x = grid_mask(x, current_generator())
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        feats = self.img_neck([f.to(self.compute_dtype)
-                               for f in self.img_backbone(x)])
+        # finite-value probes at the backbone and neck boundaries: the
+        # identity unless utils.debug enables them
+        bfeats = [debug.probe(f"backbone.{i}", f)
+                  for i, f in enumerate(self.img_backbone(x))]
+        feats = [debug.probe(f"neck.{i}", f) for i, f in enumerate(
+            self.img_neck([f.to(self.compute_dtype) for f in bfeats]))]
         return tuple(
             f.permute(0, 2, 3, 1).reshape((B, N) + f.shape[2:] + f.shape[1:2]).float()
             for f in feats)
@@ -395,6 +400,19 @@ def conv_tf32(cfg: ExperimentConfig) -> bool:
     return cfg.model.backbone_type == "vovnet"
 
 
+def meta_model(cfg: ExperimentConfig) -> BEVFormer:
+    """The config's model on the ``meta`` device, in eval mode: shapes and
+    dtypes without storage or weights. A forward on meta inputs computes
+    every shape and allocates nothing (tools/debug_shapes.py,
+    tools/get_params.py)."""
+    _check_supported(cfg)
+    with torch.device("meta"):
+        return BEVFormer(build_head(cfg), *build_trunk(cfg),
+                         compute_dtype=_DTYPES[cfg.compute_dtype],
+                         use_grid_mask=cfg.model.use_grid_mask,
+                         keep_bev_history=keep_bev_history(cfg)).eval()
+
+
 def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:
     """The config's model on ``device`` (default: the GPU; raises without
     one unless ``device="cpu"``), in eval mode (``.train()`` for training),
@@ -402,14 +420,9 @@ def build_model(cfg: ExperimentConfig, device=None, seed: int = 0) -> BEVFormer:
     ``load_state_dict`` afterwards. On the card it also sets the process's
     f32 precision for this model (``conv_tf32``)."""
     dev = resolve_device(device)
-    _check_supported(cfg)
+    model = meta_model(cfg)
     if dev.type == "cuda":
         set_f32_precision(conv_tf32(cfg))
-    with torch.device("meta"):
-        model = BEVFormer(build_head(cfg), *build_trunk(cfg),
-                          compute_dtype=_DTYPES[cfg.compute_dtype],
-                          use_grid_mask=cfg.model.use_grid_mask,
-                          keep_bev_history=keep_bev_history(cfg))
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

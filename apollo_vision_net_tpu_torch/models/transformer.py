@@ -19,6 +19,7 @@ from apollo_vision_net_tpu_torch.models.decoder import DetectionTransformerDecod
 from apollo_vision_net_tpu_torch.models.encoder import BEVFormerEncoder
 from apollo_vision_net_tpu_torch.models.layers import Dense, LayerNorm
 from apollo_vision_net_tpu_torch.ops.grid_sample import rotate_2d
+from apollo_vision_net_tpu_torch.utils import debug
 from apollo_vision_net_tpu_torch.utils.geometry import bev_shift_from_can_bus
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -92,12 +93,14 @@ class PerceptionTransformer(nn.Module):
             cb = self.can_bus_ln(F.relu(self.can_bus_fc2(cb)))
             queries = queries + cb[:, None, :]
         img_value, img_shapes = self._flatten_img_feats(mlvl_feats)
-        return self.encoder(
+        # the finite-value probe at the encoder boundary: the identity
+        # unless utils.debug enables it
+        return debug.probe("encoder.bev_embed", self.encoder(
             queries, img_value, bev_pos=bev_pos[None].expand(B, Q, C),
             prev_bev=prev_bev, has_prev=has_prev, shift=shift, ref_2d=ref_2d,
             bev_h=bev_h, bev_w=bev_w, img_spatial_shapes=img_shapes,
             reference_points_cam=reference_points_cam, bev_mask=bev_mask,
-        ).float()
+        ).float())
 
     def forward(self, mlvl_feats, bev_queries, object_query_embed, *,
                 bev_h: int, bev_w: int, grid_length, bev_pos, prev_bev,

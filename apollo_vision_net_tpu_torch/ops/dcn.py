@@ -20,8 +20,9 @@ the plain version's backward is autograd through it.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
-from apollo_vision_net_tpu_torch.ops import use_plain
+from apollo_vision_net_tpu_torch.ops import cost, use_plain
 
 # (dx, dy) of tap k = ky * 3 + kx
 _TAPS = torch.tensor([[kx - 1.0, ky - 1.0] for ky in range(3) for kx in range(3)])
@@ -88,10 +89,17 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                           stride: int = 1) -> torch.Tensor:
     """DCNv2 front end: the plain version for CPU tensors, the hand-written
     CUDA kernel for CUDA tensors (which raises on inputs it does not take),
-    with the hand-written CUDA backward where a gradient is needed."""
+    with the hand-written CUDA backward where a gradient is needed. On meta
+    tensors: the output's shape, and the kernel's operations tallied
+    (``ops.cost``)."""
     if offset.shape[-2:] != (9, 2) or weight.shape[0] != 9:
         raise ValueError(f"3x3 taps only: offset {tuple(offset.shape)}, "
                          f"weight {tuple(weight.shape)}")
+    if x.device.type == "meta":
+        B, Ho, Wo = offset.shape[:3]
+        cost.record("dcn_fwd", cost.dcn_operations(B, Ho, Wo, *weight.shape[1:]))
+        return x.new_empty((B, Ho, Wo, weight.shape[-1]))
     if use_plain(x):
-        return modulated_deform_conv_ref(x, offset, mask, weight, stride)
+        with record_function("modulated_deform_conv.plain"):
+            return modulated_deform_conv_ref(x, offset, mask, weight, stride)
     return DCNFunction.apply(x, offset, mask, weight, stride)

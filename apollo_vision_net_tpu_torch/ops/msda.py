@@ -32,9 +32,10 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from apollo_vision_net_tpu_torch.ops import use_plain
+from apollo_vision_net_tpu_torch.ops import cost, use_plain
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -210,11 +211,21 @@ def ms_deform_attn(
 ) -> torch.Tensor:
     """MSDA front end: the plain version for CPU tensors, the hand-written
     CUDA kernel for CUDA tensors (which raises on inputs it does not take),
-    with the hand-written CUDA backward where a gradient is needed."""
+    with the hand-written CUDA backward where a gradient is needed. On meta
+    tensors: the output's shape, and the kernel's operations tallied
+    (``ops.cost``)."""
+    B, V, H, D = value.shape
+    if value.device.type == "meta":
+        _, Q, _, L, P, _ = sampling_locations.shape
+        # every query counted: a tile mask's values are not on the meta device
+        cost.record("msda_fwd" if tile_mask is None else "msda_fwd_masked",
+                    cost.msda_operations(B * Q, H, L, P, D))
+        return value.new_empty((B, Q, H * D))
     if use_plain(value):
-        return ms_deform_attn_ref(
-            value, spatial_shapes, sampling_locations, attention_weights,
-            tile_mask=tile_mask, q_tile=q_tile)
+        with record_function("ms_deform_attn.plain"):
+            return ms_deform_attn_ref(
+                value, spatial_shapes, sampling_locations, attention_weights,
+                tile_mask=tile_mask, q_tile=q_tile)
     return MSDAFunction.apply(value, sampling_locations, attention_weights,
                               spatial_shapes, tile_mask, q_tile)
 
@@ -235,14 +246,19 @@ def ms_deform_attn_factored(
     materializes the locations and runs ``ms_deform_attn_ref``; on CUDA
     tensors the kernel forms them in registers and never materializes, and
     the hand-written CUDA backward gives the gradients where one is
-    needed."""
+    needed. On meta tensors: the output's shape, and the kernel's
+    operations tallied (``ops.cost``)."""
+    B, V, H, D = value.shape
+    Q, P, L = ref_flat.shape[1], ref_flat.shape[2] // 2, len(spatial_shapes)
+    if value.device.type == "meta":
+        cost.record("msda_fwd_factored", cost.msda_operations(B * Q, H, L, P, D))
+        return value.new_empty((B, Q, H * D))
     if use_plain(value):
-        B, V, H, D = value.shape
-        Q, P, L = ref_flat.shape[1], ref_flat.shape[2] // 2, len(spatial_shapes)
-        loc, attn = materialize_factored(ref_flat, off_flat, attn_flat,
-                                         spatial_shapes, H, P)
-        return ms_deform_attn_ref(
-            value, spatial_shapes, loc.reshape(B, Q, H, L, P, 2),
-            attn.reshape(B, Q, H, L, P), tile_mask=tile_mask, q_tile=q_tile)
+        with record_function("ms_deform_attn_factored.plain"):
+            loc, attn = materialize_factored(ref_flat, off_flat, attn_flat,
+                                             spatial_shapes, H, P)
+            return ms_deform_attn_ref(
+                value, spatial_shapes, loc.reshape(B, Q, H, L, P, 2),
+                attn.reshape(B, Q, H, L, P), tile_mask=tile_mask, q_tile=q_tile)
     return FactoredMSDAFunction.apply(value, ref_flat, off_flat, attn_flat,
                                       spatial_shapes, tile_mask, q_tile)

@@ -37,7 +37,13 @@ Phases, each printing JSON lines:
                per frame (every MSDA call on its vector variant), finite
                outputs, one f32 frame held against the CPU plain
                path, steady-state frames/s as configured (bf16) and in f32, and
-               a profile of each.
+               a profile of each (tools/profile_step.py); the stage split of
+               each (``stream_stages``: profile_step's trunk and neck,
+               encoder, encoder and decoders, and whole frame, in ms a
+               frame by CUDA events with the residual, each stage's
+               launches a frame held to ``stage_launches``); the probes'
+               cost (``stream_probes``: kernels and host syncs a frame with
+               the probe call sites disabled equal those without them).
   stream_base  bev_base_det_map at full width (R101 with DCN in stages 3-4, a
                4-level FPN, 200x200 BEV, 6 encoder + 6 det + 6 map decoder
                layers) the same way, with exact launch counts per frame (the
@@ -47,6 +53,11 @@ Phases, each printing JSON lines:
                come from seed 0, and the zero-initialized offset predictors
                (``conv2_offset``, ``sampling_offsets``) get seeded noise so
                that the deformable samples land between pixels.
+               Its stage split as ``stream``'s (``stream_base_stages``: the
+               26 DCN calls in ``bb``, the factored SCA in ``enc``).
+  project_pv   tools/project_det_map_to_pv on one served flagship frame:
+               a served frame's launches, finite boxes and vectors, the
+               six-camera picture at its size.
   train        the flagship's train step at full width (queue 3, batch 1,
                bf16 as configured, random weights from seed 0, synthetic
                batch with painted GT): 3 steps through
@@ -338,12 +349,15 @@ import dataclasses
 import json
 import math
 import multiprocessing
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -389,7 +403,7 @@ from apollo_vision_net_tpu_torch.models.heads.occ_head import occupancy_predicti
 from apollo_vision_net_tpu_torch.models.layers import use_generator
 from apollo_vision_net_tpu_torch.models.resnet import STAGE_BLOCKS
 from apollo_vision_net_tpu_torch.models.voxel import voxel_reference_points_3d
-from apollo_vision_net_tpu_torch.ops import _build, dcn_cuda, msda_cuda
+from apollo_vision_net_tpu_torch.ops import _build, cost, dcn_cuda, msda_cuda
 from apollo_vision_net_tpu_torch.ops.dcn import modulated_deform_conv_ref
 from apollo_vision_net_tpu_torch.ops.dcnv3 import sampling_locations
 from apollo_vision_net_tpu_torch.ops.msda import (
@@ -405,21 +419,15 @@ from apollo_vision_net_tpu_torch.runtime.inference import (
     occupancy_rule,
 )
 from apollo_vision_net_tpu_torch.runtime.train_loop import step_seed
+from apollo_vision_net_tpu_torch.tools import profile_step, project_det_map_to_pv
 from apollo_vision_net_tpu_torch.tools.overfit_check import (
     BARS,
     evaluate_overfit,
     overfit,
     overfit_config,
 )
-from apollo_vision_net_tpu_torch.utils import geometry
+from apollo_vision_net_tpu_torch.utils import debug, geometry
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 rate
-# outside the tensor cores, dense bf16 tensor-core rate. MSDA's arithmetic
-# is f32 FMAs on CUDA cores; the DCN product runs on CUDA cores in f32 and
-# on the tensor cores in bf16.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_TENSOR_FLOP_PER_S = 989e12
 # kernel vs plain: f32 differs only in summation order; bf16 rounds the same
 # f32 sum to bf16 in both, which may land one bf16 ulp apart (2^-7 at |x|<2,
 # 2^-6 at |x|<4; the DCN rows' outputs stay under 4)
@@ -902,14 +910,9 @@ def msda_bound(value, shapes, loc, tile_mask, q_tile, shared_batch=None):
         operand_bytes = active_q * P * 2 * 4 + union_q * H * L * P * (2 + 1) * 4
     nbytes = (touched_value_bytes(value, shapes, loc, tile_mask, q_tile)
               + operand_bytes + B * Q * H * D * elem)
-    ops_ = active_q * H * L * P * (4 * 2 * D)
-    return _bound(nbytes, ops_ / F32_FLOP_PER_S)
+    ops_ = cost.msda_operations(active_q, H, L, P, D)
+    return cost.bound_ms(nbytes, ops_ / cost.F32_FLOP_PER_S)
 
-
-def _bound(nbytes, t_ops_s):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = t_ops_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def dcn_bound(x, offset, weight, out):
@@ -921,8 +924,8 @@ def dcn_bound(x, offset, weight, out):
     nbytes = (x.numel() * x.element_size() + offset.numel() * 4
               + offset.numel() // 2 * 4 + weight.numel() * weight.element_size()
               + out.numel() * out.element_size())
-    rate = BF16_TENSOR_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    return _bound(nbytes, 2 * B * Ho * Wo * 9 * C * O / rate)
+    rate = cost.BF16_TENSOR_FLOP_PER_S if x.dtype == torch.bfloat16 else cost.F32_FLOP_PER_S
+    return cost.bound_ms(nbytes, cost.dcn_operations(B, Ho, Wo, C, O) / rate)
 
 
 def _softmax_attn(g, dev, shape, groups):
@@ -1692,7 +1695,7 @@ def msda_bwd_bound(value, shapes, loc, attn, tile_mask, q_tile):
         design = B * V * H * 4 * 2 + corners * (8 * 2 + D * elem)
     else:
         design = n_value * 4 + corners * D * 8 + (n_value * 4 if elem == 2 else 0)
-    ms, by = _bound(nbytes, corners * 4 * D / F32_FLOP_PER_S)
+    ms, by = cost.bound_ms(nbytes, corners * 4 * D / cost.F32_FLOP_PER_S)
     return ms, by, design
 
 
@@ -1721,7 +1724,7 @@ def factored_bwd_bound(value, shapes, ref, off, attn, tile_mask, q_tile):
               + union_q * H * L * P * 3 * 4 + rows * D * elem
               + n_value * elem + B * Q * P * 2 * 4 + Bs * Q * H * L * P * 3 * 4)
     design = n_value * 4 + rows * D * 8 + (n_value * 4 if elem == 2 else 0)
-    ms, by = _bound(nbytes, active_q * H * L * P * 4 * 4 * D / F32_FLOP_PER_S)
+    ms, by = cost.bound_ms(nbytes, active_q * H * L * P * 4 * 4 * D / cost.F32_FLOP_PER_S)
     return ms, by, design
 
 
@@ -1741,8 +1744,8 @@ def dcn_bwd_bound(x, offset, weight, grad_out):
     nbytes = (2 * x.numel() * elem + 2 * n_off * 4 + n_off // 2 * 4 * 2
               + 2 * weight.numel() * weight.element_size()
               + grad_out.numel() * grad_out.element_size())
-    rate = BF16_TENSOR_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    ms, by = _bound(nbytes, 2 * 2 * M * 9 * C * O / rate)
+    rate = cost.BF16_TENSOR_FLOP_PER_S if x.dtype == torch.bfloat16 else cost.F32_FLOP_PER_S
+    ms, by = cost.bound_ms(nbytes, 2 * 2 * M * 9 * C * O / rate)
     design = 4 * M * 9 * C * elem + x.numel() * 4 * (3 if elem == 2 else 2)
     return ms, by, design
 
@@ -2004,20 +2007,9 @@ def drive(name, cfg, model, frames, expect_per_frame):
 
 
 def frames_per_s(cfg, model, frames, n):
-    """Steady state: 3 warm frames, then CUDA events around ``n`` frames."""
-    run = StreamingRunner(cfg, model)
-    stream = frames * (1 + (n + 3) // len(frames))
-    for f in stream[:3]:
-        run.step(f)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for f in stream[3:3 + n]:
-        run.step(f)
-    end.record()
-    torch.cuda.synchronize()
-    return n / (start.elapsed_time(end) / 1e3)
+    """Steady state (``profile_step.frame_ms``): 2 warm frames, then CUDA
+    events around ``n`` frames."""
+    return 1e3 / profile_step.frame_ms(cfg, model, frames, n)
 
 
 def phase_stream(dev):
@@ -2066,6 +2058,8 @@ def phase_stream(dev):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32)):
         profile_frames("profile", name, c, mdl, frames, 1e3 / fps[name])
+    stage_split("stream_stages", cfg, (("bf16", model), ("f32", model32)), frames)
+    probes_add_nothing(cfg, model, frames, 1e3 / fps["bf16"])
     return launches
 
 
@@ -2392,6 +2386,7 @@ def phase_stream_base(dev):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for name, c, mdl in (("bf16", cfg, model), ("f32", cfg32, model32)):
         profile_frames("profile_base", name, c, mdl, frames, 1e3 / fps[name])
+    stage_split("stream_base_stages", cfg, (("bf16", model), ("f32", model32)), frames)
     return launches
 
 
@@ -2988,76 +2983,114 @@ def voxel_overfit_parity(metrics_by_seed):
         raise AssertionError(f"train_overfit_voxel: medians below JAX's lowest {below}")
 
 
-# host calls that wait for the device (a pageable host-to-device copy
-# synchronizes the stream): each one lets the device run dry
-SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
-
-
-def profile_kernels(prof):
-    """A finished torch.profiler window's device kernels as (name, us) and
-    its count of SYNC_CALLS, read from the profiler's raw events, as
-    ``prof.events()`` would give them but without building its Python
-    object per event (that parse took 411 s of a 1,130-s run over the 49
-    windows here, on an H100 host). A user annotation (the optimizer's
-    step range) is also a device event, and is not a kernel."""
-    kern, syncs = [], 0
-    for e in prof.profiler.kineto_results.events():
-        if getattr(e, "is_hidden_event", lambda: False)():
-            continue
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if not e.is_user_annotation():
-                kern.append((e.name(), (e.end_ns() - e.start_ns()) / 1e3))
-        elif e.name() in SYNC_CALLS:
-            syncs += 1
-    return kern, syncs
-
-
 def summarize_profile(prof, phase, name, n, unit, unit_ms, t0):
-    """Device busy time per ``unit`` (sum of kernel durations), kernels and
-    host synchronizations per unit and the top kernels by device time; idle
-    share against the unprofiled time ``unit_ms``; the host seconds of the
-    window since ``t0``, the profiler's event processing included."""
-    kern, syncs = profile_kernels(prof)
-    if not kern:
-        emit({"phase": phase, "dtype": name, "device_time": "not measured",
-              "seconds": time.perf_counter() - t0})
-        return
-    by_name = {}
-    for kname, us in kern:
-        k = kname[:80]
-        t, c = by_name.get(k, (0.0, 0))
-        by_name[k] = (t + us, c + 1)
-    busy_ms = sum(t for t, _ in by_name.values()) / 1e3 / n
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    # F.grid_sample on volumes: ops.msda3d (voxel TSA) and the flow warps
-    sampler3d = sum(t for k, (t, _) in by_name.items() if "grid_sampler_3d" in k)
-    emit({"phase": phase, "dtype": name, unit + "s": n,
-          f"device_busy_ms_per_{unit}": busy_ms,
-          f"grid_sampler_3d_ms_per_{unit}": sampler3d / 1e3 / n,
-          f"kernels_per_{unit}": len(kern) / n,
-          f"host_syncs_per_{unit}": syncs / n,
-          f"{unit}_ms_unprofiled": unit_ms,
-          "device_idle_share": 1.0 - busy_ms / unit_ms,
-          "seconds": time.perf_counter() - t0,
-          "top": [{"name": k, f"ms_per_{unit}": t / 1e3 / n,
-                   f"calls_per_{unit}": c / n} for k, (t, c) in top]})
+    """``profile_step.summarize`` of a finished window, emitted with its
+    phase and dtype."""
+    emit({"phase": phase, "dtype": name,
+          **profile_step.summarize(prof, n, unit, unit_ms, t0)})
 
 
 def profile_frames(phase, name, cfg, model, frames, frame_ms):
-    """torch.profiler over 4 warm frames (``summarize_profile`` per frame)."""
-    from torch.profiler import ProfilerActivity, profile
+    """``profile_step.profile_frames`` over 4 warm frames, emitted with its
+    phase and dtype."""
+    emit({"phase": phase, "dtype": name,
+          **profile_step.profile_frames(cfg, model, frames, frame_ms)})
 
-    run = StreamingRunner(cfg, model)
-    for f in frames[:2]:
-        run.step(f)
+
+STAGE_FRAMES = 3
+
+
+def stage_launches(cfg) -> dict:
+    """Forward launches a frame that each stage of
+    ``profile_step.stage_split`` must make: ``bb`` the trunk's DCN calls and
+    no MSDA; ``enc`` the TSA calls and the SCA calls (the masked entry over
+    one level, the factored one over four); ``head`` those and the det and
+    map decoder layers'; ``full`` all of them."""
+    m = cfg.model
+    sca = "msda_fwd_factored" if m.num_feature_levels > 1 else "msda_fwd_masked"
+    n_dec = m.decoder_layers + (m.map_decoder_layers if m.with_map else 0)
+    zero = dict.fromkeys(profile_step.kernel_launches(), 0.0)
+    n_dcn = dcn_blocks(cfg)
+    enc = {**zero, "msda_fwd": m.encoder_layers, sca: m.encoder_layers}
+    head = {**enc, "msda_fwd": m.encoder_layers + n_dec}
+    return {"bb": {**zero, "dcn_fwd": n_dcn}, "enc": enc, "head": head,
+            "full": {**head, "dcn_fwd": n_dcn}}
+
+
+def stage_split(phase, cfg, runs, frames):
+    """``profile_step.stage_split`` of each (dtype, model) of ``runs`` over
+    STAGE_FRAMES frames: each stage's ms a frame (CUDA events), the residual
+    full - bb - head and the launches a frame, beside the card's name and
+    power limit; fails if a stage's launches differ from
+    ``stage_launches``."""
+    want = stage_launches(cfg)
+    smi = nvidia_smi_line()
+    for name, model in runs:
+        split = profile_step.stage_split(model, frames[1], frames=STAGE_FRAMES)
+        emit({"phase": phase, "dtype": name, "nvidia_smi": smi, **split})
+        bad = {k: v for k, v in split["launches_per_frame"].items() if v != want[k]}
+        if bad:
+            raise AssertionError(f"{phase} {name}: stage launches {bad}, "
+                                 f"expected {want}")
+
+
+def probes_add_nothing(cfg, model, frames, frame_ms):
+    """The flagship frame's kernels and host syncs with the probe call sites
+    present and disabled, against the same frames with ``debug.probe``
+    replaced by the bare identity (no probe code); fails unless equal. The
+    enabled probes' kernels, syncs and records a frame beside them."""
+    keys = ("kernels_per_frame", "host_syncs_per_frame", "device_busy_ms_per_frame")
+    runs = {}
+    runs["disabled"] = profile_step.profile_frames(cfg, model, frames, frame_ms)
+    real_probe = debug.probe
+    debug.probe = lambda name, x, force=False: x
+    try:
+        runs["without_probe_code"] = profile_step.profile_frames(
+            cfg, model, frames, frame_ms)
+    finally:
+        debug.probe = real_probe
+    with debug.capture_probes() as rec:
+        runs["enabled"] = profile_step.profile_frames(cfg, model, frames, frame_ms)
+    line = {"phase": "stream_probes",
+            **{name: {k: r[k] for k in keys} for name, r in runs.items()},
+            "records_per_frame": len(rec.records) / (profile_step.WARM + 4)}
+    emit(line)
+    for k in keys[:2]:
+        if line["disabled"][k] != line["without_probe_code"][k]:
+            raise AssertionError(f"stream_probes: disabled probes change {k}: {line}")
+
+
+def phase_project_pv(dev):
+    """tools/project_det_map_to_pv on one served flagship frame on the card
+    (random weights from seed 0, the synthetic batch's last frame): exact
+    launches of a served frame, finite decoded boxes and map vectors, the
+    six-camera picture written at its size."""
+    cfg = bev_tiny_det_map_apollo()
+    m = cfg.model
+    batch = make_batch(cfg, 1, seed=0)
+    reset_launch_counts()
+    det, map_res = project_det_map_to_pv.run_model_frame(cfg, batch, dev, seed=0)
     torch.cuda.synchronize()
-    n = 4
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for f in frames[2:2 + n]:
-            run.step(f)
-        torch.cuda.synchronize()
-    summarize_profile(prof, phase, name, n, "frame", frame_ms, t0)
+    launches = read_launch_counts()
+    scale = 0.25
+    with tempfile.TemporaryDirectory() as tmp:
+        img = project_det_map_to_pv.draw_frame(
+            batch["img"][0, -1], batch["lidar2img"][0, -1], det=det, map_res=map_res,
+            gt_boxes=batch["gt_boxes"][0][batch["gt_mask"][0]],
+            out_path=os.path.join(tmp, "pv.png"), score_thr=-1.0, scale=scale)
+    H, W = m.img_shape
+    size = (3 * round(W * scale) + 2 * project_det_map_to_pv.GAP,
+            2 * round(H * scale) + project_det_map_to_pv.GAP)
+    finite = bool(np.isfinite(det["boxes"]).all() and np.isfinite(map_res["vectors"]).all())
+    emit({"phase": "project_pv", "launches": launches, "boxes": len(det["boxes"]),
+          "vectors": len(map_res["vectors"]), "finite": finite,
+          "image_size": list(img.size)})
+    expect = stream_launches_per_frame(cfg)
+    if launches != expect:
+        raise AssertionError(f"project_pv: launches {launches} != {expect}")
+    if not finite or tuple(img.size) != size:
+        raise AssertionError(f"project_pv: finite {finite}, image {img.size} != {size}")
+    return launches
 
 
 # ------------------------------------------------------------ cli_nuscenes
@@ -3529,7 +3562,7 @@ def phase_stream_vovnet(dev):
                     torch.cuda.synchronize()
         finally:
             set_f32_precision(conv_tf32(cfg))
-        kern, _ = profile_kernels(prof)
+        kern, _ = profile_step.profile_kernels(prof)
         by_name = {}
         for kname, us in kern:
             by_name[kname[:60]] = by_name.get(kname[:60], 0.0) + us
@@ -3917,6 +3950,7 @@ def main() -> int:
     phases = [
         ("stream", lambda: phase_stream(dev)),
         ("stream_base", lambda: phase_stream_base(dev)),
+        ("project_pv", lambda: phase_project_pv(dev)),
         ("train", lambda: phase_train(dev, bev_tiny_det_map_apollo(), "train")),
         ("stream_occ", lambda: phase_stream_model(
             dev, bev_tiny_det_occ_apollo(), "stream_occ")),

@@ -71,6 +71,20 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.tools.create_data",
     "apollo_vision_net_tpu_torch.tools.test",
     "apollo_vision_net_tpu_torch.tools.train",
+    "apollo_vision_net_tpu_torch.ops.cost",
+    "apollo_vision_net_tpu_torch.utils.debug",
+    "apollo_vision_net_tpu_torch.tools.analyze_logs",
+    "apollo_vision_net_tpu_torch.tools.debug_shapes",
+    "apollo_vision_net_tpu_torch.tools.eval_map_offline",
+    "apollo_vision_net_tpu_torch.tools.get_params",
+    "apollo_vision_net_tpu_torch.tools.import_torch_weights",
+    "apollo_vision_net_tpu_torch.tools.plot_loss_from_log",
+    "apollo_vision_net_tpu_torch.tools.profile_step",
+    "apollo_vision_net_tpu_torch.tools.project_det_map_to_pv",
+    "apollo_vision_net_tpu_torch.tools.seq_det_map_vis",
+    "apollo_vision_net_tpu_torch.tools.vis_bev",
+    "apollo_vision_net_tpu_torch.tools.vis_occ",
+    "apollo_vision_net_tpu_torch.tools.vis_occ_pair",
 ]
 
 
