@@ -2,9 +2,10 @@
 
 Plain frozen dataclasses, one factory function per experiment. The port
 keeps its own copy so that it imports nothing of the JAX package; a test
-holds the copy equal to the original field for field. Fields that only the
-TPU path reads (``msda_impl``, ``bev_partition``) are kept for that
-equality and ignored by the port.
+holds the copy equal to the original field for field. ``msda_impl``, which
+only the TPU path reads, is kept for that equality and ignored by the
+port; ``bev_partition`` is the BEV partition of multi-GPU training (the
+encoder's BEV rows split over the mesh's sp axis, models/encoder.py).
 """
 from __future__ import annotations
 

@@ -75,20 +75,23 @@ class TemporalSelfAttention(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, query, value, *, query_pos, reference_points,
-                spatial_shapes: Shapes):
-        """query (B, Q, C); value (B, 2, Q, C) = [prev, cur];
-        reference_points (B, 2, Q, L, 2) per-queue refs."""
+                spatial_shapes: Shapes, rows: Optional[slice] = None):
+        """query (B, Q, C); value (B, 2, V, C) = [prev, cur];
+        reference_points (B, 2, Q, L, 2) per-queue refs. The queries are
+        the value's rows ``rows`` (all of them, V = Q, by default)."""
         dt = self.dtype
         query = query.to(dt)
         value = value.to(dt)
         B, Q, C = query.shape
+        V = value.shape[2]
         H, L, P, NQ = self.num_heads, self.num_levels, self.num_points, self.num_bev_queue
         identity = query
         if query_pos is not None:
             query = query + query_pos.to(dt)
-        q_in = torch.cat([value[:, 0], query], dim=-1)  # (B, Q, 2C)
+        prev = value[:, 0] if rows is None else value[:, 0, rows]
+        q_in = torch.cat([prev, query], dim=-1)  # (B, Q, 2C)
 
-        v = self.value_proj(value.reshape(B * NQ, Q, C)).reshape(B * NQ, Q, H, C // H)
+        v = self.value_proj(value.reshape(B * NQ, V, C)).reshape(B * NQ, V, H, C // H)
         offsets = self.sampling_offsets(q_in).float().reshape(B, Q, H, NQ, L, P, 2)
         attn = self.attention_weights(q_in).reshape(B, Q, H, NQ, L * P)
         if self.attn_logits_clamp is not None:
@@ -183,9 +186,12 @@ class SpatialCrossAttention(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, query, value, *, query_pos, reference_points_cam,
-                bev_mask, spatial_shapes: Shapes):
+                bev_mask, spatial_shapes: Shapes,
+                bev_hw: Optional[Tuple[int, int]] = None):
         """query (B, Q, C); value (B, N_cam, V, C); reference_points_cam
-        (N_cam, B, Q, D_z, 2); bev_mask (N_cam, B, Q, D_z) bool."""
+        (N_cam, B, Q, D_z, 2); bev_mask (N_cam, B, Q, D_z) bool. ``bev_hw``
+        is the grid of the queries where it is not the module's (a band of
+        BEV rows under the BEV partition): the tiles are built for it."""
         dt = self.dtype
         query = query.to(dt)
         value = value.to(dt)
@@ -198,8 +204,9 @@ class SpatialCrossAttention(nn.Module):
         hit = bev_mask.any(dim=-1)  # (N, B, Q)
         qt = self.q_tile
         inv_perm = tile_mask = None
-        if self.bev_hw is not None:
-            perm, inv = spatial_block_order(*self.bev_hw, 8, max(1, qt // 8))
+        bev_hw = bev_hw or self.bev_hw
+        if bev_hw is not None:
+            perm, inv = spatial_block_order(*bev_hw, 8, max(1, qt // 8))
             perm = torch.as_tensor(perm, dtype=torch.int64, device=query.device)
             inv_perm = torch.as_tensor(inv, dtype=torch.int64, device=query.device)
             query = query[:, perm]

@@ -178,12 +178,14 @@ def build_head(cfg: ExperimentConfig) -> BEVFormerHead:
         rotate_prev_bev=m.rotate_prev_bev, use_shift=m.use_shift,
         use_can_bus=m.use_can_bus, shift_current_refs=m.shift_current_refs,
         attn_logits_clamp=m.attn_logits_clamp, group_detr=m.group_detr,
+        bev_partition=m.bev_partition,
         # transformer activations follow the conv trunk's dtype unless the
         # config pins them
         dtype=_DTYPES[m.transformer_dtype or cfg.compute_dtype],
     )
     if m.head_family in ("voxel", "hybrid"):
-        # the JAX package builds these heads' modules without a dtype: f32
+        # the JAX package builds these heads' modules without a dtype: f32;
+        # they ignore bev_partition, as JAX's do, and run unsplit under sp
         kw = {k: common[k] for k in (
             "bev_h", "bev_w", "num_query", "num_classes", "embed_dims",
             "code_size", "pc_range", "img_shape", "num_cams",

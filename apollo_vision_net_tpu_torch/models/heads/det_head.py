@@ -4,6 +4,12 @@ Counterpart of the JAX package's models/heads/det_head.py (reference
 bevformer/dense_heads/bevformer_head.py:27-545): learned BEV and object
 query tables, per-decoder-layer classification branches, per-layer boxes
 decoded into pc_range meters through the refined reference points.
+
+``bev_partition=("dp", "sp", None)`` (JAX's sharding of the BEV queries,
+det_head.py:179-217, which the det+map, MapTRv2 and det+occ heads inherit)
+splits the encoder's BEV rows over the current mesh's sp axis
+(models/encoder.py); the decoders and heads run on the gathered BEV,
+replicated in the sp group.
 """
 from __future__ import annotations
 
@@ -52,8 +58,14 @@ class BEVFormerHead(nn.Module):
                  rotate_prev_bev: bool = True, use_shift: bool = True,
                  use_can_bus: bool = True, shift_current_refs: bool = True,
                  attn_logits_clamp: Optional[float] = None,
-                 group_detr: int = 1, dtype: torch.dtype = torch.float32):
+                 group_detr: int = 1,
+                 bev_partition: Optional[Tuple[Optional[str], ...]] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if bev_partition is not None and tuple(bev_partition) != ("dp", "sp", None):
+            raise NotImplementedError(
+                f"bev_partition={bev_partition!r}: the port splits the BEV "
+                "queries as ('dp', 'sp', None) only")
         self.bev_h, self.bev_w = bev_h, bev_w
         self.num_query = num_query
         self.embed_dims = embed_dims
@@ -77,7 +89,8 @@ class BEVFormerHead(nn.Module):
             decoder_self_attn_groups=group_detr, code_size=code_size,
             rotate_prev_bev=rotate_prev_bev, use_shift=use_shift,
             use_can_bus=use_can_bus, shift_current_refs=shift_current_refs,
-            attn_logits_clamp=attn_logits_clamp, dtype=dtype)
+            attn_logits_clamp=attn_logits_clamp,
+            partition=bev_partition is not None, dtype=dtype)
         self.cls_branches = nn.ModuleList([
             ClsBranch(embed_dims, num_classes) for _ in range(decoder_layers)])
 

@@ -45,6 +45,10 @@ from apollo_vision_net_tpu_torch.utils import geometry
 
 
 class HybridFormerOccupancyHead(VoxelDetOccHead):
+    """The BEV→voxel cascade. It ignores ``bev_partition``, as the JAX
+    package's head does: under a mesh with sp > 1 every rank of an sp group
+    runs it unsplit."""
+
     def __init__(self, *, encoder_embed_dims: Sequence[int] = (256, 128, 64, 32, 16),
                  feature_map_z: Sequence[int] = (1, 2, 4, 8, 16),
                  stage_layers: int = 1, embed_dims: int = 256, **kwargs):

@@ -8,7 +8,11 @@ epsilon of 1e-6 (FrozenBatchNorm keeps the JAX package's 1e-5).
 
 ``Dropout`` is flax's ``nn.Dropout`` in training mode (``module.train()``)
 and the identity in eval mode; its draws come from the generator that
-``use_generator`` installs (torch's default generator otherwise).
+``use_generator`` installs (torch's default generator otherwise). Under a
+mesh (``parallel.mesh.use_mesh``) every rank seeds that generator alike and
+a mask is drawn for the global batch, of which the rank keeps its rows
+(and, inside ``bev_rows``, its BEV rows): a step of the world draws what
+one process draws on the global batch.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from apollo_vision_net_tpu_torch.parallel.mesh import current_mesh
 
 
 def _compute_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -44,16 +50,51 @@ def current_generator() -> Optional[torch.Generator]:
     return _GENERATOR.get()
 
 
-def dropout_mask(shape, keep_prob: float, device) -> torch.Tensor:
-    """Bernoulli(keep_prob) draws of ``shape`` as a bool mask."""
-    u = torch.rand(shape, generator=current_generator(), device=device)
-    return u < keep_prob
+# (start, total) of the BEV query rows (dim 1) that the encoder's layers
+# compute on this rank under the BEV partition
+_BEV_ROWS: contextvars.ContextVar = contextvars.ContextVar("bev_rows",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def bev_rows(start: int, total: int):
+    """Inside, dropout masks are drawn for all ``total`` BEV rows (dim 1)
+    and keep those from ``start`` on: the encoder layers' queries under the
+    BEV partition (models/encoder.py)."""
+    token = _BEV_ROWS.set((start, total))
+    try:
+        yield
+    finally:
+        _BEV_ROWS.reset(token)
+
+
+def dropout_mask(shape, keep_prob: float, device,
+                 batch_dim: Optional[int] = None) -> torch.Tensor:
+    """Bernoulli(keep_prob) draws of ``shape`` as a bool mask: by default
+    one that the batch shares. Under a mesh with dp > 1 a mask with a
+    ``batch_dim`` (whose leading factor is the batch, as in a (B·G, ...)
+    fold) is drawn for the global batch, that dim dp times as long, and
+    the rank keeps its dp index's rows. Inside ``bev_rows`` dim 1 is drawn
+    whole, and the rank keeps its rows."""
+    full, index = list(shape), [slice(None)] * len(shape)
+    mesh = current_mesh()
+    if mesh is not None and mesh.dp > 1 and batch_dim is not None:
+        n = shape[batch_dim]
+        full[batch_dim] = n * mesh.dp
+        index[batch_dim] = slice(mesh.dp_index * n, (mesh.dp_index + 1) * n)
+    rows = _BEV_ROWS.get()
+    if rows is not None:
+        start, full[1] = rows
+        index[1] = slice(start, start + shape[1])
+    u = torch.rand(full, generator=current_generator(), device=device)
+    return u[tuple(index)] < keep_prob
 
 
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: in training mode, where(keep, x / keep_prob, 0)
     with keep ~ Bernoulli(1 - rate) per element; the identity in eval
-    mode."""
+    mode. Its input's batch is dim 0 (or that dim's leading factor) at every
+    call site."""
 
     def __init__(self, rate: float = 0.1):
         super().__init__()
@@ -63,7 +104,7 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = dropout_mask(x.shape, keep_prob, x.device)
+        keep = dropout_mask(x.shape, keep_prob, x.device, batch_dim=0)
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                              device=x.device))
 

@@ -35,6 +35,7 @@ class PerceptionTransformer(nn.Module):
                  rotate_prev_bev: bool = True, use_shift: bool = True,
                  use_can_bus: bool = True, shift_current_refs: bool = True,
                  attn_logits_clamp: Optional[float] = None,
+                 partition: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         C = embed_dims
@@ -53,7 +54,8 @@ class PerceptionTransformer(nn.Module):
             num_points_sca=num_points_sca, num_points_tsa=num_points_tsa,
             num_cams=num_cams, feedforward_channels=feedforward_channels,
             attn_logits_clamp=attn_logits_clamp,
-            shift_current_refs=shift_current_refs, bev_hw=bev_hw, dtype=dtype)
+            shift_current_refs=shift_current_refs, bev_hw=bev_hw,
+            partition=partition, dtype=dtype)
         self.decoder = DetectionTransformerDecoder(
             decoder_layers, C, num_points=num_points_decoder,
             feedforward_channels=feedforward_channels,

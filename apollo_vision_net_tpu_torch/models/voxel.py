@@ -304,7 +304,9 @@ class VoxelDetOccHead(nn.Module):
 
 class VoxelFormerOccupancyHead(VoxelDetOccHead):
     """det + occupancy over bev_z x bev_h x bev_w voxel queries; the
-    temporal carry is the voxel features (B, z·h·w, C)."""
+    temporal carry is the voxel features (B, z·h·w, C). It ignores
+    ``bev_partition``, as the JAX package's head does: under a mesh with
+    sp > 1 every rank of an sp group runs it unsplit."""
 
     def __init__(self, *, bev_z: int = 4, encoder_layers: int = 3,
                  embed_dims: int = 256, occ_dims: int = 64, **kwargs):

@@ -15,9 +15,21 @@ decoder layer's cost matrices of both heads (of every group, and of
 MapTRv2's one2many vectors against the distinct GT rows) on the device,
 copies them (and the GT masks) to the host in one transfer and solves them
 there with scipy.
+
+``make_train_step(mesh, cfg)`` is the step over a process mesh, the
+counterpart of the JAX package's ``make_jitted_train_step`` (batch over
+``dp``, state replicated, the loss normalizers global): each rank runs the
+forward on its rows of the global batch (and, with ``bev_partition``, its
+BEV rows over ``sp``), all-gathers over ``dp`` every output that the
+losses read and the ground truth, matches and computes the loss of the
+global batch, identical on every rank, and averages the gradients over the
+world before the clip and AdamW, so that the parameters stay equal on
+every rank. Per-rank losses with per-rank normalizers (``num_pos``, the
+occupancy ``avg_factor``, Lovász) would not be JAX's loss.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -28,9 +40,20 @@ from apollo_vision_net_tpu_torch.losses import det_loss as det_lib
 from apollo_vision_net_tpu_torch.losses import map_loss as map_lib
 from apollo_vision_net_tpu_torch.losses.multitask import det_occ_loss
 from apollo_vision_net_tpu_torch.models.layers import use_generator
+from apollo_vision_net_tpu_torch.parallel import collectives
+from apollo_vision_net_tpu_torch.parallel.mesh import Mesh, use_mesh
 from apollo_vision_net_tpu_torch.parallel.optim import Optimizer
 
 Indices = Tuple[np.ndarray, Optional[np.ndarray]]
+
+# the batch axis of each output that the losses read: the per-layer stacks
+# (L, B, ...), the rest (B, ...) or (B·S, ...) in (b, s) order
+OUTPUT_BATCH_DIM = {"all_cls_scores": 1, "all_bbox_preds": 1,
+                    "map_all_cls_scores": 1, "map_all_pts_preds": 1,
+                    "occupancy_preds": 0, "flow_preds": 0,
+                    "bev_seg_logits": 0, "pv_seg_logits": 0}
+# the model's inputs; every other key of a batch is ground truth
+INPUT_KEYS = ("img", "can_bus", "lidar2img", "has_prev")
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -94,14 +117,23 @@ def match(outs: Dict[str, torch.Tensor], gt: det_lib.DetGT,
 
 
 def loss_fn(model, batch: Dict[str, torch.Tensor], cfg: ExperimentConfig,
-            indices: Optional[Indices] = None):
+            indices: Optional[Indices] = None, mesh: Optional[Mesh] = None):
     """-> (loss_total, {term: value}, indices). The model's mode decides
     dropout and grid mask. ``indices`` (from ``match``) fixes the
     assignment, so that two runs can be held against each other at the
-    same one; by default the step matches its own outputs."""
+    same one; by default the step matches its own outputs. With ``mesh``,
+    ``batch`` is this rank's rows of the global batch, the forward runs
+    under the mesh, and the loss and indices are those of the global batch
+    (the outputs and ground truth gathered over dp)."""
     m = cfg.model
-    outs = model(batch["img"], batch["can_bus"], batch["lidar2img"],
-                 batch["has_prev"])
+    with use_mesh(mesh):
+        outs = model(batch["img"], batch["can_bus"], batch["lidar2img"],
+                     batch["has_prev"])
+    if mesh is not None:
+        outs = {k: collectives.all_gather(mesh, v, OUTPUT_BATCH_DIM[k], "dp")
+                if k in OUTPUT_BATCH_DIM else v for k, v in outs.items()}
+        batch = collectives.gather_targets(
+            mesh, batch, [k for k in batch if k not in INPUT_KEYS])
     gt, mgt = ground_truth(batch)
     if indices is None:
         indices = match(outs, gt, mgt, cfg)
@@ -152,3 +184,44 @@ def train_step(model, optimizer: Optimizer, batch: Dict[str, torch.Tensor],
     losses = {k: v.detach() for k, v in losses.items()}
     losses["grad_norm"] = optimizer.step()
     return losses
+
+
+def average_gradients(mesh: Mesh, model) -> None:
+    """Every parameter's gradient averaged over the world (a parameter
+    without one counts as zeros, as the optimizer steps it so). The outputs'
+    all-gather sums every rank's copy of the loss's gradient in its
+    backward (parallel/collectives.py), so a rank holds world times its
+    share of the true gradient (dp times through the gather over dp; the
+    BEV partition's gathers over sp add the factor sp, and a module
+    replicated over sp is counted once a rank of the group): the sum over
+    the world is world times the true gradient, and the average is exact."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    collectives.average_(mesh, [p.grad for p in params])
+
+
+def make_train_step(mesh: Optional[Mesh], cfg: ExperimentConfig):
+    """The train step over ``mesh`` (``train_step`` itself without one):
+    ``step(model, optimizer, batch, generator)`` with this rank's rows of
+    the global batch and a generator seeded alike on every rank; returns
+    the loss terms of the global batch and ``grad_norm``, equal on every
+    rank."""
+    if mesh is None:
+        return functools.partial(train_step, cfg=cfg)
+
+    def step(model, optimizer: Optimizer, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        with use_generator(generator):
+            total, losses, _ = loss_fn(model, batch, cfg, mesh=mesh)
+        total.backward()
+        # each rank holds world x its share of the gradient (the gathers'
+        # backward sums every rank's copy): the mean, not the sum, is exact
+        average_gradients(mesh, model)
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["grad_norm"] = optimizer.step()
+        return losses
+
+    return step

@@ -1,4 +1,4 @@
-"""Training loop on one device.
+"""Training loop on one device or on a process mesh.
 
 Counterpart of the JAX package's runtime/train_loop.py (the replacement of
 the reference's mmcv Runner: custom_train_detector, TextLoggerHook /
@@ -18,6 +18,15 @@ every ``checkpoint_interval`` steps and at the last step, with the eval
 metrics (the best by NDS are kept when the run evaluates). Dropout and the
 grid mask draw from a device generator seeded from (seed, step), so a
 resumed run draws as an uninterrupted one.
+
+With a ``mesh`` (parallel/mesh.py; the counterpart of the JAX loop's
+``make_mesh()`` and ``shard_batch_pytree``) the function runs on every rank
+of a multi-GPU run: ``data_iter`` yields the rank's rows of each global
+batch, the model starts from rank 0's weights, the step is
+``parallel.train.make_train_step`` (the loss of the global batch, the
+gradients averaged over the world), every rank seeds its generator alike,
+``resume`` restores on every rank, and rank 0 alone logs, evaluates and
+writes checkpoints and ``metrics.jsonl``.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ from apollo_vision_net_tpu_torch import resolve_device
 from apollo_vision_net_tpu_torch.configs import ExperimentConfig
 from apollo_vision_net_tpu_torch.models.detector import build_model
 from apollo_vision_net_tpu_torch.parallel import train as train_lib
+from apollo_vision_net_tpu_torch.parallel.mesh import Mesh, replicate
 from apollo_vision_net_tpu_torch.parallel.optim import make_optimizer
 from apollo_vision_net_tpu_torch.runtime.checkpoint import CheckpointManager
 from apollo_vision_net_tpu_torch.runtime.metrics_log import MetricsLogger
@@ -80,23 +90,28 @@ def train(cfg: ExperimentConfig, data_iter: Iterable[Dict[str, np.ndarray]], *,
           seed: int = 0, log_interval: int = 50,
           checkpoint_interval: int = 1000,
           eval_fn: Optional[Callable] = None, eval_interval: int = 0,
-          resume: bool = False):
+          resume: bool = False, mesh: Optional[Mesh] = None):
     """Train ``cfg`` from random weights (``seed``; the backbone from
     ``cfg.pretrained_path`` when set) on batches of make_batch's keys;
     returns (model, optimizer). ``eval_fn(model)`` (the model in eval mode)
     returns a metrics dict. ``device`` None means the GPU (raises without
-    one); "cpu" runs the plain versions."""
-    dev = resolve_device(device)
+    one); "cpu" runs the plain versions. With ``mesh``, the run's rank on
+    the mesh's device (see the module docstring)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0
     model = build_model(cfg, dev, seed=seed).train()
     if cfg.pretrained_path:
         load_pretrained(model, cfg)
+    if mesh is not None:
+        replicate(mesh, model)
     optimizer = make_optimizer(model, cfg.optim)
     ckpt = CheckpointManager(work_dir, best_metric="NDS" if eval_fn else None)
-    mlog = MetricsLogger(work_dir)
+    mlog = MetricsLogger(work_dir) if lead else None
     start = 0
     if resume and ckpt.latest_step() is not None:
         start = ckpt.restore(model, optimizer, cfg)
         log.info("resumed from step %d", start)
+    step_fn = train_lib.make_train_step(mesh, cfg)
     generator = torch.Generator(device=dev)
     data_iter = iter(data_iter)
     t0 = t_window = time.time()
@@ -112,11 +127,10 @@ def train(cfg: ExperimentConfig, data_iter: Iterable[Dict[str, np.ndarray]], *,
                 break
             wait += time.time() - t_wait
             generator.manual_seed(step_seed(seed, step))
-            losses = train_lib.train_step(
-                model, optimizer, train_lib.batch_to_device(batch, dev),
-                generator, cfg=cfg)
+            losses = step_fn(model, optimizer,
+                             train_lib.batch_to_device(batch, dev), generator)
             done, window = step + 1, window + 1
-            if done % log_interval == 0 or step == start:
+            if lead and (done % log_interval == 0 or step == start):
                 losses = {k: float(v) for k, v in losses.items()}
                 now = time.time()
                 dt = (now - t0) / (done - start)
@@ -126,6 +140,8 @@ def train(cfg: ExperimentConfig, data_iter: Iterable[Dict[str, np.ndarray]], *,
                          step_s=(now - t_window) / window,
                          data_wait_s=wait / window)
                 t_window, wait, window = now, 0.0, 0
+            if not lead:
+                continue
             metrics = None
             if eval_fn and eval_interval and done % eval_interval == 0:
                 metrics = run_eval(eval_fn, model)
@@ -134,10 +150,12 @@ def train(cfg: ExperimentConfig, data_iter: Iterable[Dict[str, np.ndarray]], *,
                                         if isinstance(v, (int, float))})
             if done % checkpoint_interval == 0 or done == num_steps:
                 ckpt.save(done, model, optimizer, cfg, metrics)
-        if done > start and done % checkpoint_interval and done != num_steps:
+        if (lead and done > start and done % checkpoint_interval
+                and done != num_steps):
             ckpt.save(done, model, optimizer, cfg, metrics)
     finally:
-        mlog.close()
+        if mlog is not None:
+            mlog.close()
     return model, optimizer
 
 

@@ -1,9 +1,9 @@
 """Offline data converter: raw nuScenes tables -> temporal infos pkl, the
-vector-map GT that the map head trains on, and SemanticKITTI's infos and
-dense occupancy GT.
+vector-map GT that the map head trains on, SemanticKITTI's infos and
+dense occupancy GT, and the other datasets' converters.
 
-Counterpart of the JAX package's tools/create_data.py, its ``nuscenes``,
-``nuscenes-map-gt`` and ``semantic-kitti`` subcommands (reference
+Counterpart of the JAX package's tools/create_data.py, all eight of its
+subcommands: ``nuscenes``, ``nuscenes-map-gt`` and ``semantic-kitti`` (reference
 tools/create_data.py + tools/data_converter/nuscenes_converter.py:29-675):
 per-sample records with the 18-dim can_bus from the CAN pose messages,
 per-camera sensor2lidar extrinsics and intrinsics, annotations,
@@ -14,8 +14,14 @@ reads the v1.0 JSON tables and can_bus blobs, ``data/map_extract.py`` the
 map. ``semantic-kitti`` reads ``<root>/sequences/<s>/`` (calib.txt,
 poses.txt, voxels/*.label|.invalid) through ``data/semantic_kitti_reader.py``
 and writes ``semantic_kitti_infos.pkl`` and ``occ_gt/occ_gt_<s>_<f>.npy``
-(256x256x32 uint8: 0 empty, 1-19 classes, 255 invalid). Numpy only:
-nothing here runs on a device.
+(256x256x32 uint8: 0 empty, 1-19 classes, 255 invalid). ``kitti`` (infos,
+reduced clouds, 2D annotations, the GT database: ``data/kitti.py``,
+``data/gt_database.py``), ``gt-database`` (from an infos pkl) and
+``scannet`` (``data/indoor.py``) are devkit-free; ``lyft`` needs the
+``lyft_dataset_sdk`` devkit and ``waymo`` tensorflow and
+``waymo_open_dataset`` (``data/lyft.py``, ``data/waymo.py``), imported only
+there, as the JAX package gates them. Numpy only: nothing here runs on a
+device.
 
     python3 -m apollo_vision_net_tpu_torch.tools.create_data nuscenes \\
         --root-path <nuscenes> --version v1.0-trainval --out-dir <dir> \\
@@ -24,6 +30,8 @@ nothing here runs on a device.
         --root-path <nuscenes> --infos <pkl> [--out <pkl>] [--map-version 2]
     python3 -m apollo_vision_net_tpu_torch.tools.create_data semantic-kitti \\
         --root-path <kitti> --out-dir <dir>
+    python3 -m apollo_vision_net_tpu_torch.tools.create_data kitti \\
+        --root-path <kitti> [--prefix kitti] [--out-dir <dir>]
 """
 from __future__ import annotations
 
@@ -252,14 +260,38 @@ def create_semantic_kitti(root_path: str, out_dir: str, sequences=None):
     return out
 
 
+def kitti_data_prep(root_path: str, info_prefix: str, out_dir: str):
+    """Full KITTI preparation (reference tools/create_data.py:15-47):
+    infos, reduced clouds, 2D annotations, the GT database."""
+    from apollo_vision_net_tpu_torch.data.gt_database import (
+        create_groundtruth_database)
+    from apollo_vision_net_tpu_torch.data.kitti import (
+        create_kitti_infos, create_reduced_point_cloud, export_2d_annotation)
+
+    paths = create_kitti_infos(root_path, info_prefix, save_path=out_dir)
+    create_reduced_point_cloud(root_path, info_prefix)
+    for split in ("train", "val", "trainval", "test"):
+        if split in paths and split != "test":
+            export_2d_annotation(root_path, paths[split])
+    create_groundtruth_database(
+        "kitti", root_path, paths["train"], info_prefix,
+        database_save_path=os.path.join(
+            out_dir or root_path, f"{info_prefix}_gt_database"),
+        db_info_save_path=os.path.join(
+            out_dir or root_path, f"{info_prefix}_dbinfos_train.pkl"))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         description="nuScenes tables -> temporal infos pkl (nuscenes), "
-                    "map GT added to an infos pkl (nuscenes-map-gt), or "
+                    "map GT added to an infos pkl (nuscenes-map-gt), "
                     "SemanticKITTI sequences -> infos pkl and occupancy GT "
-                    "(semantic-kitti)")
+                    "(semantic-kitti), and the KITTI, Lyft, Waymo, ScanNet "
+                    "and GT-database converters")
     p.add_argument("dataset",
-                   choices=["nuscenes", "nuscenes-map-gt", "semantic-kitti"])
+                   choices=["nuscenes", "nuscenes-map-gt", "semantic-kitti",
+                            "kitti", "lyft", "waymo", "scannet",
+                            "gt-database"])
     p.add_argument("--root-path", required=True)
     p.add_argument("--version", default="v1.0-trainval")
     p.add_argument("--out-dir", default="")
@@ -267,14 +299,45 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--out", default="", help="output pkl (default: in place)")
     p.add_argument("--map-version", type=int, default=1, choices=[1, 2])
     p.add_argument("--patch-size", type=float, nargs=2, default=[60.0, 30.0])
+    p.add_argument("--prefix", default="", help="info filename prefix")
+    p.add_argument("--max-sweeps", type=int, default=10)
     p.add_argument("--splits", default="",
                    help="JSON with {'train': [...], 'val': [...]} scene "
                         "names (trainval split lists; mini is built in)")
+    p.add_argument("--workers", type=int, default=8)
     a = p.parse_args(argv)
     if a.dataset == "semantic-kitti":
         if not a.out_dir:
             raise SystemExit("--out-dir required for semantic-kitti conversion")
         create_semantic_kitti(a.root_path, a.out_dir)
+    elif a.dataset == "kitti":
+        kitti_data_prep(a.root_path, a.prefix or "kitti",
+                        a.out_dir or a.root_path)
+    elif a.dataset == "lyft":
+        from apollo_vision_net_tpu_torch.data.lyft import create_lyft_infos
+        create_lyft_infos(a.root_path, a.prefix or "lyft",
+                          version=a.version or "v1.01-train",
+                          max_sweeps=a.max_sweeps, out_dir=a.out_dir or None)
+    elif a.dataset == "waymo":
+        from apollo_vision_net_tpu_torch.data.waymo import WaymoToKitti
+        if not a.out_dir:
+            raise SystemExit("--out-dir required for waymo conversion")
+        n = WaymoToKitti(a.root_path, a.out_dir, prefix=0,
+                         workers=a.workers).convert()
+        print(f"converted {n} waymo frames")
+    elif a.dataset == "scannet":
+        from apollo_vision_net_tpu_torch.data.indoor import (
+            create_indoor_info_file)
+        create_indoor_info_file(a.root_path, "scannet",
+                                save_path=a.out_dir or None, workers=a.workers)
+    elif a.dataset == "gt-database":
+        from apollo_vision_net_tpu_torch.data.gt_database import (
+            create_groundtruth_database)
+        if not a.infos:
+            raise SystemExit("--infos required for gt-database")
+        create_groundtruth_database(
+            "kitti" if "kitti" in (a.prefix or a.infos) else "nuscenes",
+            a.root_path, a.infos, a.prefix or "kitti")
     elif a.dataset == "nuscenes":
         if not a.out_dir:
             raise SystemExit("--out-dir required for nuscenes conversion")

@@ -13,6 +13,19 @@ newest checkpoint of the work dir. Runs on the GPU unless ``--device cpu``.
     python3 -m apollo_vision_net_tpu_torch.tools.train bev_tiny_det_map_apollo \\
         --data nuscenes --infos <train.pkl> --data-root <nuscenes> \\
         --pretrained <dla34.pth> --steps 1000 --work-dir <dir>
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set) each
+rank takes ``cuda:LOCAL_RANK`` over NCCL, or the CPU over gloo with
+``--device cpu``, and the run is data parallel over every rank (the JAX
+CLI's ``make_mesh()``: dp the world, sp 1).
+``--batch-size`` is the global batch, as in the JAX CLI: each rank's loader
+builds its rows of each global batch, so the data equal a one-process
+run's. Rank 0 alone writes checkpoints and ``metrics.jsonl`` and runs the
+eval; ``--resume`` restores on every rank. Without torchrun's variables
+the CLI runs one process, as before.
+
+    torchrun --nproc-per-node 8 -m apollo_vision_net_tpu_torch.tools.train \\
+        bev_tiny_det_map_apollo --batch-size 8 --steps 1000 --work-dir <dir>
 """
 from __future__ import annotations
 
@@ -21,21 +34,40 @@ import dataclasses
 import logging
 from typing import List, Optional
 
+import numpy as np
+import torch.distributed as dist
+
 from apollo_vision_net_tpu_torch import configs
 
 
-def synthetic_iter(cfg, batch_size, seed=0):
+def synthetic_iter(cfg, batch_size, seed=0, mesh=None):
+    """Synthetic global batches of ``batch_size`` (a mesh's rank: its
+    rows of each; make_batch draws a batch from one stream)."""
     from apollo_vision_net_tpu_torch.data.synthetic import make_batch
+    from apollo_vision_net_tpu_torch.parallel.mesh import shard_batch
 
     i = 0
     while True:
-        yield make_batch(cfg, batch_size, seed=seed + i)
+        batch = make_batch(cfg, batch_size, seed=seed + i)
+        yield batch if mesh is None else shard_batch(mesh, batch)
         i += 1
 
 
-def nuscenes_iter(cfg, args):
+def rank_indices(idx, batch_size: int, mesh):
+    """The sample indices of a mesh rank's rows of each global batch of
+    ``batch_size`` in the epoch order ``idx`` (all of them without a
+    mesh)."""
+    if mesh is None:
+        return idx
+    rows = batch_size // mesh.dp
+    batches = np.asarray(idx).reshape(-1, batch_size)
+    return batches[:, mesh.dp_index * rows:(mesh.dp_index + 1) * rows].reshape(-1)
+
+
+def nuscenes_iter(cfg, args, mesh=None):
     """dataset -> prefetching loader -> endless epoch iterator (reference
-    tools/train.py:225-266 builds dataset + loader + runner)."""
+    tools/train.py:225-266 builds dataset + loader + runner); a mesh's rank
+    loads only its rows of each global batch."""
     from apollo_vision_net_tpu_torch.data.loader import (
         PrefetchLoader,
         shuffled_epoch_indices,
@@ -56,8 +88,10 @@ def nuscenes_iter(cfg, args):
     while True:
         idx = shuffled_epoch_indices(len(ds), args.seed + epoch,
                                      drop_last_to=args.batch_size)
-        yield from PrefetchLoader(ds.get_queue_sample, idx, args.batch_size,
-                                  num_workers=args.num_workers)
+        rows = args.batch_size // (mesh.dp if mesh is not None else 1)
+        yield from PrefetchLoader(
+            ds.get_queue_sample, rank_indices(idx, args.batch_size, mesh),
+            rows, num_workers=args.num_workers)
         epoch += 1
 
 
@@ -107,27 +141,45 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="default: the GPU; 'cpu' runs the plain versions")
     args = p.parse_args(argv)
 
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
     from apollo_vision_net_tpu_torch import resolve_device
+    from apollo_vision_net_tpu_torch.parallel import mesh as mesh_lib
     from apollo_vision_net_tpu_torch.runtime.train_loop import train
 
-    device = resolve_device(args.device)
+    env, mesh, owns_group = mesh_lib.torchrun_env(), None, False
+    if env is None:
+        device = resolve_device(args.device)
+    else:
+        device = resolve_device(args.device or f"cuda:{env['local_rank']}")
+        if not dist.is_initialized():
+            mesh_lib.init_distributed(device, env["rank"], env["world"], "env://")
+            owns_group = True
+        mesh = mesh_lib.make_mesh(device=device)
+        if args.batch_size % mesh.dp:
+            raise SystemExit(f"--batch-size {args.batch_size} is the global "
+                             f"batch: not divisible by dp = {mesh.dp}")
+    logging.basicConfig(
+        level=logging.INFO if mesh is None or mesh.rank == 0 else logging.WARNING,
+        format="%(asctime)s %(name)s %(message)s")
     cfg = getattr(configs, args.config)()
     if args.pretrained:
         cfg = dataclasses.replace(cfg, pretrained_path=args.pretrained)
     work_dir = args.work_dir or f"work_dirs/{cfg.name}"
     if args.data == "synthetic":
-        data = synthetic_iter(cfg, args.batch_size, args.seed)
+        data = synthetic_iter(cfg, args.batch_size, args.seed, mesh)
     else:
         if not args.infos:
             raise SystemExit("--data nuscenes requires --infos <pkl>")
-        data = nuscenes_iter(cfg, args)
+        data = nuscenes_iter(cfg, args, mesh)
     eval_fn = (synthetic_eval_fn(cfg, args.eval_frames)
                if args.eval_interval else None)
-    train(cfg, data, num_steps=args.steps, work_dir=work_dir, device=device,
-          resume=args.resume, seed=args.seed, log_interval=args.log_interval,
-          eval_fn=eval_fn, eval_interval=args.eval_interval)
+    try:
+        train(cfg, data, num_steps=args.steps, work_dir=work_dir,
+              device=device, resume=args.resume, seed=args.seed,
+              log_interval=args.log_interval, eval_fn=eval_fn,
+              eval_interval=args.eval_interval, mesh=mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
     return 0
 
 

@@ -260,6 +260,36 @@ Phases, each printing JSON lines:
                CLI_QUEUE_SAMPLES times), each step's seconds and wait for its batch, and the
                streaming eval's frames/s over CLI_EVAL_PASSES passes, each
                as a median and a spread.
+  train_dp     multi-GPU training on the one card: two ranks of a dp = 2
+               mesh on cuda:0 over gloo (``tools.dryrun_multichip
+               .spawn_world``; NCCL refuses two ranks on one device; gloo
+               runs the collectives on the CUDA tensors), the flagship at full width
+               and depth, a global batch of 2: the f32 step in training
+               mode (the outputs and ground truth gathered over dp, the
+               loss of the global batch, the gradients averaged over the
+               world) against the one process on the global batch with
+               ``train``'s limits; DP_STEPS bf16 steps through
+               ``parallel.train.make_train_step`` with each rank's exact
+               launches (``train``'s a step), finite and equal loss terms
+               and bit-equal parameters on both ranks; the world's ms a
+               step beside the one process's on the global batch (two
+               processes share the card and the host: a reading, not a
+               target); then a world of one over NCCL in this process, its
+               f32 step against the non-distributed one.
+  train_sp     the BEV partition: bev_base_det_map (200x200 BEV) at
+               BASE_CMP_SIZES depth with ``bev_partition``, dp1 x sp2 over
+               gloo on cuda:0, one f32 training-mode step (each rank's
+               encoder on its 100 BEV rows, the BEV gathered between layers
+               and before the heads) with each rank's exact launches,
+               against the one process with ``train_base``'s limits.
+  converters   host only: the five ``tools.create_data`` choices that the
+               port added, on trees written from a seed (a KITTI 3D tree of
+               four frames: kitti's infos, reduced clouds, 2D annotations
+               and GT database, gt-database over the val infos; a ScanNet
+               export of two scans; lyft and waymo stop at their devkit
+               gates, and their conversion code runs on the devkit's duck
+               type and on a five-camera Waymo frame); fails unless each
+               wrote what its tree holds.
   train_overfit_voxel_s0-3  smoke_voxel_occ through the overfit tool as
                the JAX package's run of it: 1,500 steps at lr 6e-4
                (VOXEL_OVERFIT_LR), at seeds 0-3 (VOXEL_OVERFIT_SEEDS);
@@ -412,6 +442,12 @@ from apollo_vision_net_tpu_torch.ops.msda import (
     ms_deform_attn_ref,
 )
 from apollo_vision_net_tpu_torch.parallel import train as train_lib
+from apollo_vision_net_tpu_torch.parallel.mesh import (
+    init_distributed,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 from apollo_vision_net_tpu_torch.parallel.optim import make_optimizer
 from apollo_vision_net_tpu_torch.runtime.inference import (
     StreamingRunner,
@@ -420,6 +456,7 @@ from apollo_vision_net_tpu_torch.runtime.inference import (
 )
 from apollo_vision_net_tpu_torch.runtime.train_loop import step_seed
 from apollo_vision_net_tpu_torch.tools import profile_step, project_det_map_to_pv
+from apollo_vision_net_tpu_torch.tools.dryrun_multichip import spawn_world
 from apollo_vision_net_tpu_torch.tools.overfit_check import (
     BARS,
     evaluate_overfit,
@@ -3842,6 +3879,495 @@ def phase_kitti_files(dev):
     return launches
 
 
+# ------------------------------------------------------------ multi-GPU
+
+# train_dp's one-card world: two gloo ranks on cuda:0 (NCCL refuses two
+# ranks on one device), a global batch of 2; DP_STEPS bf16 steps on the main
+# path, DP_TIMED_STEPS more timed against the one process's
+DP_STEPS = 2
+DP_TIMED_STEPS = 3
+
+
+def mesh_grad_step(mesh, model, cfg, batch, seed, indices=None):
+    """``grad_step`` over a mesh: this rank's rows, the loss of the global
+    batch, the gradients averaged over the world -> (loss terms, {name:
+    gradient}, indices)."""
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    with use_generator(gen):
+        total, losses, indices = train_lib.loss_fn(model, batch, cfg, indices,
+                                                   mesh=mesh)
+    total.backward()
+    train_lib.average_gradients(mesh, model)
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, indices
+
+
+def step_vs_one_process(mesh, cfg32, batch, dev, model32=None):
+    """The f32 step on the mesh against the one process on the global batch
+    (rank 0, same weights, generator seed and assignment), with ``train``'s
+    limits: {"losses", "loss_rel_err", "grad_worst_rel_err",
+    "grad_worst_norm_rel_err", "ok"} on rank 0, {"losses"} elsewhere."""
+    model32 = model32 or replicate(mesh, new_model(cfg32, dev)).train()
+    local = train_lib.batch_to_device(shard_batch(mesh, batch), dev)
+    seed = step_seed(0, 0)
+    got_l, got_g, indices = mesh_grad_step(mesh, model32, cfg32, local, seed)
+    out = {"losses": got_l}
+    if mesh.rank == 0:
+        gen = torch.Generator(device=dev)
+        want_l, want_g, _ = grad_step(
+            model32, cfg32, train_lib.batch_to_device(batch, dev), gen, seed,
+            indices)
+        loss_err = {k: abs(got_l[k] - w) / max(abs(w), 1e-12)
+                    for k, w in want_l.items()}
+        floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in want_g.values())
+        rel = {k: max(0.0, float((got_g[k] - w).abs().max()) - floor)
+               / max(float(w.abs().max()), floor) for k, w in want_g.items()}
+        norm = {k: float((got_g[k] - w).norm()) / float(w.norm())
+                for k, w in want_g.items() if float(w.abs().max()) > 100 * floor}
+        out.update(
+            loss_rel_err=max(loss_err.values()),
+            grad_worst_rel_err=sorted(rel.items(), key=lambda kv: -kv[1])[:5],
+            grad_worst_norm_rel_err=sorted(norm.items(), key=lambda kv: -kv[1])[:5],
+            params_with_grad=len(want_g),
+            ok=bool(max(loss_err.values()) <= TRAIN_REL_TOL
+                    and max(rel.values()) <= TRAIN_GRAD_REL_TOL
+                    and max(norm.values()) <= TRAIN_GRAD_NORM_TOL
+                    and set(got_g) == set(want_g)))
+    del got_g
+    return out
+
+
+def params_equal_on_ranks(mesh, model) -> float:
+    """The largest difference between this rank's parameters and any other
+    rank's (0.0: bit-equal)."""
+    flat = torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
+    parts = [torch.empty_like(flat) for _ in range(mesh.world)]
+    torch.distributed.all_gather(parts, flat)
+    return max(float((p - flat).abs().max()) for p in parts)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+
+
+def timed_steps(step, cfg, model, optimizer, batch, gen, first, n):
+    """Host clock over ``n`` steps after a synchronize, ending in one
+    -> ms a step."""
+    sync(batch["img"].device)
+    t0 = time.perf_counter()
+    for i in range(first, first + n):
+        gen.manual_seed(step_seed(0, i))
+        step(model, optimizer, batch, gen)
+    sync(batch["img"].device)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def dp_rank(config=bev_tiny_det_map_apollo, device="cuda"):
+    """One rank of train_dp (two gloo ranks on cuda:0): the ``config``'s
+    f32 step against the one process, then DP_STEPS training-mode steps in
+    its dtype on the main path (launch counts reset just before, read just
+    after), the ranks' parameters compared, DP_TIMED_STEPS timed; rank 0
+    then times the one process on the global batch while rank 1 waits."""
+    mesh = make_mesh(device=device)
+    dev = mesh.device
+    cfg = config()
+    batch = make_batch(cfg, mesh.dp, seed=0, paint_gt=True)
+    out = {"rank": mesh.rank,
+           "f32": step_vs_one_process(mesh, f32_config(cfg), batch, dev)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    model = replicate(mesh, new_model(cfg, dev)).train()
+    optimizer = make_optimizer(model, cfg.optim)
+    step = train_lib.make_train_step(mesh, cfg)
+    local = train_lib.batch_to_device(shard_batch(mesh, batch), dev)
+    gen = torch.Generator(device=dev)
+    torch.distributed.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = []
+    for i in range(DP_STEPS):
+        gen.manual_seed(step_seed(0, i))
+        losses = step(model, optimizer, local, gen)
+        history.append({k: float(v) for k, v in losses.items()})
+    sync(dev)
+    out.update(seconds_steps=time.perf_counter() - t0,
+               launches=read_launch_counts(), history=history,
+               rank_param_diff=params_equal_on_ranks(mesh, model))
+    out["world_step_ms"] = timed_steps(step, cfg, model, optimizer, local,
+                                       gen, 100, DP_TIMED_STEPS)
+    torch.distributed.barrier()
+    if mesh.rank == 0:
+        one = train_lib.make_train_step(None, cfg)
+        whole = train_lib.batch_to_device(batch, dev)
+        timed_steps(one, cfg, model, optimizer, whole, gen, 200, 1)
+        out["one_process_step_ms"] = timed_steps(one, cfg, model, optimizer,
+                                                 whole, gen, 201, DP_TIMED_STEPS)
+    out["peak_mem_gb"] = peak_gb(dev)
+    torch.distributed.barrier()
+    return out
+
+
+def nccl_world_one(dev, tmp):
+    """A world of one over NCCL on the card: the flagship's f32 step with
+    every collective of the mesh step (gathers over one-rank groups, the
+    average) against the non-distributed step of the same batch."""
+    init_distributed(dev, 0, 1, "file://" + os.path.join(tmp, "nccl_init"))
+    try:
+        mesh = make_mesh(device=dev)
+        out = step_vs_one_process(mesh, f32_config(bev_tiny_det_map_apollo()),
+                                  make_batch(bev_tiny_det_map_apollo(), 1, seed=0,
+                                             paint_gt=True), dev)
+        out["backend"] = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def phase_train_dp(dev):
+    """train_dp (see the module docstring): two gloo ranks on cuda:0, then a
+    world of one over NCCL -> the ranks' launch counts summed."""
+    ranks = spawn_world(2, dp_rank, device="cuda", backend="gloo", threads=2,
+                        timeout=600)
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl = nccl_world_one(dev, tmp)
+    cfg = bev_tiny_det_map_apollo()
+    expect = {k: v * DP_STEPS for k, v in train_launches_per_step(cfg).items()}
+    r0 = ranks[0]
+    finite = all(math.isfinite(v) for r in ranks for h in r["history"]
+                 for v in h.values())
+    emit({"phase": "train_dp", "config": cfg.name, "world": 2,
+          "backend": "gloo", "device": "cuda:0",
+          "global_batch": 2, "steps": DP_STEPS,
+          "launches_per_rank": [r["launches"] for r in ranks],
+          "expected_per_rank": expect,
+          "seconds_steps_per_rank": [r["seconds_steps"] for r in ranks],
+          "loss_total": [h["loss_total"] for h in r0["history"]],
+          "finite": finite,
+          "rank_param_diff": [r["rank_param_diff"] for r in ranks],
+          "f32_vs_one_process": r0["f32"],
+          "world2_step_ms": [r["world_step_ms"] for r in ranks],
+          "one_process_step_ms": r0["one_process_step_ms"],
+          "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks],
+          "nccl_world1_vs_one_process": nccl,
+          "loss_tol": TRAIN_REL_TOL, "grad_tol": TRAIN_GRAD_REL_TOL,
+          "grad_norm_tol": TRAIN_GRAD_NORM_TOL})
+    bad = [f"rank {r['rank']}: launches {r['launches']}" for r in ranks
+           if r["launches"] != expect]
+    if any(r["history"] != r0["history"] for r in ranks):
+        bad.append("the ranks' loss terms differ")
+    if any(r["rank_param_diff"] != 0.0 for r in ranks):
+        bad.append("the ranks' parameters differ")
+    if not finite:
+        bad.append("non-finite loss terms")
+    if not r0["f32"]["ok"]:
+        bad.append("the world-2 f32 step disagrees with one process")
+    if not nccl["ok"] or nccl["backend"] != "nccl":
+        bad.append("the NCCL world-1 step disagrees with one process")
+    if bad:
+        raise AssertionError(f"train_dp: {bad}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
+def sp_rank(cmp_sizes, config=bev_base_det_map, device="cuda"):
+    """One rank of train_sp: the ``config`` (bev_base_det_map) at
+    ``cmp_sizes`` depth with the BEV partition, dp1 x sp2 on cuda:0, one
+    f32 training-mode step (the main path: launch counts reset just before,
+    read just after), held against the one process on rank 0."""
+    mesh = make_mesh(dp=1, sp=2, device=device)
+    dev = mesh.device
+    cfg = f32_config(config())
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, bev_partition=("dp", "sp", None), **cmp_sizes))
+    model = replicate(mesh, new_model(cfg, dev)).train()
+    batch = make_batch(cfg, 1, seed=0, paint_gt=True)
+    torch.distributed.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    local = train_lib.batch_to_device(shard_batch(mesh, batch), dev)
+    got_l, _, _ = mesh_grad_step(mesh, model, cfg, local, step_seed(0, 0))
+    sync(dev)
+    out = {"rank": mesh.rank, "seconds_step": time.perf_counter() - t0,
+           "launches": read_launch_counts(), "losses": got_l,
+           "expected": train_launches_per_step(cfg)}
+    out["f32"] = step_vs_one_process(mesh, cfg, batch, dev, model)
+    out["peak_mem_gb"] = peak_gb(dev)
+    torch.distributed.barrier()
+    return out
+
+
+def phase_train_sp(dev):
+    """train_sp (see the module docstring) -> the ranks' launch counts
+    summed."""
+    ranks = spawn_world(2, sp_rank, BASE_CMP_SIZES, device="cuda",
+                        backend="gloo", threads=2, timeout=600)
+    r0 = ranks[0]
+    emit({"phase": "train_sp", "config": bev_base_det_map().name,
+          "layers": BASE_CMP_SIZES, "mesh": {"dp": 1, "sp": 2},
+          "bev_partition": ["dp", "sp", None], "backend": "gloo",
+          "device": "cuda:0",
+          "launches_per_rank": [r["launches"] for r in ranks],
+          "expected_per_rank": r0["expected"],
+          "seconds_step_per_rank": [r["seconds_step"] for r in ranks],
+          "losses": r0["losses"], "f32_vs_one_process": r0["f32"],
+          "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks],
+          "loss_tol": TRAIN_REL_TOL, "grad_tol": TRAIN_GRAD_REL_TOL,
+          "grad_norm_tol": TRAIN_GRAD_NORM_TOL})
+    bad = [f"rank {r['rank']}: launches {r['launches']}" for r in ranks
+           if r["launches"] != r["expected"]]
+    if any(r["losses"] != r0["losses"] for r in ranks):
+        bad.append("the ranks' loss terms differ")
+    if not all(math.isfinite(v) for v in r0["losses"].values()):
+        bad.append("non-finite loss terms")
+    if not r0["f32"]["ok"]:
+        bad.append("the dp1 x sp2 f32 step disagrees with one process")
+    if bad:
+        raise AssertionError(f"train_sp: {bad}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
+# ----------------------------------------------------------- converters
+
+KITTI_CALIB = ("P0: 700 0 320 0 0 700 240 0 0 0 1 0\n"
+               "P1: 700 0 320 0 0 700 240 0 0 0 1 0\n"
+               "P2: 700 0 320 44.8 0 700 240 0.2 0 0 1 0.003\n"
+               "P3: 700 0 320 0 0 700 240 0 0 0 1 0\n"
+               "R0_rect: 1 0 0 0 1 0 0 0 1\n"
+               "Tr_velo_to_cam: 0 -1 0 0 0 0 -1 -0.08 1 0 0 -0.27\n"
+               "Tr_imu_to_velo: 1 0 0 0 0 1 0 0 0 0 1 0\n")
+# a Car 10 m ahead (velodyne x = 10), a Pedestrian, a DontCare
+KITTI_LABELS = ("Car 0.00 0 1.57 300 180 360 260 1.60 1.70 4.00 0.10 1.57 9.73 1.57\n"
+                "Pedestrian 0.00 0 0.2 400 170 420 230 1.75 0.60 0.80 -2.0 1.60 14.73 0.2\n"
+                "DontCare -1 -1 -10 500 170 590 190 -1 -1 -1 -1000 -1000 -1000 -10\n")
+
+
+def write_kitti_3d(root, seed: int = 0, n: int = 4):
+    """A KITTI 3D-detection tree of ``n`` frames from ``seed``: 640x480
+    PNGs, calib and label files, 20,000-point scans with 200 points in the
+    Car and 80 in the Pedestrian, and ImageSets (train: even frames, val:
+    odd, test: all)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split in ("training", "testing"):
+        for sub in ("image_2", "velodyne", "calib", "label_2"):
+            os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    for i in range(n):
+        s = f"{i:06d}"
+        pts = np.concatenate([
+            np.column_stack([rng.uniform(9.0, 10.9, 200), rng.uniform(-0.75, 0.55, 200),
+                             rng.uniform(-1.55, -0.2, 200), rng.random(200)]),
+            np.column_stack([rng.uniform(14.85, 15.15, 80), rng.uniform(1.85, 2.15, 80),
+                             rng.uniform(-1.6, 0.0, 80), rng.random(80)]),
+            # the rest of the scan, clear of both boxes
+            np.column_stack([rng.uniform(20, 70, 19_720), rng.uniform(-40, 40, 19_720),
+                             rng.uniform(-2, 2, 19_720), rng.random(19_720)]),
+        ]).astype(np.float32)
+        for split in ("training", "testing"):
+            Image.fromarray(rng.integers(0, 255, (480, 640, 3), dtype=np.uint8)).save(
+                os.path.join(root, split, "image_2", s + ".png"))
+            with open(os.path.join(root, split, "calib", s + ".txt"), "w") as f:
+                f.write(KITTI_CALIB)
+            pts.tofile(os.path.join(root, split, "velodyne", s + ".bin"))
+        with open(os.path.join(root, "training", "label_2", s + ".txt"), "w") as f:
+            f.write(KITTI_LABELS)
+    for name, idx in (("train", range(0, n, 2)), ("val", range(1, n, 2)),
+                      ("test", range(n))):
+        with open(os.path.join(root, "ImageSets", name + ".txt"), "w") as f:
+            f.write("\n".join(str(i) for i in idx) + "\n")
+
+
+def write_scannet(root, seed: int = 0, n_scans: int = 2, n_points: int = 50_000):
+    """A ScanNet export tree (the upstream scripts' .npy files) of
+    ``n_scans`` scans from ``seed``."""
+    inst, meta = (os.path.join(root, d) for d in ("scannet_instance_data", "meta_data"))
+    os.makedirs(inst)
+    os.makedirs(meta)
+    rng = np.random.default_rng(seed)
+    scans = [f"scene{i:04d}_00" for i in range(n_scans)]
+    for scan in scans:
+        np.save(os.path.join(inst, f"{scan}_vert.npy"),
+                rng.normal(size=(n_points, 6)).astype(np.float32))
+        np.save(os.path.join(inst, f"{scan}_ins_label.npy"), rng.integers(0, 8, n_points))
+        np.save(os.path.join(inst, f"{scan}_sem_label.npy"),
+                rng.choice([1, 3, 4, 5, 39], n_points))
+        boxes = np.array([[0, 0, 0.5, 2.0, 1.5, 0.6, 4], [1, 1, 0.2, 0.4, 0.4, 0.5, 39],
+                          [-1, 2, 0.4, 1.0, 1.0, 0.8, 5]], np.float64)
+        np.save(os.path.join(inst, f"{scan}_aligned_bbox.npy"), boxes)
+        np.save(os.path.join(inst, f"{scan}_unaligned_bbox.npy"), boxes)
+        np.save(os.path.join(inst, f"{scan}_axis_align_matrix.npy"), np.eye(4))
+    for split, names in (("train", scans[:1]), ("val", scans[1:])):
+        with open(os.path.join(meta, f"scannetv2_{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+
+
+class FakeLyft:
+    """The lyft devkit's table API over one scene of two samples, one
+    camera (the duck type ``data.lyft.fill_trainval_infos`` reads)."""
+
+    class Box:
+        def __init__(self, center, wlh, yaw, name):
+            self.center, self.wlh, self.name = np.asarray(center), np.asarray(wlh), name
+            self.orientation = type("O", (), {"yaw_pitch_roll": (yaw, 0.0, 0.0)})()
+
+    def __init__(self, root):
+        q = [1.0, 0.0, 0.0, 0.0]
+        self.root = root
+        self.tables = {
+            ("calibrated_sensor", "cs_lidar"): {"translation": [0, 0, 1.8],
+                                                "rotation": q, "camera_intrinsic": []},
+            ("calibrated_sensor", "cs_cam"): {
+                "translation": [1.5, 0, 1.6], "rotation": q,
+                "camera_intrinsic": [[700, 0, 320], [0, 700, 240], [0, 0, 1]]},
+            ("ego_pose", "ep0"): {"translation": [100, 50, 0], "rotation": q,
+                                  "timestamp": 1000},
+            ("sample_annotation", "ann0"): {"num_lidar_pts": 12, "num_radar_pts": 3},
+        }
+        for i in range(2):
+            self.tables[("sample_data", f"sd_lidar{i}")] = {
+                "calibrated_sensor_token": "cs_lidar", "ego_pose_token": "ep0",
+                "timestamp": 1000 + 100 * i, "prev": f"sd_lidar{i - 1}" if i else ""}
+            self.tables[("sample_data", f"sd_cam{i}")] = {
+                "calibrated_sensor_token": "cs_cam", "ego_pose_token": "ep0",
+                "timestamp": 1001 + 100 * i, "prev": ""}
+        self.sample = [{"token": f"s{i}", "scene_token": "sc0", "timestamp": 1000 + 100 * i,
+                        "data": {"LIDAR_TOP": f"sd_lidar{i}", "CAM_FRONT": f"sd_cam{i}"},
+                        "anns": ["ann0"]} for i in range(2)]
+        self.scene = [{"token": "sc0"}]
+
+    def get(self, table, token):
+        if table == "scene":
+            return {"name": "scene-0001", "token": token}
+        return self.tables[(table, token)]
+
+    def get_sample_data_path(self, token):
+        return os.path.join(self.root, token + ".bin")
+
+    def get_sample_data(self, token):
+        boxes = [self.Box([5.0, 1.0, 0.5], [2.0, 4.5, 1.7], 0.3, "car")]
+        cam = np.array([[700, 0, 320], [0, 700, 240], [0, 0, 1]]) if "cam" in token else None
+        return self.get_sample_data_path(token), boxes, cam
+
+
+def waymo_frame(seed: int = 0) -> dict:
+    """One Waymo frame as ``data.waymo.convert_frame`` reads it: five
+    cameras, 150,000 points, a vehicle, a pedestrian and a sign."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    images, calibs = {}, {}
+    for cam in range(5):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (64, 96, 3), dtype=np.uint8)).save(buf, "PNG")
+        images[cam] = buf.getvalue()
+        ext = np.eye(4)
+        ext[:3, 3] = [1.5, 0.1 * cam, 2.0]
+        calibs[cam] = {"extrinsic": ext, "intrinsic": [2000.0, 2000.0, 960.0, 640.0]}
+    labels = [
+        {"id": "v", "type": 1, "center": (10.0, 2.0, 1.0), "size": (4.5, 2.0, 1.8),
+         "heading": 0.5, "num_lidar_points_in_box": 50, "camera_name": 0,
+         "bbox": (100.0, 200.0, 300.0, 400.0)},
+        {"id": "p", "type": 2, "center": (6.0, -1.0, 0.9), "size": (0.6, 0.6, 1.7),
+         "heading": 0.1, "num_lidar_points_in_box": 20, "camera_name": 1,
+         "bbox": (10.0, 20.0, 30.0, 60.0)},
+        {"id": "s", "type": 3, "center": (5.0, 0.0, 2.0), "size": (0.5, 0.5, 1.0),
+         "heading": 0.0, "num_lidar_points_in_box": 5, "camera_name": None, "bbox": None},
+    ]
+    return {"timestamp_micros": 123456, "pose": np.eye(4), "images": images,
+            "camera_calibs": calibs,
+            "points": rng.normal(0, 10, (150_000, 6)).astype(np.float32),
+            "laser_labels": labels}
+
+
+def phase_converters(dev):
+    """converters (host only; see the module docstring): the five
+    ``create_data`` choices that the port added, on trees written from a
+    seed; fails unless each writes what it must."""
+    import pickle
+
+    from apollo_vision_net_tpu_torch.data import lyft, waymo
+    from apollo_vision_net_tpu_torch.data.kitti import parse_label_file
+    from apollo_vision_net_tpu_torch.tools import create_data
+
+    seconds, checks = {}, {}
+
+    def run(name, argv):
+        t0 = time.perf_counter()
+        create_data.main(argv)
+        seconds[name] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = os.path.join(tmp, "kitti")
+        write_kitti_3d(kitti)
+        run("kitti", ["kitti", "--root-path", kitti])
+        with open(os.path.join(kitti, "kitti_infos_train.pkl"), "rb") as f:
+            infos = pickle.load(f)
+        with open(os.path.join(kitti, "kitti_dbinfos_train.pkl"), "rb") as f:
+            db = pickle.load(f)
+        checks["kitti"] = {
+            "train_infos": len(infos),
+            "num_points_in_gt": infos[0]["annos"]["num_points_in_gt"].tolist(),
+            "reduced_clouds": len(os.listdir(os.path.join(kitti, "training", "velodyne_reduced"))),
+            "gt_database": {k: len(v) for k, v in db.items()}}
+        ok = (len(infos) == 2 and checks["kitti"]["num_points_in_gt"] == [200, 80, -1]
+              and set(db) == {"Car", "Pedestrian"} and checks["kitti"]["reduced_clouds"] == 4)
+        run("gt-database", ["gt-database", "--root-path", kitti, "--prefix", "kitti_val",
+                            "--infos", os.path.join(kitti, "kitti_infos_val.pkl")])
+        with open(os.path.join(kitti, "kitti_val_dbinfos_train.pkl"), "rb") as f:
+            val_db = pickle.load(f)
+        checks["gt-database"] = {k: [r["num_points_in_gt"] for r in v]
+                                 for k, v in val_db.items()}
+        ok = ok and checks["gt-database"] == {"Car": [200, 200], "Pedestrian": [80, 80]}
+        scannet = os.path.join(tmp, "scannet")
+        write_scannet(scannet)
+        run("scannet", ["scannet", "--root-path", scannet, "--workers", "2"])
+        with open(os.path.join(scannet, "scannet_infos_train.pkl"), "rb") as f:
+            sc = pickle.load(f)
+        checks["scannet"] = {"train_infos": len(sc), "gt_num": sc[0]["annos"]["gt_num"],
+                             "names": sc[0]["annos"]["name"].tolist()}
+        ok = ok and checks["scannet"] == {"train_infos": 1, "gt_num": 3,
+                                          "names": ["bed", "garbagebin", "chair"]}
+        # the devkit-gated choices: their gates, and their conversion code
+        # on the devkit's duck type and a frame dict
+        gates = {}
+        for name, argv in (("lyft", ["lyft", "--root-path", tmp]),
+                           ("waymo", ["waymo", "--root-path", tmp, "--out-dir",
+                                      os.path.join(tmp, "waymo_out"), "--workers", "1"])):
+            if name == "waymo":
+                open(os.path.join(tmp, "segment-0.tfrecord"), "wb").close()
+            try:
+                create_data.main(argv)
+                gates[name] = "ran"
+            except SystemExit as e:
+                gates[name] = str(e)
+        checks["gates"] = gates
+        ok = ok and "lyft_dataset_sdk" in gates["lyft"] and "tensorflow" in gates["waymo"]
+        train, val = lyft.fill_trainval_infos(FakeLyft(tmp), {"sc0"}, set(), max_sweeps=2)
+        checks["lyft"] = {"train": len(train), "val": len(val),
+                          "sweeps": len(train[1]["sweeps"]),
+                          "gt_names": train[0]["gt_names"].tolist()}
+        ok = ok and checks["lyft"] == {"train": 2, "val": 0, "sweeps": 1, "gt_names": ["car"]}
+        t0 = time.perf_counter()
+        files = waymo.convert_frame(waymo_frame(), os.path.join(tmp, "waymo_kitti"), 0, 0, 0)
+        seconds["waymo_frame"] = time.perf_counter() - t0
+        annos = parse_label_file(files["label_all"])
+        checks["waymo"] = {"files": sorted(files), "labels": annos["name"].tolist()}
+        ok = ok and annos["name"].tolist() == ["Car", "Pedestrian"]
+    emit({"phase": "converters", "seconds": seconds, "checks": checks, "ok": ok})
+    if not ok:
+        raise AssertionError(f"converters: {checks}")
+    return None
+
+
 def kernels_line(rows, launches_by_path):
     """One entry per kernel entry point. Times are per-frame (per train
     step for the backward) sums, in bf16 (the configured dtype), of the
@@ -4014,6 +4540,9 @@ def main() -> int:
         ("stream_vovnet", lambda: phase_stream_vovnet(dev)),
         ("train_vovnet", lambda: phase_train_vovnet(dev)),
         ("cli_nuscenes", lambda: phase_cli_nuscenes(dev)),
+        ("train_dp", lambda: phase_train_dp(dev)),
+        ("train_sp", lambda: phase_train_sp(dev)),
+        ("converters", lambda: phase_converters(dev)),
     ]
     launches = {}
     for names, run in phases:
@@ -4021,7 +4550,7 @@ def main() -> int:
         out = run()
         if isinstance(names, tuple):
             launches.update(zip(names, out))
-        else:
+        elif out is not None:  # a host-only phase launches nothing
             launches[names] = out
         emit({"phase": "seconds", "of": names, "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()

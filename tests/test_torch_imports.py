@@ -85,6 +85,15 @@ PORT_MODULES = [
     "apollo_vision_net_tpu_torch.tools.vis_bev",
     "apollo_vision_net_tpu_torch.tools.vis_occ",
     "apollo_vision_net_tpu_torch.tools.vis_occ_pair",
+    "apollo_vision_net_tpu_torch.parallel.mesh",
+    "apollo_vision_net_tpu_torch.parallel.collectives",
+    "apollo_vision_net_tpu_torch.tools.dryrun_multichip",
+    "apollo_vision_net_tpu_torch.data.kitti",
+    "apollo_vision_net_tpu_torch.data.gt_database",
+    "apollo_vision_net_tpu_torch.data.lyft",
+    "apollo_vision_net_tpu_torch.data.waymo",
+    "apollo_vision_net_tpu_torch.data.indoor",
+    "apollo_vision_net_tpu_torch.evaluation.kitti2waymo",
 ]
 
 
