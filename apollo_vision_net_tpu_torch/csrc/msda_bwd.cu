@@ -78,6 +78,34 @@
 //      row as a counting sort would, without the global scan a sort needs.
 //      At the base TSA the exchanges cost ~0.08 ms and the row pass ~0.13
 //      (a chain of dependent loads and a grad_out row re-read per corner).
+// Design of msda_bwd's "private" plan (D = 1 or 2, value and grad_out
+// aligned to a row, a batch element's V * H * D f32 grad_value rows and
+// value rows within kPrivateMaxBytes; msda_bwd_private_kernel). It serves _bwd
+// (msda_pallas.py:1468, the XLA VJP) at the hybrids' last stage, D = 2
+// over one 15 x 25 map: grad_value is (6, 375, 8, 2), 36,000 floats, onto
+// which the general kernel made ~82M scalar f32 global atomics at 160,000
+// voxels (7% of the bound). What bounds it: bytes, the loc, attn and
+// grad_out stream and the grad_loc and grad_attn writes (0.4586 ms f32).
+//   1. The forward's narrow layout: a lane a sample of 32 / S items (4 at
+//      L * P = 8); each lane reads its item's D channels of grad_out, forms
+//      its corners with bilinear_at, loads the four corner rows, computes
+//      the dots and the sample's d loc and d attn with sample_grad and
+//      stores them (coalesced across the warp).
+//   2. A block of 8 warps takes a run of consecutive items of one batch
+//      element (the grid one wave of resident blocks), zeroes a private
+//      f32 copy of that element's grad_value rows in shared memory (24 KB
+//      at the hybrids' shape) and stages its value rows beside them
+//      (staged 1.3589 ms against 1.4519 through L1 at 160,000 voxels f32,
+//      1.1574 against 1.4480 bf16; H100 at 700 W); each corner's a * cw * g is added there with shared f32
+//      atomics, which sm_90 runs as a compare-and-swap loop (the reason
+//      msda_bwd_factored sorts instead), cheap here with 2 channels a row
+//      and rows spread over 8 heads.
+//   3. At the end of its run the block adds its nonzero private channels to
+//      the f32 scratch with global atomics: ~6,000 a block against ~82M in
+//      the general kernel. The scratch is zeroed before and, for bf16
+//      value, cast once after, as the general plan does; the sum's order
+//      varies from run to run.
+//   4. A masked tile's items write zero d loc and d attn and add nothing.
 // The general kernel (any D or alignment; msda_bwd_scalar_kernel): one
 // warp per item, lane s forming sample s; the warp walks the samples, the
 // lanes the channels of each corner row (chunks of 32), each row's load
@@ -491,21 +519,157 @@ msda_bwd_scalar_kernel(const T* __restrict__ value,
   }
 }
 
-// log2 of the lane slot of an item in msda_bwd_vec_kernel: L * P rounded
-// up to a power of two, at least 4 (so that a group of G <= 8 lanes spans
-// at most two items) and at most 32 (rounds of 32 samples beyond).
-// ops/msda_cuda.py bwd_items_per_warp mirrors it (BWD_SLOT_MIN,
-// BWD_SLOT_MAX).
-constexpr int kSlotLog2Min = 2, kSlotLog2Max = 5;
+// The private plan (design notes above): a block of kPrivateWarps warps
+// takes `run` consecutive items of batch element blockIdx.x / blocks_per_b,
+// zeroes a private f32 copy of that element's grad_value rows (V * H rows
+// of D channels) in shared memory and copies its value rows there too;
+// lane s of a warp owns sample s % S of item s / S (S = 2^s_log,
+// msda_common.cuh bwd_slot_log2). At the end the block adds its
+// nonzero private channels to the f32 scratch grad_value.
+constexpr int kPrivateWarps = 8;
+// At least 4 blocks an SM (at most 64 registers): left to itself, ptxas
+// gave D = 1 instances of this kernel that read value through L1 an
+// 8-byte stack frame at 40 registers (H100 build).
+constexpr int kPrivateMinBlocks = 4;
+// The shared memory a block may take for its private f32 grad_value rows
+// and its staged value rows, counted at 4 bytes a channel each in either
+// dtype: V * H * D * 8 (two blocks an SM); ops/msda_cuda.py
+// PRIVATE_BWD_BYTES holds the same number, and the entry refuses the plan
+// beyond it.
+constexpr int kPrivateMaxBytes = 96 * 1024;
 
-static inline int bwd_slot_log2(int LP) {
-  int s = kSlotLog2Min;
-  while (s < kSlotLog2Max && (1 << s) < LP) ++s;
-  return s;
+template <typename T, int D>
+__global__ void __launch_bounds__(kPrivateWarps * 32, kPrivateMinBlocks)
+msda_bwd_private_kernel(const T* __restrict__ value,
+                        const float* __restrict__ loc,
+                        const float* __restrict__ attn,
+                        const int* __restrict__ tile_mask,
+                        const T* __restrict__ grad_out,
+                        float* __restrict__ grad_value,
+                        float* __restrict__ grad_loc,
+                        float* __restrict__ grad_attn, int V, int H, int Q,
+                        int P, int LP, int s_log, int run, int blocks_per_b,
+                        int q_tile, int n_tiles, MsdaLevels lv) {
+  using Raw = typename NarrowRaw<D * sizeof(T)>::type;
+  extern __shared__ __align__(16) float private_smem[];
+  __shared__ SharedLevels sl;
+  const int n_rows = V * H;  // (cell, head) rows of the batch element
+  float* gs = private_smem;  // n_rows x D
+  Raw* staged = reinterpret_cast<Raw*>(gs + n_rows * D);  // n_rows
+  const int b = blockIdx.x / blocks_per_b;
+  const int per_b = Q * H;
+  const int first = b * per_b + (blockIdx.x - b * blocks_per_b) * run;
+  const int last = min(first + run, (b + 1) * per_b);
+  const Raw* rows = reinterpret_cast<const Raw*>(value) + (int64_t)b * n_rows;
+  for (int i = threadIdx.x; i < n_rows * D; i += blockDim.x) gs[i] = 0.f;
+  for (int i = threadIdx.x; i < n_rows; i += blockDim.x) {
+    staged[i] = __ldg(rows + i);
+  }
+  stage_levels(sl, lv);  // its barrier also ends the zeroing and staging
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int S = 1 << s_log, sub = lane & (S - 1);
+  const int per_warp = 32 >> s_log;
+  const Raw* go = reinterpret_cast<const Raw*>(grad_out);
+  // the warp's items: the same bound for all its lanes
+  for (int item0 = first + warp * per_warp; item0 < last;
+       item0 += kPrivateWarps * per_warp) {
+    const int item = item0 + (lane >> s_log);
+    const bool live = item < last;
+    const int bq = item / H, hh = item - bq * H;
+    bool on = live;
+    if (on && tile_mask != nullptr) {
+      on = __ldg(tile_mask + (int64_t)b * n_tiles + (bq - b * Q) / q_tile) != 0;
+    }
+    float g[D];
+    if (on) {
+      unpack_row<T, D>(g, __ldg(go + item));
+    } else {
+#pragma unroll
+      for (int e = 0; e < D; ++e) g[e] = 0.f;
+    }
+    for (int r0 = 0; r0 < LP; r0 += S) {  // several rounds only when S = 32
+      const int s = r0 + sub;
+      if (!live || s >= LP) continue;
+      const int64_t at = (int64_t)item * LP + s;
+      float glx = 0.f, gly = 0.f, ga = 0.f;  // a masked tile's sample: zeros
+      if (on) {
+        const int l = s / P;
+        const float a = __ldg(attn + at);
+        // row H: idx = cell * H, the corner's row idx + hh
+        const Bilinear4 c =
+            bilinear_at(sl, l, __ldg(loc + 2 * at), __ldg(loc + 2 * at + 1), H);
+        Raw v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // the four loads in flight
+          v[k] = c.idx[k] < 0 ? Raw{} : staged[c.idx[k] + hh];
+        }
+        // a * cw * g into the private rows, while the loads fly
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (c.idx[k] >= 0) {
+            const float w = a * c.cw[k];
+            float* r = gs + (c.idx[k] + hh) * D;
+#pragma unroll
+            for (int e = 0; e < D; ++e) atomicAdd(r + e, w * g[e]);
+          }
+        }
+        float dot[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float f[D];
+          unpack_row<T, D>(f, v[k]);
+          dot[k] = 0.f;
+#pragma unroll
+          for (int e = 0; e < D; ++e) dot[k] = fmaf(g[e], f[e], dot[k]);
+        }
+        const SampleGrad sg = sample_grad(c, dot, a, sl.whi[l].x, sl.whi[l].y);
+        glx = sg.lx;
+        gly = sg.ly;
+        ga = sg.attn;
+      }
+      grad_loc[2 * at] = glx;
+      grad_loc[2 * at + 1] = gly;
+      grad_attn[at] = ga;
+    }
+  }
+  __syncthreads();
+  float* gv = grad_value + (int64_t)b * n_rows * D;
+  for (int i = threadIdx.x; i < n_rows * D; i += blockDim.x) {
+    const float x = gs[i];
+    if (x != 0.f) atomicAdd(gv + i, x);
+  }
 }
 
 // The plans of msda_bwd (ops/msda_cuda.py BWD_VARIANTS and bwd_plan).
-constexpr int kPlanGeneral = 0, kPlanGather = 1;
+constexpr int kPlanGeneral = 0, kPlanGather = 1, kPlanPrivate = 2;
+
+// The private plan at head width D (1 or 2).
+template <typename T, int D>
+static cudaError_t launch_private(cudaStream_t s, const void* value,
+                                  const float* loc, const float* attn,
+                                  const int* tile_mask, const void* grad_out,
+                                  float* grad_value_f32, float* grad_loc,
+                                  float* grad_attn, int B, int V, int H, int Q,
+                                  int P, int LP, int q_tile, int n_tiles,
+                                  const MsdaLevels& lv) {
+  using Raw = typename NarrowRaw<D * sizeof(T)>::type;
+  const int s_log = bwd_slot_log2(LP);
+  const int smem = V * H * (D * 4 + (int)sizeof(Raw));  // f32 rows, value rows
+  auto kernel = &msda_bwd_private_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  NarrowRuns r;
+  e = narrow_runs((const void*)kernel, kPrivateWarps * 32, smem, Q * H, B,
+                  kPrivateWarps * (32 >> s_log), &r);
+  if (e != cudaSuccess) return e;
+  kernel<<<(unsigned)((int64_t)r.blocks_per_b * B), kPrivateWarps * 32, smem,
+           s>>>((const T*)value, loc, attn, tile_mask, (const T*)grad_out,
+                grad_value_f32, grad_loc, grad_attn, V, H, Q, P, LP, s_log,
+                r.run, r.blocks_per_b, q_tile, n_tiles, lv);
+  return cudaSuccess;
+}
 
 template <typename T, int G>
 static void launch_gather(cudaStream_t s, const void* value, const float* loc,
@@ -532,13 +696,22 @@ static void launch_gather(cudaStream_t s, const void* value, const float* loc,
 }
 
 template <typename T>
-static void launch_bwd(cudaStream_t s, int plan, const void* value,
-                       const float* loc, const float* attn,
-                       const int* tile_mask, const void* grad_out,
-                       float* grad_value_f32, void* grad_value, int* row_head,
-                       int2* links, float* grad_loc, float* grad_attn, int B,
-                       int V, int H, int D, int Q, int P, int LP, int q_tile,
-                       int n_tiles, const MsdaLevels& lv) {
+static cudaError_t launch_bwd(cudaStream_t s, int plan, const void* value,
+                              const float* loc, const float* attn,
+                              const int* tile_mask, const void* grad_out,
+                              float* grad_value_f32, void* grad_value,
+                              int* row_head, int2* links, float* grad_loc,
+                              float* grad_attn, int B, int V, int H, int D,
+                              int Q, int P, int LP, int q_tile, int n_tiles,
+                              const MsdaLevels& lv) {
+  if (plan == kPlanPrivate) {
+#define MSDA_BWD_PRIVATE(D_)                                                  \
+  launch_private<T, D_>(s, value, loc, attn, tile_mask, grad_out,             \
+                        grad_value_f32, grad_loc, grad_attn, B, V, H, Q, P,   \
+                        LP, q_tile, n_tiles, lv)
+    return D == 1 ? MSDA_BWD_PRIVATE(1) : MSDA_BWD_PRIVATE(2);
+#undef MSDA_BWD_PRIVATE
+  }
   if (plan == kPlanGeneral) {
     const unsigned grid =
         (unsigned)(((int64_t)B * Q * H + kBwdWarps - 1) / kBwdWarps);
@@ -553,7 +726,7 @@ static void launch_bwd(cudaStream_t s, int plan, const void* value,
           grad_value_f32, grad_loc, grad_attn, B, V, H, D, Q, P, LP, q_tile,
           n_tiles, lv);
     }
-    return;
+    return cudaSuccess;
   }
 #define MSDA_BWD_GATHER(G_)                                                   \
   launch_gather<T, G_>(s, value, loc, attn, tile_mask, grad_out, grad_value,  \
@@ -566,18 +739,23 @@ static void launch_bwd(cudaStream_t s, int plan, const void* value,
     default: MSDA_BWD_GATHER(1); break;
   }
 #undef MSDA_BWD_GATHER
+  return cudaSuccess;
 }
 
 // Returns 0 on success, else a cudaError_t code. shapes points to 2 * L host
 // ints (h0, w0, h1, w1, ...); tile_mask may be null; dtype 0 = f32, 1 =
 // bf16. plan (ops/msda_cuda.py bwd_plan): 1 "gather" (D = 4, 8, 16 or 32,
 // value and grad_out aligned to 4 channels, B * V * H * D and the
-// B * Q * H * L * P * 4 corner slots below 2^31), 0 "general"; a plan the
-// inputs do not allow is refused. grad_value_f32 is the general plan's f32
-// scratch of value's shape (zero-filled here; grad_value itself for f32
-// value), null for gather; row_head (B V H ints, set to -1 here) and
-// slot_links (B Q H L P 4 int pairs) are the gather plan's lists, null for
-// general. *variant is set to the plan that ran.
+// B * Q * H * L * P * 4 corner slots below 2^31), 2 "private" (D = 1 or 2,
+// value and grad_out aligned to a row of D channels, a batch element's
+// f32 grad_value and value rows, V * H * D * 8 bytes, within
+// kPrivateMaxBytes), 0 "general"; a
+// plan the inputs do not allow is refused. grad_value_f32 is the general
+// and private plans' f32 scratch of value's shape (zero-filled here;
+// grad_value itself for f32 value), null for gather; row_head (B V H ints,
+// set to -1 here) and slot_links (B Q H L P 4 int pairs) are the gather
+// plan's lists, null for the others. *variant is set to the plan that
+// ran.
 extern "C" int msda_bwd(const void* value, int dtype, const float* loc,
                         const float* attn, const int* tile_mask,
                         const void* grad_out, float* grad_value_f32,
@@ -603,6 +781,13 @@ extern "C" int msda_bwd(const void* value, int dtype, const float* loc,
         n_value <= INT32_MAX && (int64_t)B * Q * H * LP * 4 <= INT32_MAX &&
         row_head != nullptr && slot_links != nullptr;
     if (!ok) return (int)cudaErrorInvalidValue;
+  } else if (plan == kPlanPrivate) {
+    const size_t align = D * (dtype == 0 ? sizeof(float) : sizeof(uint16_t));
+    const bool ok =
+        (D == 1 || D == 2) &&
+        (((uintptr_t)value | (uintptr_t)grad_out) % align) == 0 &&
+        (int64_t)V * H * D * 8 <= kPrivateMaxBytes && grad_value_f32 != nullptr;
+    if (!ok) return (int)cudaErrorInvalidValue;
   } else if (plan != kPlanGeneral || grad_value_f32 == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
@@ -622,16 +807,18 @@ extern "C" int msda_bwd(const void* value, int dtype, const float* loc,
   const int n_tiles = (Q + q_tile - 1) / q_tile;
   if ((int64_t)B * Q * H > 0) {
     int2* links = reinterpret_cast<int2*>(slot_links);
-    if (dtype == 0) {
-      launch_bwd<float>(s, plan, value, loc, attn, tile_mask, grad_out,
-                        grad_value_f32, grad_value, row_head, links, grad_loc,
-                        grad_attn, B, V, H, D, Q, P, LP, q_tile, n_tiles, lv);
-    } else {
-      launch_bwd<__nv_bfloat16>(s, plan, value, loc, attn, tile_mask,
-                                grad_out, grad_value_f32, grad_value,
-                                row_head, links, grad_loc, grad_attn, B, V, H,
-                                D, Q, P, LP, q_tile, n_tiles, lv);
-    }
+    const cudaError_t e =
+        dtype == 0
+            ? launch_bwd<float>(s, plan, value, loc, attn, tile_mask, grad_out,
+                                grad_value_f32, grad_value, row_head, links,
+                                grad_loc, grad_attn, B, V, H, D, Q, P, LP,
+                                q_tile, n_tiles, lv)
+            : launch_bwd<__nv_bfloat16>(s, plan, value, loc, attn, tile_mask,
+                                        grad_out, grad_value_f32, grad_value,
+                                        row_head, links, grad_loc, grad_attn,
+                                        B, V, H, D, Q, P, LP, q_tile, n_tiles,
+                                        lv);
+    if (e != cudaSuccess) return (int)e;
     *variant = plan;
   } else if (plan == kPlanGather && n_value > 0) {
     // no item: every row is zero
@@ -639,7 +826,7 @@ extern "C" int msda_bwd(const void* value, int dtype, const float* loc,
         grad_value, 0, n_value * (dtype == 0 ? 4 : 2), s);
     if (e != cudaSuccess) return (int)e;
   }
-  if (plan == kPlanGeneral && dtype == 1 && n_value > 0) {
+  if (plan != kPlanGather && dtype == 1 && n_value > 0) {
     const int64_t blocks = (n_value + 255) / 256;
     cast_bf16_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
                        s>>>(grad_value_f32, (__nv_bfloat16*)grad_value,

@@ -2,6 +2,7 @@
 // level table, the loads and stores of f32 and bf16, and the formation of a
 // sample's location (on factored operands) and four bilinear corners. The backward must form its corners, and
 // round them, exactly as the forward does, so both take them from here.
+// Also the narrow variants' rows, lane slots and block runs.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -141,6 +142,96 @@ __device__ __forceinline__ Corners4 sample_corners(const SharedLevels& s,
                                                    float a, int row) {
   const float2 xy = factored_loc(s, l, rx, ry, ox, oy);
   return corners_at(s, l, xy.x, xy.y, a, row);
+}
+
+// ------------------------------------------------------------ narrow rows
+//
+// The narrow variants (msda_narrow_kernel in msda_fwd.cu,
+// msda_bwd_private_kernel in msda_bwd.cu) read a (cell, head) row of D
+// channels as one load of D * sizeof(T) bytes (2, 4 or 8): heads too narrow
+// for a 16-byte row, such as the hybrids' D = 2 stage.
+
+template <int NB>
+struct NarrowRaw;
+template <>
+struct NarrowRaw<2> {
+  using type = unsigned short;
+};
+template <>
+struct NarrowRaw<4> {
+  using type = unsigned int;
+};
+template <>
+struct NarrowRaw<8> {
+  using type = uint2;
+};
+
+// The D channels of a raw row as f32 (bf16: channel 0 in the low half).
+template <typename T, int D>
+__device__ __forceinline__ void unpack_row(
+    float (&f)[D], typename NarrowRaw<D * sizeof(T)>::type v) {
+  if constexpr (sizeof(T) == 4 && D == 1) {
+    f[0] = __uint_as_float(v);
+  } else if constexpr (sizeof(T) == 4) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+  } else if constexpr (D == 1) {
+    f[0] = __uint_as_float((unsigned)v << 16);
+  } else if constexpr (D == 2) {
+    f[0] = __uint_as_float(v << 16);
+    f[1] = __uint_as_float(v & 0xffff0000u);
+  } else {
+    f[0] = __uint_as_float(v.x << 16);
+    f[1] = __uint_as_float(v.x & 0xffff0000u);
+    f[2] = __uint_as_float(v.y << 16);
+    f[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+}
+
+// log2 of the lane slot S of an item in the kernels that give a lane to
+// each sample of several items (msda_bwd_vec_kernel, the narrow variants):
+// L * P rounded up to a power of two, at least 4 (so that a group of G <= 8
+// lanes spans at most two items) and at most 32 (rounds of 32 samples
+// beyond). ops/msda_cuda.py bwd_items_per_warp mirrors it (BWD_SLOT_MIN,
+// BWD_SLOT_MAX).
+constexpr int kSlotLog2Min = 2, kSlotLog2Max = 5;
+
+static inline int bwd_slot_log2(int LP) {
+  int s = kSlotLog2Min;
+  while (s < kSlotLog2Max && (1 << s) < LP) ++s;
+  return s;
+}
+
+// Host side: the runs of the narrow variants' blocks. A block takes `run`
+// consecutive items of one batch element (a multiple of `per_round`, the
+// items its warps take at once) and a batch element `blocks_per_b` runs, so
+// that the grid is one wave of resident blocks: few enough that staging the
+// value rows (and, in the backward, flushing the private grad_value rows)
+// costs little, enough to fill every SM.
+struct NarrowRuns {
+  int run, blocks_per_b;
+};
+
+static inline cudaError_t narrow_runs(const void* kernel, int threads,
+                                      int smem, int items_per_b, int B,
+                                      int per_round, NarrowRuns* r) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  }
+  if (e != cudaSuccess) return e;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t want = (resident + B - 1) / B;  // blocks a batch element
+  int64_t run = ((int64_t)items_per_b + want - 1) / want;
+  run = (run + per_round - 1) / per_round * per_round;
+  r->run = (int)run;
+  r->blocks_per_b = (int)(((int64_t)items_per_b + run - 1) / run);
+  return cudaSuccess;
 }
 
 // Host side: the level table from 2 * L host ints (h0, w0, h1, w1, ...);

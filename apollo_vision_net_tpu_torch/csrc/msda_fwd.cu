@@ -76,6 +76,36 @@
 //      (at least 8 blocks an SM) and no stack frame.
 //   5. A query of a masked tile writes its row of zeros with 16-byte stores
 //      and reads nothing else.
+// Plain and masked entries, narrow variant (msda_narrow_kernel<T, D>; a row
+// of 4 or 8 bytes: f32 D = 1 or 2, bf16 D = 2 or 4; value and out aligned
+// to a row, loc to 8 bytes; a batch element's value rows within
+// kNarrowStageBytes). It serves _msda_kernel_slab
+// (msda_pallas.py:234) at the voxel SCA of the hybrids' last stage: (6,
+// 40,000) and (6, 160,000) voxels over one 15 x 25 map, 8 heads of D = 2, 8
+// samples a head. What bounds it: bytes, the loc and attn stream (491.5 +
+// 245.8 MB f32 at 160,000 voxels) and the output; value is (6, 375, 8, 2),
+// 144 KB. A 16-byte row does not exist here, and the general variant's
+// warp per item left 30 of 32 lanes idle in the channel walk (4% of the
+// bound). The design:
+//   1. A lane a sample: lane s owns sample s % S of item s / S, S = L * P
+//      rounded up to a power of two (bwd_slot_log2, as msda_bwd's gather
+//      kernel; rounds of 32 samples beyond 32), so a warp serves 32 / S
+//      consecutive (batch, query, head) items (4 at the voxel SCA) and reads
+//      their locations and weights in one coalesced load each.
+//   2. Each lane forms its sample's corners with corners_at, issues its
+//      four corner rows' loads (one 4- or 8-byte load each) before it uses
+//      any and accumulates w x v in f32 registers; the item's S lanes are
+//      reduced with __shfl_xor_sync and its first lane stores the D
+//      channels (neighbouring items' stores share a sector).
+//   3. A block takes a run of consecutive items of one batch element, the
+//      grid one wave of resident blocks, and stages that element's value
+//      rows in shared memory first (24 KB a camera at the hybrids' shape):
+//      the scattered 8-byte gathers then cost a bank-conflict pass where
+//      L1 costs one a cache line (staged 0.6223 ms against 0.6541 through
+//      L1 at 160,000 voxels f32, 0.6159 against 0.7115 bf16; H100 at 700
+//      W). Larger values take the general variant: no configuration has
+//      them.
+//   4. A masked tile's items write zeros and read nothing else.
 // Plain and masked entries, general variant (msda_scalar_kernel; any other
 // D or a misaligned row): one warp per (batch, query, head), lane s forms
 // the corners of sample s, then the lanes walk the channels with scalar
@@ -463,28 +493,151 @@ msda_scalar_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
+// The D channels of an output row in value's dtype, as one store.
+template <typename T, int D>
+__device__ __forceinline__ typename NarrowRaw<D * sizeof(T)>::type pack_row(
+    const float (&f)[D]) {
+  if constexpr (sizeof(T) == 4 && D == 1) {
+    return __float_as_uint(f[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    return make_uint2(__float_as_uint(f[0]), __float_as_uint(f[1]));
+  } else if constexpr (D == 2) {
+    return pack_bf16x2(f[0], f[1]);
+  } else {
+    return make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+  }
+}
+
+// The narrow variant (design notes in the header): a block takes `run`
+// consecutive items of batch element blockIdx.x / blocks_per_b; lane s of a
+// warp owns sample s % S of item s / S (S = 2^s_log). The batch element's
+// value rows (V * H raw rows) are copied to shared memory first.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMsdaWarps * 32, kMsdaMinBlocks)
+msda_narrow_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                   const float* __restrict__ attn,
+                   const int* __restrict__ tile_mask, T* __restrict__ out,
+                   int V, int H, int Q, int P, int LP, int s_log, int run,
+                   int blocks_per_b, int q_tile, int n_tiles, MsdaLevels lv) {
+  using Raw = typename NarrowRaw<D * sizeof(T)>::type;
+  extern __shared__ __align__(16) unsigned char narrow_smem[];
+  __shared__ SharedLevels sl;
+  const int b = blockIdx.x / blocks_per_b;
+  const int per_b = Q * H;
+  const int first = b * per_b + (blockIdx.x - b * blocks_per_b) * run;
+  const int last = min(first + run, (b + 1) * per_b);
+  const Raw* rows = reinterpret_cast<const Raw*>(value) + (int64_t)b * V * H;
+  Raw* staged = reinterpret_cast<Raw*>(narrow_smem);
+  for (int i = threadIdx.x; i < V * H; i += blockDim.x) {
+    staged[i] = __ldg(rows + i);
+  }
+  stage_levels(sl, lv);  // its barrier also ends the staging
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int S = 1 << s_log, sub = lane & (S - 1);
+  const int per_warp = 32 >> s_log;
+  Raw* o = reinterpret_cast<Raw*>(out);
+  // the warp's items: the same bound for all its lanes
+  for (int item0 = first + warp * per_warp; item0 < last;
+       item0 += kMsdaWarps * per_warp) {
+    const int item = item0 + (lane >> s_log);
+    const bool live = item < last;
+    const int bq = item / H, hh = item - bq * H;
+    bool on = live;
+    if (on && tile_mask != nullptr) {
+      on = __ldg(tile_mask + (int64_t)b * n_tiles + (bq - b * Q) / q_tile) != 0;
+    }
+    float acc[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) acc[e] = 0.f;
+    for (int r0 = 0; r0 < LP; r0 += S) {  // several rounds only when S = 32
+      const int s = r0 + sub;
+      if (on && s < LP) {
+        const int64_t at = (int64_t)item * LP + s;
+        const float2 xy = __ldg(reinterpret_cast<const float2*>(loc) + at);
+        // row H: idx = cell * H, the corner's row idx + hh
+        const Corners4 c = corners_at(sl, s / P, xy.x, xy.y, __ldg(attn + at), H);
+        Raw v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // the four loads in flight
+          v[k] = c.idx[k] < 0 ? Raw{} : staged[c.idx[k] + hh];
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float f[D];
+          unpack_row<T, D>(f, v[k]);
+#pragma unroll
+          for (int e = 0; e < D; ++e) acc[e] = fmaf(c.wt[k], f[e], acc[e]);
+        }
+      }
+    }
+    for (int m = 1; m < S; m <<= 1) {
+#pragma unroll
+      for (int e = 0; e < D; ++e) acc[e] += __shfl_xor_sync(FULL_MASK, acc[e], m);
+    }
+    if (live && sub == 0) o[item] = pack_row<T, D>(acc);  // zeros when masked
+  }
+}
+
 // ------------------------------------------------------------- host side
+
+// The narrow variant stages a batch element's value rows in shared memory
+// and takes only those of at most this many bytes (the hybrids' D = 2
+// stage: 375 cells x 8 heads x 8 bytes = 24 KB in f32); with the level
+// table the block stays under the 48 KB a launch takes without an opt-in.
+constexpr int kNarrowStageBytes = 40 * 1024;
+
+// The narrow variant at head width D.
+template <typename T, int D>
+static cudaError_t launch_narrow(cudaStream_t s, const void* value,
+                                 const float* loc, const float* attn,
+                                 const int* tile_mask, void* out, int B, int V,
+                                 int H, int Q, int P, int LP, int q_tile,
+                                 int n_tiles, const MsdaLevels& lv) {
+  using Raw = typename NarrowRaw<D * sizeof(T)>::type;
+  const int s_log = bwd_slot_log2(LP);
+  const int smem = V * H * (int)sizeof(Raw);
+  auto kernel = &msda_narrow_kernel<T, D>;
+  NarrowRuns r;
+  const cudaError_t e =
+      narrow_runs((const void*)kernel, kMsdaWarps * 32, smem, Q * H, B,
+                  kMsdaWarps * (32 >> s_log), &r);
+  if (e != cudaSuccess) return e;
+  kernel<<<(unsigned)((int64_t)r.blocks_per_b * B), kMsdaWarps * 32, smem, s>>>(
+      (const T*)value, loc, attn, tile_mask, (T*)out, V, H, Q, P, LP, s_log,
+      r.run, r.blocks_per_b, q_tile, n_tiles, lv);
+  return cudaSuccess;
+}
+
+// The variants of the plain and masked entry (ops/msda_cuda.py VARIANTS).
+constexpr int kFwdGeneral = 0, kFwdVector = 1, kFwdNarrow = 2;
 
 // Launches the vector variant when D fills G = D * sizeof(T) / 16 lanes (G
 // a power of two up to 16), value and out are 16-byte aligned and loc
-// 8-byte aligned, else the general variant. Returns 1 for the vector
-// variant, 0 for the general.
+// 8-byte aligned; else the narrow variant when a row is 4 or 8 bytes (f32
+// D = 1 or 2, bf16 D = 2 or 4), value and out are aligned to it, loc to 8
+// bytes and a batch element's V * H rows take at most kNarrowStageBytes;
+// else the general variant. Sets *variant to kFwdVector,
+// kFwdNarrow or kFwdGeneral; returns a cudaError_t of the host-side set-up.
 template <typename T>
-static int launch_msda(cudaStream_t s, const void* value, const float* loc,
-                       const float* attn, const int* tile_mask, void* out,
-                       int B, int V, int H, int D, int Q, int P, int LP,
-                       int q_tile, int n_tiles, const MsdaLevels& lv) {
+static cudaError_t launch_msda(cudaStream_t s, const void* value,
+                               const float* loc, const float* attn,
+                               const int* tile_mask, void* out, int B, int V,
+                               int H, int D, int Q, int P, int LP, int q_tile,
+                               int n_tiles, const MsdaLevels& lv,
+                               int* variant) {
   constexpr int VEC = 16 / sizeof(T);
   const bool aligned = (((uintptr_t)value | (uintptr_t)out) & 15) == 0 &&
                        ((uintptr_t)loc & 7) == 0 && D % VEC == 0;
   const unsigned grid = (unsigned)(((int64_t)B * Q + kMsdaWarps - 1) / kMsdaWarps);
+  *variant = kFwdVector;
   switch (aligned ? D / VEC : 0) {
 #define MSDA_VEC_CASE(G_)                                                    \
   case G_:                                                                   \
     msda_vec_kernel<T, G_><<<grid, kMsdaWarps * 32, 0, s>>>(                 \
         (const T*)value, loc, attn, tile_mask, (T*)out, B, V, H, Q, P, LP,   \
         q_tile, n_tiles, lv);                                                \
-    return 1;
+    return cudaSuccess;
     MSDA_VEC_CASE(1)
     MSDA_VEC_CASE(2)
     MSDA_VEC_CASE(4)
@@ -494,18 +647,32 @@ static int launch_msda(cudaStream_t s, const void* value, const float* loc,
     default:
       break;
   }
+  const int nb = D * (int)sizeof(T);  // bytes of a row
+  if ((nb == 4 || nb == 8) && ((uintptr_t)value | (uintptr_t)out) % nb == 0 &&
+      ((uintptr_t)loc & 7) == 0 && (int64_t)V * H * nb <= kNarrowStageBytes) {
+    *variant = kFwdNarrow;
+#define MSDA_NARROW(D_)                                                       \
+  launch_narrow<T, D_>(s, value, loc, attn, tile_mask, out, B, V, H, Q, P,    \
+                       LP, q_tile, n_tiles, lv)
+    if constexpr (sizeof(T) == 4) {
+      return D == 1 ? MSDA_NARROW(1) : MSDA_NARROW(2);
+    } else {
+      return D == 2 ? MSDA_NARROW(2) : MSDA_NARROW(4);
+    }
+#undef MSDA_NARROW
+  }
+  *variant = kFwdGeneral;
   const unsigned items =
       (unsigned)(((int64_t)B * Q * H + kFactoredItems - 1) / kFactoredItems);
   msda_scalar_kernel<T><<<items, kFactoredWarps * 32, 0, s>>>(
       (const T*)value, loc, attn, tile_mask, (T*)out, B, V, H, D, Q, P, LP,
       q_tile, n_tiles, lv);
-  return 0;
+  return cudaSuccess;
 }
 
 // Returns 0 on success, else a cudaError_t code. shapes points to 2 * L host
 // ints (h0, w0, h1, w1, ...); tile_mask may be null; dtype 0 = f32, 1 = bf16.
-// *variant is set to 1 when the vector variant ran, 0 when the general one
-// did.
+// *variant is set to the variant that ran: 1 vector, 2 narrow, 0 general.
 extern "C" int msda_fwd(const void* value, int dtype, const float* loc,
                         const float* attn, const int* tile_mask, void* out,
                         int B, int V, int H, int D, int Q, int L, int P,
@@ -521,16 +688,18 @@ extern "C" int msda_fwd(const void* value, int dtype, const float* loc,
   if ((int64_t)B * Q * H == 0) return 0;
   const int n_tiles = (Q + q_tile - 1) / q_tile;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
   if (dtype == 0) {
-    *variant = launch_msda<float>(s, value, loc, attn, tile_mask, out, B, V,
-                                  H, D, Q, P, L * P, q_tile, n_tiles, lv);
+    e = launch_msda<float>(s, value, loc, attn, tile_mask, out, B, V, H, D, Q,
+                           P, L * P, q_tile, n_tiles, lv, variant);
   } else if (dtype == 1) {
-    *variant = launch_msda<__nv_bfloat16>(s, value, loc, attn, tile_mask, out,
-                                          B, V, H, D, Q, P, L * P, q_tile,
-                                          n_tiles, lv);
+    e = launch_msda<__nv_bfloat16>(s, value, loc, attn, tile_mask, out, B, V,
+                                   H, D, Q, P, L * P, q_tile, n_tiles, lv,
+                                   variant);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

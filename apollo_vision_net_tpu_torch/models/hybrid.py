@@ -16,9 +16,10 @@ the last stage resized to the occupancy grid.
 
 The head computes in f32 whatever the config's dtype, as the JAX package
 builds these modules without a dtype. At 8 heads the stages' per-head
-widths run down to C_s / 8 = 2 (hybrid_tiny_occ's last stage), which the
-MSDA forward takes on its scalar variant and ``msda_bwd`` on its general
-plan. Submodules keep the flax names (see bridge.py).
+widths run down to C_s / 8 = 2 (the last stage of every hybrid config),
+which the MSDA forward takes on its narrow variant and ``msda_bwd`` on its
+private plan (ops/msda_cuda.py). Submodules keep the flax names (see
+bridge.py).
 """
 from __future__ import annotations
 

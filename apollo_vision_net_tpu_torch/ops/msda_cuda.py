@@ -19,17 +19,24 @@ per-(camera, tile) mask) and ``launches_factored`` (multi-level SCA on
 factored operands) each grow by one per kernel launch, so a run can show
 that its main path went through the kernels. ``launches_plain_by_variant``,
 ``launches_masked_by_variant`` and ``launches_factored_by_variant`` split
-them by the kernel variant that ran: ``vector`` (16-byte gathers, D *
-element size a power-of-two multiple of 16 bytes, aligned rows) or
-``general`` (scalar channels, any D). ``launches_bwd_plain`` and
+them by the kernel variant that ran (``VARIANTS``, chosen as
+``fwd_variant`` says): ``vector`` (16-byte gathers, D * element size a
+power-of-two multiple of 16 bytes, aligned rows), ``narrow`` (rows of 4 or
+8 bytes: f32 D = 1 or 2, bf16 D = 2 or 4, a batch element's within
+NARROW_STAGE_BYTES; a lane per sample of several (batch, query, head)
+items) or ``general`` (scalar channels, any D; the
+factored entry runs vector or general). ``launches_bwd_plain`` and
 ``launches_bwd_masked`` count the backward's launches without and with a
 tile mask, and ``launches_bwd_plain_by_variant`` /
 ``launches_bwd_masked_by_variant`` split them by the plan that ran
 (``BWD_VARIANTS``, chosen by ``bwd_plan``): ``gather`` (the vector
 kernel, several items a warp, pushing each corner onto its row's lists,
 then a pass over the rows that sums them and writes grad_value in value's
-dtype) or ``general`` (any head width or alignment: a warp per item, f32
-atomics into a scratch). ``launches_bwd_factored``
+dtype), ``private`` (D = 1 or 2 where a batch element's f32 grad_value rows
+and value rows fit PRIVATE_BWD_BYTES of shared memory: a block sums its run of items'
+grad_value there and adds it to an f32 scratch once) or ``general`` (any
+head width or alignment: a warp per item, f32 atomics into a scratch).
+``launches_bwd_factored``
 counts the factored backward's launches and
 ``launches_bwd_factored_by_variant`` splits them by
 ``BWD_FACTORED_VARIANTS``: ``privatized`` (the vector kernel with the
@@ -56,12 +63,12 @@ launches_factored = 0
 launches_bwd_plain = 0
 launches_bwd_masked = 0
 launches_bwd_factored = 0
-# the C entry reports the variant it launched: 1 vector, 0 general
-VARIANTS = {1: "vector", 0: "general"}
+# the C entry reports the variant it launched: 1 vector, 2 narrow, 0 general
+VARIANTS = {1: "vector", 2: "narrow", 0: "general"}
 launches_plain_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 launches_masked_by_variant = dict.fromkeys(VARIANTS.values(), 0)
 launches_factored_by_variant = dict.fromkeys(VARIANTS.values(), 0)
-BWD_VARIANTS = {1: "gather", 0: "general"}
+BWD_VARIANTS = {1: "gather", 2: "private", 0: "general"}
 launches_bwd_plain_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
 launches_bwd_masked_by_variant = dict.fromkeys(BWD_VARIANTS.values(), 0)
 BWD_FACTORED_VARIANTS = {2: "privatized", 1: "vector", 0: "general"}
@@ -73,6 +80,15 @@ launches_bwd_factored_by_variant = dict.fromkeys(
 # (csrc/msda_bwd.cu kPrivMaxBytes, kPrivRun) and refuses a plan beyond them
 FACTORED_BWD_PRIVATE_BYTES = 100 * 1024
 FACTORED_BWD_RUN = 128
+# msda_bwd's private plan: the shared memory a block may take for a batch
+# element's f32 grad_value rows and its value rows (two blocks an SM;
+# csrc/msda_bwd.cu kPrivateMaxBytes, whose entry refuses the plan beyond it)
+PRIVATE_BWD_BYTES = 96 * 1024
+# the plain and masked entry's narrow variant: the bytes of a row it takes,
+# and of a batch element's value rows, which it stages in shared memory
+# (csrc/msda_fwd.cu kNarrowStageBytes)
+NARROW_ROW_BYTES = (4, 8)
+NARROW_STAGE_BYTES = 40 * 1024
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -141,6 +157,25 @@ def _check(name, t, shape, dtypes, device):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def fwd_variant(V: int, H: int, D: int, element_size: int,
+                offset: int = 0) -> str:
+    """The variant of a plain or masked ``msda_fwd`` call (a value of
+    VARIANTS) on value (B, V, H, D), for value (and out) ``offset`` bytes
+    past a 16-byte boundary and loc 8-byte aligned, as csrc/msda_fwd.cu
+    launch_msda picks it: "vector" when D fills G = D·size/16 lanes, G in
+    {1, 2, 4, 8, 16}, on aligned rows; "narrow" when a row is 4 or 8 bytes,
+    aligned to its size, and a batch element's V·H rows take at most
+    NARROW_STAGE_BYTES; else "general"."""
+    vec = 16 // element_size
+    if offset % 16 == 0 and D % vec == 0 and D // vec in (1, 2, 4, 8, 16):
+        return "vector"
+    row = D * element_size
+    if (row in NARROW_ROW_BYTES and offset % row == 0
+            and V * H * row <= NARROW_STAGE_BYTES):
+        return "narrow"
+    return "general"
 
 
 def msda_fwd(
@@ -272,6 +307,8 @@ def msda_fwd_factored(
 # msda_bwd.cu kBwdWarps, kSlotLog2Min, kSlotLog2Max)
 BWD_VEC_WARPS = 4
 BWD_VECTOR_WIDTHS = (4, 8, 16, 32)
+# the head widths of its private plan (csrc/msda_bwd.cu: D == 1 || D == 2)
+BWD_PRIVATE_WIDTHS = (1, 2)
 BWD_SLOT_MIN, BWD_SLOT_MAX = 4, 32
 _INT32_MAX = 2**31 - 1
 
@@ -288,9 +325,10 @@ def bwd_items_per_warp(lp: int) -> int:
 
 
 def bwd_aligned(value: torch.Tensor, grad_out: torch.Tensor) -> bool:
-    """Whether value and grad_out start on a 4-channel boundary, as
-    msda_bwd's vector kernel loads them."""
-    align = 4 * value.element_size()
+    """Whether value and grad_out start on a boundary of min(D, 4)
+    channels: 4 as msda_bwd's gather kernel loads them, a whole row of D
+    = 1 or 2 as the private plan's does."""
+    align = min(value.shape[-1], 4) * value.element_size()
     return value.data_ptr() % align == 0 and grad_out.data_ptr() % align == 0
 
 
@@ -301,15 +339,30 @@ def bwd_gather_scratch(B: int, V: int, H: int, Q: int, lp: int) -> dict:
     return {"row_head": B * V * H, "slot_links": 2 * B * Q * H * lp * 4}
 
 
+def bwd_private_bytes(V: int, H: int, D: int) -> int:
+    """The shared memory that msda_bwd's private plan counts against
+    PRIVATE_BWD_BYTES: a batch element's V·H rows of D f32 grad_value
+    channels and its value rows staged beside them, each counted at 4
+    bytes a channel in either dtype (csrc/msda_bwd.cu msda_bwd)."""
+    return V * H * D * 8
+
+
 def bwd_plan(B: int, V: int, H: int, D: int, Q: int, lp: int,
              aligned: bool = True) -> int:
     """The plan of a msda_bwd call (a key of BWD_VARIANTS; the C entry
-    refuses one its inputs do not allow): "gather" for D = 4, 8, 16 or 32
-    with aligned rows, value offsets and corner slots below 2^31; else
-    "general"."""
-    ok = (D in BWD_VECTOR_WIDTHS and aligned
-          and B * V * H * D <= _INT32_MAX and B * Q * H * lp * 4 <= _INT32_MAX)
-    return 1 if ok else 0
+    refuses one its inputs do not allow; ``aligned`` as ``bwd_aligned``):
+    "gather" for D = 4, 8, 16 or 32 with aligned rows, value offsets and
+    corner slots below 2^31; "private" for D = 1 or 2 with aligned rows
+    whose grad_value and value rows take at most PRIVATE_BWD_BYTES
+    (``bwd_private_bytes``); else "general"."""
+    if not aligned:
+        return 0
+    if D in BWD_VECTOR_WIDTHS:
+        return int(B * V * H * D <= _INT32_MAX
+                   and B * Q * H * lp * 4 <= _INT32_MAX)
+    if D in BWD_PRIVATE_WIDTHS and bwd_private_bytes(V, H, D) <= PRIVATE_BWD_BYTES:
+        return 2
+    return 0
 
 
 def msda_bwd(
@@ -326,7 +379,8 @@ def msda_bwd(
     (B, Q, H * D) in value's dtype -> (grad_value (B, V, H, D) in value's
     dtype, grad_loc (B, Q, H, L, P, 2) f32, grad_attn (B, Q, H, L, P) f32).
     grad_value is summed in f32 and rounded once: in registers over each
-    row's lists (gather plan) or in an f32 scratch (general)."""
+    row's lists (gather plan), in shared memory and then an f32 scratch
+    (private) or in an f32 scratch (general)."""
     global launches_bwd_plain, launches_bwd_masked
     if value.device.type != "cuda":
         raise ValueError(f"msda_bwd launches on CUDA tensors, got {value.device}")

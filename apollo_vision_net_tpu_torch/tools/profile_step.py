@@ -30,6 +30,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import re
 import time
 from typing import Dict, Sequence
 
@@ -69,10 +70,12 @@ def profile_kernels(prof):
 def summarize(prof, n: int, unit: str, unit_ms: float, t0: float,
               top: int = 12) -> dict:
     """Device busy time per ``unit`` (sum of kernel durations), kernels and
-    host synchronizations per unit and the top kernels by device time; idle
-    share against the unprofiled time ``unit_ms``; the host seconds of the
-    window since ``t0``, the profiler's event processing included. Without
-    device events: ``{"device_time": "not measured"}``."""
+    host synchronizations per unit, the top kernels by device time and the
+    port's own kernels (csrc/: the MSDA and DCN kernels and their bf16 cast)
+    whatever their rank; idle share against the unprofiled time
+    ``unit_ms``; the host seconds of the window since ``t0``, the
+    profiler's event processing included. Without device events:
+    ``{"device_time": "not measured"}``."""
     kern, syncs = profile_kernels(prof)
     if not kern:
         return {"device_time": "not measured",
@@ -95,7 +98,11 @@ def summarize(prof, n: int, unit: str, unit_ms: float, t0: float,
             "device_idle_share": 1.0 - busy_ms / unit_ms,
             "seconds": time.perf_counter() - t0,
             "top": [{"name": k, f"ms_per_{unit}": t / 1e3 / n,
-                     f"calls_per_{unit}": c / n} for k, (t, c) in ranked]}
+                     f"calls_per_{unit}": c / n} for k, (t, c) in ranked],
+            "own_kernels": [{"name": k, f"ms_per_{unit}": t / 1e3 / n,
+                             f"calls_per_{unit}": c / n}
+                            for k, (t, c) in by_name.items()
+                            if re.search(r"\b(msda_|dcn_|cast_bf16_)\w*kernel", k)]}
 
 
 def summarize_cpu(prof, n: int, unit: str, t0: float, top: int = 12) -> dict:

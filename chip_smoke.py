@@ -10,9 +10,11 @@ Phases, each printing JSON lines:
                prints each source's seconds and, per kernel, the compiler's
                registers, shared memory, stack frame and spills; fails if
                any instance of a vector kernel (VECTOR_KERNELS: the plain/
-               masked and factored MSDA forwards, the factored MSDA
-               backward's privatizing kernel, the DCN backward's d-input
-               kernel) has a stack frame or spills.
+               masked MSDA forward's vector and narrow kernels, the
+               factored MSDA forward, msda_bwd's gather and private
+               kernels, the factored MSDA backward's privatizing kernel,
+               the DCN backward's d-input kernel) has a stack frame or
+               spills.
   kernels      every CUDA kernel against its plain PyTorch version, in f32 and
                bf16: max abs error and tolerance, device time per call (CUDA
                graph replay), the plain version's time, an eager call's time
@@ -27,9 +29,10 @@ Phases, each printing JSON lines:
                px offsets, sigmoid masks; cuDNN's time for a plain 3x3 conv
                of the same shape beside them as a yardstick); small edge
                shapes of both kernels that reach the ragged edges of their
-               tiles and both variants (vector and general) of every MSDA
-               entry and the DCN kernel. Each row names the variant that
-               ran, and an edge case fails off the variant it targets.
+               tiles and every variant (vector, narrow and general) of
+               every MSDA entry and the DCN kernel. Each row names the
+               variant that ran, and an edge case fails off the variant it
+               targets.
   stream       the flagship bev_tiny_det_map_apollo at full width (6 cams at
                480x800, 50x50 BEV, 3 encoder + 6 det + 6 map decoder layers,
                random weights from a seed) through the streaming runner: frames
@@ -187,8 +190,9 @@ Phases, each printing JSON lines:
                z-slices at 128, 64, 32 and 16 channels, per-head widths 16
                to 2) the same way: 12 plain launches a frame, 11 on the
                vector variant and the last stage's SCA (D = 2) on the
-               scalar one ("general"); forward 24 (21 + 3) and backward 12
-               a step, the last stage's on msda_bwd's general plan.
+               narrow one; forward 24 (21 + 3 narrow) and backward 12 a
+               step, the last stage's on msda_bwd's private plan; none on
+               a general variant.
   stream_voxel_base, stream_hybrid_base, stream_hybrid_intern_s
                voxel_base_occ (R101-DCN, 4x100x100 voxels), hybrid_base_occ
                (its last stage 160,000 voxels) and hybrid_tiny_occ_intern_s
@@ -201,8 +205,8 @@ Phases, each printing JSON lines:
                3 bf16 steps with exact launch counts by entry and variant
                (``train_launches_per_step``: R101's 26 DCN and 26 dcn_bwd,
                InternImage-S's 33 DCNv3 calls a frame and their msda_bwd,
-               the hybrids' D = 2 stage on the scalar forward and
-               msda_bwd's general plan, the base SCA on the factored
+               the hybrids' D = 2 stage on the narrow forward and
+               msda_bwd's private plan, the base SCA on the factored
                entries), loss terms finite and moving, steps/s, peak memory
                of the steps, a profile with ``grid_sampler_3d``'s device
                time; the f32 step against plain versions beside the
@@ -343,14 +347,15 @@ map decoder, 7,000 queries over 50x50 (``map_decoder_v2_train``, forward
 too), InternImage-S's four DCNv3 shapes (``dcnv3_stage0``-``3``) and
 bev_tiny_det's SCA (``sca_tiny_det``), forward too, and the voxel and
 hybrid SCAs (``sca_voxel``, ``sca_hybrid_stage1``-``4``, forward too; at D = 2
-the general plan) and their base shapes (``sca_voxel_base``,
+the narrow forward and the private plan) and their base shapes (``sca_voxel_base``,
 ``tsa_hybrid_base``, ``sca_hybrid_base_stage0``-``4``, ``det_decoder_base100``
 over the 100x100 BEV, forward too); each MSDA
 backward row counts its value rows' list lengths, ``corners_per_row``),
 the base TSA over 200x200 and both base decoders, and the MSDA edge
 shapes (the
-gather and general plans: L·P of 3 to 64 an item, tiles that a warp's
-items straddle, D = 4 to 64, a misaligned value, a hot row);
+gather, private and general plans: L·P of 3 to 64 an item, tiles that a
+warp's items straddle, D = 1 to 64, a misaligned value, a hot row, the
+private budget's edge);
 ``msda_bwd_factored`` at the base
 SCA shape (the full shape, ~35 GB of plain autograd), the same geometry
 with 16-channel heads and with its first level alone (no level private),
@@ -528,9 +533,9 @@ TRAIN_GRAD_FLOOR = 1e-6
 # they move most by more than SPLIT_SHARE times what every witness moves it
 # by, and by more than SPLIT_SHARE times the CPU tests' gradient limit
 # (1e-4): the witnesses then do not show the step's sensitivity there. A
-# step whose kernels ran a general variant (the scalar MSDA forward,
-# msda_bwd's general plan: hybrid_tiny_occ's D = 2 stage, no other main
-# path) is split always.
+# step whose kernels summed grad_value by f32 atomics in no fixed order
+# (msda_bwd's general or private plan: the hybrids' D = 2 stage, no other
+# main path) or ran a general variant is split always.
 SPLIT_SHARE = 10.0
 SPLIT_FLOOR = 1e-4
 # the modules that call an MSDA kernel: the TSAs, the SCAs' deformable
@@ -709,8 +714,9 @@ ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
                 "msda_bwd": "msda_bwd.cu", "msda_bwd_masked": "msda_bwd.cu",
                 "msda_bwd_factored": "msda_bwd.cu", "dcn_bwd": "dcn_bwd.cuh"}
 # kernels whose every instance must build without a stack frame or spills
-VECTOR_KERNELS = ("msda_vec_kernel", "msda_factored_vec_kernel",
-                  "msda_bwd_vec_kernel", "msda_bwd_gather_kernel",
+VECTOR_KERNELS = ("msda_vec_kernel", "msda_narrow_kernel",
+                  "msda_factored_vec_kernel", "msda_bwd_vec_kernel",
+                  "msda_bwd_gather_kernel", "msda_bwd_private_kernel",
                   "msda_bwd_factored_priv_kernel", "dcn_dinput_kernel")
 
 
@@ -1127,12 +1133,13 @@ def tiny_det_cases(dev):
                  tile_mask=tile_mask, q_tile=qt)]
 
 
-def fwd_variant(D, dtype) -> str:
-    """The plain and masked MSDA entry's variant at head width D: the
-    vector kernel when D fills G = D·sizeof(T)/16 lanes, G in {1, 2, 4, 8,
-    16} (csrc/msda_fwd.cu launch_msda), else the scalar one ("general")."""
-    vec = 16 // torch.tensor([], dtype=dtype).element_size()
-    return "vector" if D % vec == 0 and D // vec in (1, 2, 4, 8, 16) else "general"
+def fwd_variant(V, H, D, dtype) -> str:
+    """The plain and masked MSDA entry's variant on aligned rows of value
+    (B, V, H, D) (``msda_cuda.fwd_variant``, as csrc/msda_fwd.cu
+    launch_msda picks it): "vector", "narrow" (f32 D = 1, 2; bf16 D = 2, 4;
+    a batch element's rows within 40 KB) or "general"."""
+    return msda_cuda.fwd_variant(V, H, D,
+                                 torch.tensor([], dtype=dtype).element_size())
 
 
 def voxel_sca_case(name, cfg, g, dev, z, channels):
@@ -1163,7 +1170,7 @@ def voxel_sca_case(name, cfg, g, dev, z, channels):
         shapes=((fh, fw),), loc=loc.reshape(N, Q, H, 1, P, 2).contiguous(),
         attn=attn.reshape(N, Q, H, 1, P).contiguous(), tile_mask=None,
         q_tile=32,
-        variant={d: fwd_variant(D, getattr(torch, d)) for d in dtypes},
+        variant={d: fwd_variant(fh * fw, H, D, getattr(torch, d)) for d in dtypes},
         bwd_variant={d: msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(
             N, fh * fw, H, D, Q, P)] for d in dtypes})
 
@@ -1172,8 +1179,8 @@ def voxel_cases(dev):
     """The SCA shapes that the voxel and hybrid heads add: voxel_tiny_occ's
     over 4x50x50 = 10,000 voxels at D = 32 (``sca_voxel``), and
     hybrid_tiny_occ's voxel stages 1-4, 5,000 to 40,000 voxels at D = 16,
-    8, 4 and 2 (``sca_hybrid_stage{s}``): f32 D = 2 and bf16 D <= 4 take the
-    forward's scalar variant, D = 2 msda_bwd's general plan. Their TSAs
+    8, 4 and 2 (``sca_hybrid_stage{s}``): f32 D = 2 and bf16 D = 2 and 4
+    take the forward's narrow variant, D = 2 msda_bwd's private plan. Their TSAs
     run ``ops.msda3d``; hybrid stage 0 and both det decoders take the
     flagship's shapes (``tsa``, ``sca`` without a mask, ``det_decoder``)."""
     g = torch.Generator(device=dev).manual_seed(10)
@@ -1359,15 +1366,29 @@ def msda_edge_cases(dev):
     last in rounds of 32 samples), B·Q·H not a multiple of the items a warp
     takes, tiles of 3 or 4 queries so that a warp's items straddle masked,
     unmasked and tail tiles, D = 8, and a hot row: every sample of 500
-    queries on one corner of one cell."""
+    queries on one corner of one cell; then the narrow forward and the
+    private plan (``edge_narrow_*``): f32 D = 1 and 2, bf16 D = 2 and 4,
+    L·P = 3, 8, 12 and 33 (8, 4 and 2 items a warp, rounds of 32), two
+    and three levels, warps straddling masked tiles, a hot row, the
+    forward's staging budget and the private budget each at its exact edge
+    and one cell past it (there the general variant), and a misaligned
+    value (general)."""
     g = torch.Generator(device=dev).manual_seed(1)
     vec = {"float32": "vector", "bfloat16": "vector"}
     gen = {"float32": "general", "bfloat16": "general"}
     gat = {"float32": "gather", "bfloat16": "gather"}
+    nar = {"float32": "narrow", "bfloat16": "narrow"}
+    pri = {"float32": "private", "bfloat16": "private"}
+    # 8 heads of D = 2: a batch element's f32 value rows at exactly
+    # NARROW_STAGE_BYTES over 640 cells, its f32 grad_value and value rows
+    # at exactly PRIVATE_BWD_BYTES over 768 (bf16 rows take half)
+    stage_cells = msda_cuda.NARROW_STAGE_BYTES // (8 * 2 * 4)
+    edge_cells = msda_cuda.PRIVATE_BWD_BYTES // (8 * 2 * 8)
+    f32_gen = {"float32": "general", "bfloat16": "narrow"}
     return [
         *msda_edge_pair("edge_D4", g, dev, B=2, H=4, D=4, Q=37, P=5,
                         shapes=((6, 9), (3, 5)), q_tile=32,
-                        variant={"float32": "vector", "bfloat16": "general"},
+                        variant={"float32": "vector", "bfloat16": "narrow"},
                         bwd_variant=gat),
         *msda_edge_pair("edge_D40", g, dev, B=1, H=2, D=40, Q=70, P=3,
                         shapes=((7, 5),), q_tile=32, variant=gen,
@@ -1413,6 +1434,42 @@ def msda_edge_cases(dev):
         *msda_edge_pair("edge_bwd_hot_row", g, dev, B=1, H=2, D=32, Q=500,
                         P=4, shapes=((8, 8),), q_tile=32, variant=None,
                         bwd_variant=gat, hot=(3, 5)),
+        *msda_edge_pair("edge_narrow_D1_LP3", g, dev, B=2, H=3, D=1, Q=37,
+                        P=3, shapes=((6, 9),), q_tile=3,
+                        variant={"float32": "narrow", "bfloat16": "general"},
+                        bwd_variant=pri),
+        *msda_edge_pair("edge_narrow_D2_LP8", g, dev, B=2, H=8, D=2, Q=70,
+                        P=8, shapes=((15, 25),), q_tile=32, variant=nar,
+                        bwd_variant=pri),
+        *msda_edge_pair("edge_narrow_D2_L2_LP12", g, dev, B=3, H=3, D=2, Q=29,
+                        P=6, shapes=((6, 9), (3, 5)), q_tile=4, variant=nar,
+                        bwd_variant=pri),
+        *msda_edge_pair("edge_narrow_D2_L3_LP33", g, dev, B=2, H=2, D=2, Q=20,
+                        P=11, shapes=((5, 7), (3, 4), (2, 2)), q_tile=8,
+                        variant=nar, bwd_variant=pri),
+        *msda_edge_pair("edge_narrow_D4_LP8", g, dev, B=2, H=4, D=4, Q=45,
+                        P=8, shapes=((7, 9),), q_tile=5,
+                        variant={"float32": "vector", "bfloat16": "narrow"},
+                        bwd_variant=gat),
+        *msda_edge_pair("edge_narrow_hot_row", g, dev, B=1, H=2, D=2, Q=500,
+                        P=4, shapes=((8, 8),), q_tile=32, variant=nar,
+                        bwd_variant=pri, hot=(3, 5)),
+        *msda_edge_pair("edge_narrow_stage_budget", g, dev, B=2, H=8, D=2,
+                        Q=30, P=4, shapes=((32, stage_cells // 32),), q_tile=8,
+                        variant=nar, bwd_variant=pri),
+        *msda_edge_pair("edge_narrow_over_stage_budget", g, dev, B=2, H=8,
+                        D=2, Q=30, P=4,
+                        shapes=((32, stage_cells // 32), (1, 1)), q_tile=8,
+                        variant=f32_gen, bwd_variant=pri),
+        *msda_edge_pair("edge_narrow_budget", g, dev, B=2, H=8, D=2, Q=30,
+                        P=4, shapes=((32, edge_cells // 32),), q_tile=8,
+                        variant=f32_gen, bwd_variant=pri),
+        *msda_edge_pair("edge_narrow_over_budget", g, dev, B=2, H=8, D=2, Q=30,
+                        P=4, shapes=((32, edge_cells // 32), (1, 1)), q_tile=8,
+                        variant=f32_gen, bwd_variant=gen),
+        *msda_edge_pair("edge_narrow_misaligned", g, dev, B=1, H=4, D=2, Q=40,
+                        P=4, shapes=((6, 8), (3, 4)), q_tile=16, variant=gen,
+                        misaligned=True, bwd_variant=gen),
     ]
 
 
@@ -1882,12 +1939,13 @@ def conv3x3_ms(case, dtype):
     return graph_time_ms(lambda: F.conv2d(x, w, None, case["stride"], 1))
 
 
-def phase_kernels(dev):
+def fwd_rows(cases):
+    """Each forward kernel on each case in f32 and bf16 against its plain
+    version: max abs error against TOL, the variant that ran (an edge case,
+    or a case naming ``variant``, fails off it) and, beyond the edge cases,
+    CUDA-graph time, an eager call's time, the plain version's time and
+    the bound."""
     rows, outs = [], {}
-    cases = (flagship_cases(dev) + occ_cases(dev) + [occ_tsa_cases(dev)[1]]
-             + mapv2_cases(dev) + dcnv3_cases(dev) + tiny_det_cases(dev)
-             + voxel_cases(dev) + voxel_base_cases(dev) + base_msda_cases(dev)
-             + msda_edge_cases(dev) + factored_edge_cases(dev) + dcn_cases(dev))
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
@@ -1940,7 +1998,15 @@ def phase_kernels(dev):
             if not ok:
                 raise AssertionError(f"kernel disagrees with plain: {row}")
             del got, want, kernel, plain, bound
-    del cases, outs
+    return rows
+
+
+def phase_kernels(dev):
+    rows = fwd_rows(flagship_cases(dev) + occ_cases(dev) + [occ_tsa_cases(dev)[1]]
+                    + mapv2_cases(dev) + dcnv3_cases(dev) + tiny_det_cases(dev)
+                    + voxel_cases(dev) + voxel_base_cases(dev)
+                    + base_msda_cases(dev) + msda_edge_cases(dev)
+                    + factored_edge_cases(dev) + dcn_cases(dev))
     torch.cuda.empty_cache()
     base = [c for c in base_msda_cases(dev) if c["name"] != "sca_base_materialized"]
     rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev)
@@ -2519,12 +2585,14 @@ def head_widths(cfg):
 def voxel_family_launches(cfg, train: bool) -> dict:
     """Launches of one frame, or with ``train`` of one train step, of a
     voxel or hybrid model, by entry and variant: every MSDA call of the
-    head on the plain entry in f32 (the head's dtype in every config) on
-    ``fwd_variant``'s variant at its width, in each of the queue's T frames
-    for the encoder and on the supervised one for the det decoder;
-    InternImage-S's DCNv3 and R101's DCN per frame; the backward on the
-    supervised frame's calls (msda_bwd's gather plan at D = 4-32, its
-    general one at D = 2)."""
+    head on the plain entry in f32 (the head's dtype in every config), in
+    each of the queue's T frames for the encoder and on the supervised one
+    for the det decoder; InternImage-S's DCNv3 and R101's DCN per frame;
+    the backward on the supervised frame's calls. The variants are stated,
+    not derived from the wrappers' rules: the hybrids' D = 2 stage, whose
+    SCA reads the cameras' single stride-32 map (``voxel_sca_case``), runs
+    the narrow forward and msda_bwd's private plan, every other width
+    (D = 4-32) the vector forward and the gather plan."""
     m = cfg.model
     T = m.queue_length if train else 1
     enc, dec = head_widths(cfg)
@@ -2536,13 +2604,12 @@ def voxel_family_launches(cfg, train: bool) -> dict:
         out[f"{entry}.{variant}"] += n
 
     for D in enc * T + dec:
-        add("msda_fwd", fwd_variant(D, torch.float32), 1)
+        add("msda_fwd", "narrow" if D == 2 else "vector", 1)
     add("msda_fwd", "vector", T * n_v3)
     add("dcn_fwd", "vector", T * n_dcn)
     if train:
         for D in enc + dec:
-            add("msda_bwd", "gather" if D in msda_cuda.BWD_VECTOR_WIDTHS
-                else "general", 1)
+            add("msda_bwd", "private" if D == 2 else "gather", 1)
         add("msda_bwd", "gather", n_v3)
         add("dcn_bwd", "quad", n_dcn)
     return out
@@ -2674,7 +2741,8 @@ def phase_train(dev, cfg, phase, *, cmp_sizes=None, f32=True, compare=True,
     flow branch) and the peak memory of those steps; with ``compare``, the
     f32 step with kernels against plain versions beside the witnesses (with
     the model fields ``cmp_sizes`` where given, see BASE_CMP_SIZES; with
-    ``split_on_general``, split by kernel where a general variant ran); with
+    ``split_on_general``, split by kernel where a general variant or
+    msda_bwd's private plan ran); with
     ``f32``, steady-state steps/s of the f32 model at F32_SPEED_SIZES beside
     the configured dtype's at full depth; a profile of each."""
     cfg32 = f32_config(cfg)
@@ -2757,7 +2825,8 @@ def f32_step_vs_plain(dev, cfg32, phase, batch, gen, split_on_general=True):
     assignment), beside the witnesses of the step's own sensitivity
     (WITNESSES: the plain step on moved images or weights) and a second run
     with the kernels, and, where the witnesses do not cover the kernels'
-    difference or a general variant ran, the step split by kernel
+    difference or a general variant or the private plan (grad_value by
+    f32 atomics in no fixed order) ran, the step split by kernel
     (``kernel_split``); fails beyond TRAIN_REL_TOL, TRAIN_GRAD_REL_TOL or
     TRAIN_GRAD_NORM_TOL, or if a kernel launched under the plain
     versions."""
@@ -2766,7 +2835,8 @@ def f32_step_vs_plain(dev, cfg32, phase, batch, gen, split_on_general=True):
     start = read_launch_counts()
     got_l, got_g, indices = grad_step(model32, cfg32, batch, gen, seed)
     before = read_launch_counts()
-    general = sum(v - start[k] for k, v in before.items() if k.endswith(".general"))
+    general = sum(v - start[k] for k, v in before.items()
+                  if k.endswith((".general", ".private")))
     t0 = time.perf_counter()
     with ops.plain_versions():
         want_l, want_g, _ = grad_step(model32, cfg32, batch, gen, seed, indices)
@@ -4528,8 +4598,9 @@ def main() -> int:
           for name, cfg in (("stream_voxel_base", voxel_base_occ()),
                             ("stream_hybrid_base", hybrid_base_occ()),
                             ("stream_hybrid_intern_s", hybrid_tiny_occ_intern_s()))),
-        # the hybrids' D = 2 stage runs the general variant, as in
-        # train_hybrid, whose f32 step is split by kernel for it
+        # the hybrids' D = 2 stage sums grad_value by f32 atomics (the
+        # private plan), as in train_hybrid, whose f32 step is split by
+        # kernel for it
         *((name, lambda name=name, cfg=cfg: phase_train(
             dev, cfg, name, cmp_sizes=BASE_CMP_SIZES, f32=False,
             split_on_general=False))

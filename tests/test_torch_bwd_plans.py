@@ -2,10 +2,13 @@
 variants that chip_smoke.py expects, checked on the CPU (the kernels
 themselves run only on the card).
 
-- ``msda_cuda.bwd_plan``, ``bwd_items_per_warp`` and
-  ``bwd_gather_scratch``: the plan of ``msda_bwd`` (gather or general),
-  the items a warp of its vector kernel takes and the sizes of the gather
-  plan's lists, against the rules csrc/msda_bwd.cu holds.
+- ``msda_cuda.bwd_plan``, ``bwd_items_per_warp``, ``bwd_gather_scratch``
+  and ``bwd_private_bytes``: the plan of ``msda_bwd`` (gather, private or
+  general), the items a warp of its vector kernel takes, the sizes of the
+  gather plan's lists and the private plan's shared memory, against the
+  rules csrc/msda_bwd.cu holds; ``msda_cuda.fwd_variant``, the plain and
+  masked forward's variant (vector, narrow or general), against
+  csrc/msda_fwd.cu.
 - ``msda_cuda.factored_bwd_plan``: which levels' grad_value rows the vector
   kernel of ``msda_bwd_factored`` sums in shared memory, at the base SCA
   shape (levels 2-3 of the 4-level FPN) and at edge shapes (every level,
@@ -25,16 +28,23 @@ from apollo_vision_net_tpu_torch.configs import (
     bev_base_occ,
     bev_tiny_det_map_apollo,
     bev_tiny_det_occ_apollo,
+    hybrid_base_occ,
+    hybrid_tiny_occ,
+    hybrid_tiny_occ_intern_s,
 )
 from apollo_vision_net_tpu_torch.ops import dcn_cuda, msda_cuda
 
-BWD_SRC = (Path(msda_cuda.__file__).resolve().parent.parent / "csrc"
-           / "msda_bwd.cu")
+CSRC = Path(msda_cuda.__file__).resolve().parent.parent / "csrc"
+BWD_SRC = CSRC / "msda_bwd.cu"
+FWD_SRC = CSRC / "msda_fwd.cu"
+COMMON_SRC = CSRC / "msda_common.cuh"
 
 
 def c_const(name):
-    """A constexpr int of csrc/msda_bwd.cu (a product of literals)."""
-    m = re.search(rf"\b{name} = ([^,;]+)[,;]", BWD_SRC.read_text())
+    """A constexpr int of csrc/msda_bwd.cu, the msda_common.cuh it
+    includes or csrc/msda_fwd.cu (a product of literals)."""
+    text = BWD_SRC.read_text() + COMMON_SRC.read_text() + FWD_SRC.read_text()
+    m = re.search(rf"\b{name} = ([^,;]+)[,;]", text)
     return eval(m.group(1), {})
 
 
@@ -154,7 +164,22 @@ def test_chip_smoke_expects_the_new_variants_on_the_main_paths():
         n = chip_smoke.train_launches_per_step(config())
         assert n["msda_bwd"] == n["msda_bwd.gather"] == plain
         assert n["msda_bwd_masked"] == n["msda_bwd_masked.gather"] == 3
-    assert set(msda_cuda.BWD_VARIANTS.values()) == {"gather", "general"}
+    assert set(msda_cuda.BWD_VARIANTS.values()) == {"gather", "private",
+                                                    "general"}
+    assert set(msda_cuda.VARIANTS.values()) == {"vector", "narrow", "general"}
+    # the hybrids' D = 2 stage: 1 narrow forward a frame; 3 narrow forwards
+    # and 1 private backward a step; nothing on a general variant
+    for config in (hybrid_tiny_occ, hybrid_base_occ, hybrid_tiny_occ_intern_s):
+        frame = chip_smoke.voxel_family_launches(config(), train=False)
+        step = chip_smoke.train_launches_per_step(config())
+        assert frame["msda_fwd.narrow"] == 1 and step["msda_fwd.narrow"] == 3
+        assert step["msda_bwd.private"] == 1
+        assert not any(n for k, n in {**frame, **step}.items()
+                       if k.endswith(".general"))
+        assert step["msda_bwd"] == step["msda_bwd.gather"] + 1
+    for config in (bev_base_det_map, bev_tiny_det_map_apollo):
+        n = chip_smoke.train_launches_per_step(config())
+        assert n["msda_fwd.narrow"] == n["msda_bwd.private"] == 0
     assert chip_smoke.factored_bwd_variant(
         32, False, fpn_shapes(bev_base_det_map()), 8) == "privatized"
     # D = 4 G (G = 1, 2, 4, 8) takes the privatizing kernel, other head
@@ -173,10 +198,29 @@ def test_chip_smoke_edge_cases_target_each_backward_variant():
     """The factored edge cases reach privatized, vector and general, and
     the base-size factored rows privatized (at D = 16) and vector; the DCN
     edge cases
-    quad and general; each names what it targets."""
+    quad and general; the MSDA edge cases every variant of the plain and
+    masked forward (VARIANTS) and every plan of msda_bwd (BWD_VARIANTS) in
+    both dtypes, narrow and private included; each names what it targets."""
     import chip_smoke
 
     dev = torch.device("cpu")
+    msda = [c for c in chip_smoke.msda_edge_cases(dev) if c["kind"] == "msda"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        fwd = {c["variant"][dname] for c in msda if c.get("variant")}
+        bwd = {chip_smoke.bind_bwd(c, dtype)[-1] for c in msda}
+        assert fwd == set(msda_cuda.VARIANTS.values()), dname
+        assert bwd == set(msda_cuda.BWD_VARIANTS.values()), dname
+    # each names the forward variant the wrapper's rule gives its inputs
+    for c in msda:
+        B, V, H, D = c["value"].shape
+        for dtype in (torch.float32, torch.bfloat16):
+            if not c.get("variant"):
+                continue
+            size = torch.tensor([], dtype=dtype).element_size()
+            offset = size if c.get("misaligned") else 0
+            assert (c["variant"][str(dtype).replace("torch.", "")]
+                    == msda_cuda.fwd_variant(V, H, D, size, offset)), c["name"]
     fac = {c["name"]: chip_smoke.bind_bwd_factored(c, torch.float32)[-1]
            for c in chip_smoke.factored_edge_cases(dev)}
     assert fac["edge_factored_all_private"] == "privatized"
@@ -246,8 +290,10 @@ def test_bwd_plan_takes_gather_at_every_main_shape():
             (1, 2500, 8, 32, 9900, 4)]       # det+occ train decoder
     for shape in main:
         assert msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(*shape)] == "gather"
-    for D in (12, 40, 64, 2):
+    for D in (12, 40, 64):
         assert msda_cuda.bwd_plan(1, 100, 2, D, 10, 4) == 0
+    # D = 2 (and 1) take the private plan where their rows fit its budget
+    assert msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(1, 100, 2, 2, 10, 4)] == "private"
     assert msda_cuda.bwd_plan(1, 100, 2, 32, 10, 4, aligned=False) == 0
     # 2^31 corner slots or value elements
     assert msda_cuda.bwd_plan(1, 100, 8, 32, 2**24, 4) == 0
@@ -299,7 +345,7 @@ def test_chip_smoke_msda_edge_cases_reach_each_backward_shape():
                 # a warp's items cross a tile edge, with a mixed mask
                 straddle |= ((c["q_tile"] * H) % k != 0
                              and bool(tm.any()) and not bool(tm.all()))
-    assert seen == {"gather", "general"}
+    assert seen == {"gather", "private", "general"}
     assert per_warp == {8, 4, 2, 1}
     assert tail and straddle
     widths = {c["value"].shape[-1] for c in cases}
@@ -308,3 +354,66 @@ def test_chip_smoke_msda_edge_cases_reach_each_backward_shape():
     hot = next(c for c in cases if c["name"] == "edge_bwd_hot_row")
     loc = hot["loc"].reshape(-1, 2)
     assert bool((loc == loc[0]).all())  # every sample on one point
+
+
+# ------------------------------------------------- the narrow head widths
+
+@pytest.mark.parametrize("Q", [40_000, 160_000])
+def test_narrow_and_private_at_the_hybrid_stage4_shapes(Q):
+    """hybrid_tiny_occ's and hybrid_base_occ's last stage, (6, 375, 8, 2)
+    value over the 15x25 map and 8 samples a head, takes the forward's
+    narrow variant and msda_bwd's private plan in both dtypes (its 24 KB
+    of f32 grad_value rows a camera within the budget); the main shapes'
+    calls take what they took before."""
+    for size in (4, 2):
+        assert msda_cuda.fwd_variant(375, 8, 2, size) == "narrow"
+        # one element off: a row's 8 (f32) or 4 (bf16) bytes unaligned
+        assert msda_cuda.fwd_variant(375, 8, 2, size, size) == "general"
+    assert msda_cuda.bwd_private_bytes(375, 8, 2) == 48_000
+    assert msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(6, 375, 8, 2, Q, 8)] == "private"
+    assert msda_cuda.bwd_plan(6, 375, 8, 2, Q, 8, aligned=False) == 0
+    # the main shapes (test_bwd_plan_takes_gather_at_every_main_shape)
+    fwd = msda_cuda.fwd_variant
+    for D in (32, 16, 8):
+        assert fwd(375, 8, D, 4) == fwd(375, 8, D, 2) == "vector"
+    assert fwd(375, 8, 4, 4) == "vector"
+    assert fwd(375, 8, 4, 2) == "narrow"
+    assert fwd(375, 8, 1, 4) == "narrow"
+    assert fwd(375, 8, 1, 2) == fwd(375, 8, 3, 4) == "general"
+    for shape in [(2, 40000, 8, 32, 40000, 4), (6, 1500, 8, 32, 2500, 8),
+                  (6, 375, 8, 16, Q, 8), (6, 375, 8, 4, Q, 8)]:
+        assert msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(*shape)] == "gather"
+
+
+def test_private_budget_edge_matches_the_c_source():
+    """The private plan's budget is the C entry's kPrivateMaxBytes, and
+    inclusive: a batch element's f32 grad_value and value rows of exactly
+    that many bytes (8 heads of D = 2 over 768 cells) take the plan, one
+    cell more does not; the plan's widths are the C entry's (D == 1 || D
+    == 2); the forward's narrow rows (nb == 4 || nb == 8) and its staging
+    budget (kNarrowStageBytes, inclusive: 640 cells of 8 heads of f32 D =
+    2) are the wrapper's."""
+    budget = c_const("kPrivateMaxBytes")
+    assert budget == msda_cuda.PRIVATE_BWD_BYTES == 96 * 1024
+    cells = budget // (8 * 2 * 8)
+    assert msda_cuda.bwd_private_bytes(cells, 8, 2) == budget
+    assert msda_cuda.bwd_plan(2, cells, 8, 2, 30, 4) == 2
+    assert msda_cuda.bwd_plan(2, cells + 1, 8, 2, 30, 4) == 0
+    assert msda_cuda.bwd_plan(2, 2 * cells, 8, 1, 30, 4) == 2
+    assert msda_cuda.bwd_plan(2, 2 * cells + 1, 8, 1, 30, 4) == 0
+    text = BWD_SRC.read_text()
+    widths = re.search(r"\(D == (\d+) \|\| D == (\d+)\) &&", text)
+    assert tuple(int(w) for w in widths.groups()) == msda_cuda.BWD_PRIVATE_WIDTHS
+    assert "(int64_t)V * H * D * 8 <= kPrivateMaxBytes" in text
+    fwd_text = FWD_SRC.read_text()
+    widths = re.search(r"\(nb == (\d+) \|\| nb == (\d+)\)", fwd_text)
+    assert tuple(int(w) for w in widths.groups()) == msda_cuda.NARROW_ROW_BYTES
+    assert "(int64_t)V * H * nb <= kNarrowStageBytes" in fwd_text
+    # the narrow forward stages value rows within the 48 KB a block takes
+    # without an opt-in, its level table beside them
+    stage = c_const("kNarrowStageBytes")
+    assert stage == msda_cuda.NARROW_STAGE_BYTES and stage + 1024 <= 48 * 1024
+    fwd = msda_cuda.fwd_variant
+    cells = stage // (8 * 2 * 4)
+    assert fwd(cells, 8, 2, 4) == "narrow" and fwd(cells + 1, 8, 2, 4) == "general"
+    assert fwd(cells + 1, 8, 2, 2) == "narrow"

@@ -58,11 +58,12 @@ def test_wrapper_argtypes_match_the_c_parameters(source, name):
 
 def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
     """chip_smoke's build phase fails when any instance of a vector kernel
-    (the plain/masked and factored MSDA forwards, the plain/masked MSDA
-    backward's vector and gather kernels, the factored MSDA backward's
-    privatizing kernel, the DCN backward's quad d-input kernel) has a
-    stack frame or spills, or is missing from the report; it reads them per
-    kernel from the report, anonymous-namespace kernels included."""
+    (the plain/masked MSDA forward's vector and narrow kernels, the
+    factored MSDA forward, the plain/masked MSDA backward's vector, gather
+    and private kernels, the factored MSDA backward's privatizing kernel,
+    the DCN backward's quad d-input kernel) has a stack frame or spills, or
+    is missing from the report; it reads them per kernel from the report,
+    anonymous-namespace kernels included."""
     import chip_smoke
 
     report = "\n".join([
@@ -89,6 +90,14 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 24 registers, used 0 barriers",
         "ptxas info    : Function properties for "
+        "_Z18msda_narrow_kernelIfLi2ELb1EEvPKT_PKfS4_PKiPS0_iiiiiiiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 38 registers, used 1 barriers, 224 bytes smem",
+        "ptxas info    : Function properties for "
+        "_Z23msda_bwd_private_kernelIfLi1ELb0EEvPKT_PKfS4_PKiS2_PfS7_S7_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 48 registers, used 1 barriers, 224 bytes smem",
+        "ptxas info    : Function properties for "
         "_ZN43_GLOBAL__N__b68f9870_10_dcn_fwd_cu_b4b4a25017dcn_dinput_kernel"
         "IfEEvPKT_PKfS5_S3_PfS6_S6_iiiiiii",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -98,7 +107,8 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "    8 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
     ])
-    fac, vec, priv, bvec, gather, quad, dcn = chip_smoke.ptxas_kernels(report)
+    (fac, vec, priv, bvec, gather, narrow, private, quad,
+     dcn) = chip_smoke.ptxas_kernels(report)
     assert (fac["kernel"], fac["registers"], fac["smem_bytes"],
             fac["stack_bytes"], fac["spill_stores"]) == (
         "msda_factored_vec_kernel", 79, 224, 0, 0)
@@ -110,11 +120,15 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "msda_bwd_vec_kernel", 72, 0)
     assert (gather["kernel"], gather["registers"], gather["spill_stores"]) == (
         "msda_bwd_gather_kernel", 24, 0)
+    assert (narrow["kernel"], narrow["registers"], narrow["smem_bytes"]) == (
+        "msda_narrow_kernel", 38, 224)
+    assert (private["kernel"], private["registers"], private["stack_bytes"]) == (
+        "msda_bwd_private_kernel", 48, 0)
     assert (quad["kernel"], quad["registers"], quad["spill_loads"]) == (
         "dcn_dinput_kernel", 123, 0)
     assert (dcn["kernel"], dcn["stack_bytes"], dcn["spill_loads"]) == (
         "dcn_fwd_kernel", 8, 32)
-    clean = [fac, vec, priv, bvec, gather, quad]
+    clean = [fac, vec, priv, bvec, gather, narrow, private, quad]
     assert set(chip_smoke.VECTOR_KERNELS) == {k["kernel"] for k in clean}
     chip_smoke.check_vector_kernels([*clean, dcn])
     for k in clean:

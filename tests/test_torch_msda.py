@@ -104,6 +104,29 @@ def test_tile_mask_matches_pallas_slab_interpret(slab_rows, shapes):
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("D", [2, 1])
+def test_narrow_heads_match_pallas_slab_interpret(D, masked):
+    """The hybrids' D = 2 stage and D = 1 (the widths of the CUDA forward's
+    narrow variant): one 15x25 level, 8 heads, L·P = 8, with and without a
+    tile mask, against the Pallas slab kernel in interpret mode."""
+    value, shapes, locs, attn = make_inputs(13, B=2, H=8, D=D, Q=40, P=8,
+                                            shapes=((15, 25),))
+    tile_mask = np.array([[1, 0, 1], [0, 1, 1]], np.int32) if masked else None
+    want = np.asarray(_msda_pallas_fwd_impl(
+        value, shapes, locs, attn, interpret=True, slab_rows=5, q_tile=16,
+        tile_mask=tile_mask))
+    got = ms_deform_attn_ref(
+        *_torch(value), shapes, *_torch(locs, attn),
+        tile_mask=None if tile_mask is None else torch.from_numpy(tile_mask),
+        q_tile=16).numpy()
+    assert got.shape == (2, 40, 8 * D)
+    if masked:
+        assert np.all(got[0, 16:32] == 0) and np.all(got[1, :16] == 0)
+    assert np.abs(got[0, :16]).max() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
 def test_materialize_factored_matches_jax():
     rng = np.random.default_rng(4)
     Bs, N, Q, H, P = 2, 3, 10, 4, 8
@@ -281,21 +304,33 @@ def _tsa_grid_inputs(seed, B=2, H=2, D=8, P=4, hw=(20, 20), hot=False):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("shapes", [((7, 5),), ((6, 9), (3, 5)),
                                     pytest.param("tsa_20x20", id="tsa_20x20"),
-                                    pytest.param("hot_row", id="hot_row")])
+                                    pytest.param("hot_row", id="hot_row"),
+                                    pytest.param("narrow_D2", id="narrow_D2"),
+                                    pytest.param("narrow_D1", id="narrow_D1")])
 def test_plain_backward_matches_jax_vjp(shapes, masked):
     """Autograd through ms_deform_attn_ref (the plain version of msda_bwd)
     against jax.vjp of ms_deform_attn_xla, which is the backward of every
     Pallas MSDA kernel (msda_pallas.py:1468-1484), on random locations over
     one and two levels, on the TSA geometry the kernel is shaped for (L·P =
-    4 on a 20x20 grid, B = 2, a query per cell) and on a hot row (every
-    sample on one corner of one cell). With a tile mask the JAX backward
+    4 on a 20x20 grid, B = 2, a query per cell), on a hot row (every
+    sample on one corner of one cell) and at the narrow head widths of the
+    private plan (D = 2 and 1, 8 heads, one 15x25 level, L·P = 8: the
+    hybrids' last stage). With a tile mask the JAX backward
     runs unmasked on a cotangent zeroed on the masked queries, as the
     caller's zeroed output gives it. f32 sums in other orders: 1e-5
     relative to each gradient's largest magnitude (locations scale by the
     level's w and h)."""
     import jax
 
-    if isinstance(shapes, str):
+    if isinstance(shapes, str) and shapes.startswith("narrow_D"):
+        D = int(shapes[-1])
+        value, shapes, locs, attn = make_inputs(14, B=2, H=8, D=D, Q=70, P=8,
+                                                shapes=((15, 25),))
+        B, Q = 2, 70
+        g = np.random.default_rng(15).standard_normal(
+            (B, Q, 8 * D)).astype(np.float32)
+        tile_mask = np.array([[1, 0, 1], [0, 1, 1]], np.int32)
+    elif isinstance(shapes, str):
         value, shapes, locs, attn = _tsa_grid_inputs(
             11, hot=shapes == "hot_row")
         B, Q = locs.shape[:2]
