@@ -1,9 +1,10 @@
 // Multi-scale deformable attention backward for Hopper (sm_90a).
 //
-// Two entries: msda_bwd, the gradient of the plain and masked MSDA entry
+// Three entries: msda_bwd, the gradient of the plain and masked MSDA entry
 // (msda_fwd in msda_fwd.cu) with respect to value, the sampling locations
-// and the attention weights; and msda_bwd_factored, the gradient of the
-// factored entry (msda_fwd_factored), described at its section below. In
+// and the attention weights; msda_bwd_factored, the gradient of the
+// factored entry (msda_fwd_factored), described at its section below; and
+// msda_bwd_local, the gradient of the tile-local entry (msda_fwd_local). In
 // the JAX package the backward of every MSDA Pallas kernel is the XLA VJP
 // of ms_deform_attn_xla (apollo_vision_net_tpu/ops/msda_pallas.py
 // :1468-1484, :1521-1537, :1586-1606); these kernels compute the same
@@ -106,6 +107,50 @@
 //      value, cast once after, as the general plan does; the sum's order
 //      varies from run to run.
 //   4. A masked tile's items write zero d loc and d attn and add nothing.
+// Design of the tile-local entry, msda_bwd_local (msda_bwd_local_kernel<D>;
+// f32, L = 1, the queries the cells of the level itself, D a multiple of 4
+// up to 32): the gradient of msda_fwd_local (msda_fwd.cu). It replaces the
+// backward of _msda_kernel at InternImage-S's DCNv3 call sites, the XLA VJP
+// _bwd (msda_pallas.py:1468). What bounds it: bytes (stage 0, (6, 120 x
+// 200), G = 5 heads of D = 16, 9 taps: grad_out 46 MB, loc and attn 78,
+// value 46 read; grad_value 46 and grad_loc and grad_attn 78 written:
+// 0.0877 ms at 3.35 TB/s). The gather plan reads ~1.66 GB of corner rows
+// at stage 0 through L2 for its dots, pushes each of its ~25.9M corners
+// onto a global list and re-reads a grad_out row per corner in its row
+// pass (0.663 + 0.330 ms f32). Here:
+//   1. A block takes a tile of kLocalBwdTileY x kLocalBwdTileX cells of
+//      one batch element and one head, stages its halo of value rows and
+//      its warps' rounds of locations and weights as the forward does, and
+//      forms each sample's corners once, a lane a sample.
+//   2. G lanes take a query, 4 channels a lane: the query's grad_out row is
+//      read once, coalesced, and kept in registers and in shared memory;
+//      each sample's four partial dot products are reduce-scattered over
+//      the group (log2 G shuffles); a lane a sample then forms d loc and d
+//      attn (sample_grad) and stores them coalesced.
+//   3. grad_value by a block-local counting sort: a corner of nonzero
+//      weight in the halo takes a fixed slot (weight) and counts into its
+//      halo row with an integer shared atomic (native, where a shared f32
+//      add is a compare-and-swap loop on sm_90); one scan and one placement
+//      later the block sums each halo row's slots in registers and adds
+//      the row to the f32 grad_value once with 16-byte global atomics
+//      (~1,000 adds a tile of 128 queries against ~4,600 corners). A corner
+//      outside the halo adds its row at once. Corners of weight exactly 0
+//      add nothing (three of four at a zero offset). Design (a), every
+//      corner a 16-byte global add, lost to it (splits below).
+//   4. A block takes ~74 KB of shared memory at D = 16, three an SM: the
+//      halo of 2 cells a side keeps it there (3 cells took 81 KB, two an
+//      SM, and ran 30% slower).
+//   Measured (chip_smoke.py, f32, NVIDIA H100 80GB HBM3 at 700 W):
+//   0.5167, 0.2740, 0.1518, 0.0841 ms at DCNv3's stages 0-3, where the
+//   gather plan ran 0.9956, 0.5488, 0.2951, 0.1414 in the same run (bounds
+//   0.0877, 0.0438, 0.0219, 0.0110). The split comes from edited copies of
+//   this source built and timed beside it outside the tree, which no
+//   script here reruns: at stage 0 the build without the counting sort (record, place, sum) ran 0.2664, without the row sums
+//   0.3239, without the corner reads 0.4787, without d loc and d attn
+//   0.4811; design (a) 0.7398; a halo of 3 cells 0.6625 (two blocks an
+//   SM), of 1 cell 0.5018; tiles of 4 x 32 or 8 x 32 0.6285 / 0.9261. The
+//   row sums read a grad_out row from shared memory a corner: ~1
+//   wavefront a corner, ~0.12 ms at stage 0 at 128 bytes a clock an SM.
 // The general kernel (any D or alignment; msda_bwd_scalar_kernel): one
 // warp per item, lane s forming sample s; the warp walks the samples, the
 // lanes the channels of each corner row (chunks of 32), each row's load
@@ -1484,5 +1529,391 @@ extern "C" int msda_bwd_factored(const void* value, int dtype,
                        s>>>(grad_value_f32, (__nv_bfloat16*)grad_value,
                             n_value);
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------- local entry
+
+// The shared memory of msda_bwd_local_kernel, in bytes, and where its
+// parts start: the halo's value rows and a row of zeros, the tile's
+// grad_out rows (f32), each corner's weight (slots), then one region that
+// holds the warps' rounds of samples (corner codes, then dot products; 16
+// bytes a sample) in phase A and the row-sorted list (2 bytes a slot)
+// after it, two buffers of the rounds' locations and weights (12 bytes a
+// sample), each halo row's start (one more) and cursor, and each slot's
+// halo row key (ops/msda_cuda.py local_bwd_smem mirrors it).
+struct LocalBwdSmem {
+  int64_t scratch, xy, a, start, cursor, key, total;
+};
+
+__host__ __device__ __forceinline__ LocalBwdSmem local_bwd_layout(int D, int P,
+                                                                 int lanes) {
+  constexpr int NH = (kLocalBwdTileY + 2 * kLocalHalo) *
+                     (kLocalBwdTileX + 2 * kLocalHalo);
+  constexpr int NQ = kLocalBwdTileY * kLocalBwdTileX;
+  const int64_t slots = (int64_t)NQ * P * 4;
+  const int64_t all = (int64_t)(kLocalThreads / 32) * (32 / lanes) * P;
+  const int64_t region = ((slots * 2 > all * 16 ? slots * 2 : all * 16) + 15) / 16 * 16;
+  LocalBwdSmem m;
+  m.scratch = ((int64_t)NH + 1 + NQ) * D * 4 + slots * 4;
+  m.xy = m.scratch + region;
+  m.a = m.xy + 2 * all * 8;
+  m.start = m.a + 2 * all * 4;
+  m.cursor = m.start + ((int64_t)NH + 1) * 4;
+  m.key = m.cursor + (int64_t)NH * 4;
+  m.total = m.key + slots * 2;
+  return m;
+}
+
+// The tile-local backward (design notes in the header): a block stages its
+// tile's halo; each warp takes 32 / G queries at a time, in three phases:
+//   A. the lanes form the corners of the round's samples, a lane a sample
+//      (codes into the warp's scratch, weights a * cw into their slots);
+//      then G lanes take a query, 4 channels a lane, with its grad_out row
+//      (kept for phase C), and for each sample read its four corner rows
+//      (the halo's, global memory's outside it), reduce-scatter the four
+//      partial dot products over the group into the scratch, add a corner
+//      outside the halo to grad_value by 16-byte global atomics at once,
+//      and record a corner in the halo (its halo row key in its slot, one
+//      integer shared atomic into its row's count); corners of weight
+//      exactly 0 add and record nothing. Last, a lane a sample again: d loc
+//      and d attn (sample_grad) from the sample's four dots, stored
+//      coalesced.
+//   B. warp 0 turns the counts into row starts (an exclusive scan) and
+//      every recorded slot takes its place in the row-sorted list;
+//   C. the lane groups cut the list into equal pieces and walk each a
+//      halo row at a time, summing the row's slots (weight x the slot
+//      query's staged grad_out row) in registers and adding the sum to
+//      grad_value by 16-byte global atomics (a row split between two
+//      pieces takes two adds; the halos of neighbouring tiles overlap).
+template <int D>
+__global__ void __launch_bounds__(kLocalThreads)
+msda_bwd_local_kernel(const float* __restrict__ value,
+                      const float* __restrict__ loc,
+                      const float* __restrict__ attn,
+                      const float* __restrict__ grad_out,
+                      float* __restrict__ grad_value,
+                      float* __restrict__ grad_loc,
+                      float* __restrict__ grad_attn, int h, int w, int H,
+                      int P, int tiles_y, int tiles_x) {
+  constexpr int G = local_lanes(D);
+  constexpr int TY = kLocalBwdTileY, TX = kLocalBwdTileX, NQ = TY * TX;
+  constexpr int NH = (TY + 2 * kLocalHalo) * (TX + 2 * kLocalHalo);
+  constexpr int QW = 32 / G;  // queries a warp takes at once
+  constexpr int WARPS = kLocalThreads / 32;
+  extern __shared__ __align__(16) float local_smem[];
+  const LocalBwdSmem m = local_bwd_layout(D, P, G);
+  char* base = reinterpret_cast<char*>(local_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_round = QW * P;
+  const int all = WARPS * per_round;  // the warps' rounds
+  float* halo = local_smem;           // (NH + 1) x D: row NH zeros
+  float* g_s = halo + (NH + 1) * D;   // NQ x D
+  float* w_s = g_s + NQ * D;          // slots
+  int4* scratch = reinterpret_cast<int4*>(base + m.scratch) + warp * per_round;
+  unsigned short* list = reinterpret_cast<unsigned short*>(base + m.scratch);
+  // two buffers of a round's locations and weights
+  float2* xy_s = reinterpret_cast<float2*>(base + m.xy) + warp * per_round;
+  float* a_s = reinterpret_cast<float*>(base + m.a) + warp * per_round;
+  int* start = reinterpret_cast<int*>(base + m.start);    // NH + 1
+  int* cursor = reinterpret_cast<int*>(base + m.cursor);  // NH
+  short* key_s = reinterpret_cast<short*>(base + m.key);  // slots
+
+  const LocalTile t =
+      local_tile(blockIdx.x, H, tiles_x, tiles_y, h, w, TY, TX);
+  const int V = h * w, row = H * D;  // row: elements between cells
+  const int nh = t.HY * t.HX;
+  const int64_t vo = (int64_t)t.b * V * row + t.hh * D;
+  const int64_t lo = (int64_t)t.b * V * H * P;
+  const float2* lb = reinterpret_cast<const float2*>(loc) + lo;
+  const float* ab = attn + lo;
+  // s / P as __umulhi(s, magic): exact for s * P < 2^32
+  const unsigned magic_p = 0xffffffffu / (unsigned)P + 1u;
+  int i0 = warp * QW;
+  stage_halo<G>(halo, value + vo, t, w, row, D);
+  stage_round<QW>(xy_s, a_s, lb, ab, t, w, H, P, i0, magic_p);
+  cp_async_commit_group();
+  for (int i = threadIdx.x; i < D; i += blockDim.x) halo[NH * D + i] = 0.f;
+  for (int i = threadIdx.x; i < nh; i += blockDim.x) cursor[i] = 0;
+  cp_async_wait_group<0>();
+  __syncthreads();
+
+  const int tid = threadIdx.x;
+  const int grp = lane / G, sub = lane % G, ch = sub * 4;
+  const bool chan = ch < D;
+  const int cr = chan ? ch : 0;  // a lane past D reads channels it drops
+  const float fw = (float)w, fh = (float)h;
+  float* gvb = grad_value + vo + cr;
+  // A
+  for (int r = 0; i0 < t.nq; i0 += WARPS * QW, ++r) {
+    const int buf = (r & 1) * all;
+    if (i0 + WARPS * QW < t.nq) {  // the next round's, in flight
+      stage_round<QW>(xy_s + all - buf, a_s + all - buf, lb, ab, t, w, H, P,
+                      i0 + WARPS * QW, magic_p);
+    }
+    cp_async_commit_group();
+    cp_async_wait_group<1>();
+    __syncwarp();
+    // a lane a sample: the round's corners
+    for (int s = lane; s < per_round; s += 32) {
+      const int qi = i0 + (int)__umulhi((unsigned)s, magic_p);
+      const int p = s - (qi - i0) * P;
+      int code[4] = {NH, NH, NH, NH};
+      float cw[4] = {0.f, 0.f, 0.f, 0.f};
+      if (qi < t.nq) {
+        const float2 xy = xy_s[buf + s];
+        const float a = a_s[buf + s];
+        local_corners(sample_pos(fw, fh, xy.x, xy.y), t, h, w, NH, code, cw);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cw[k] = __fmul_rn(cw[k], a);
+      }
+      scratch[s] = make_int4(code[0], code[1], code[2], code[3]);
+      *reinterpret_cast<float4*>(w_s + (qi * P + p) * 4) =
+          make_float4(cw[0], cw[1], cw[2], cw[3]);
+    }
+    __syncwarp();
+    // G lanes a query
+    const int qi = i0 + grp;
+    float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qi < t.nq && chan) {
+      const TileCell q = tile_cell(t, qi);
+      const int64_t item = ((int64_t)t.b * V + q.y * w + q.x) * H + t.hh;
+      g = __ldg(reinterpret_cast<const float4*>(grad_out + item * D + ch));
+    }
+    if (chan) *reinterpret_cast<float4*>(g_s + qi * D + ch) = g;
+#pragma unroll 3
+    for (int p = 0; p < P; ++p) {
+      const int s = grp * P + p, slot = (qi * P + p) * 4;
+      const int4 cd = scratch[s];
+      const float4 wt = *reinterpret_cast<const float4*>(w_s + slot);
+      const int c[4] = {cd.x, cd.y, cd.z, cd.w};
+      const float wk[4] = {wt.x, wt.y, wt.z, wt.w};
+      float4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // the four loads in flight
+        v[k] = *reinterpret_cast<const float4*>(
+            halo + (c[k] < 0 ? NH : c[k]) * D + cr);
+      }
+      if ((c[0] | c[1] | c[2] | c[3]) < 0) {  // in the grid, outside the halo
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (c[k] < 0) {
+            v[k] = __ldg(reinterpret_cast<const float4*>(
+                value + vo + (int64_t)~c[k] * row + cr));
+            if (chan && wk[k] != 0.f) {  // its add, at once
+              atomicAdd(reinterpret_cast<float4*>(gvb + (int64_t)~c[k] * row),
+                        make_float4(wk[k] * g.x, wk[k] * g.y, wk[k] * g.z,
+                                    wk[k] * g.w));
+            }
+          }
+        }
+      }
+      float pd[G < 4 ? 4 : G];
+#pragma unroll
+      for (int k = 0; k < (G < 4 ? 4 : G); ++k) {
+        pd[k] = k < 4 ? g.x * v[k & 3].x + g.y * v[k & 3].y +
+                            g.z * v[k & 3].z + g.w * v[k & 3].w
+                      : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k % G == sub) {  // the corner's recording lane
+          const int key = c[k] >= 0 && c[k] != NH && wk[k] != 0.f ? c[k] : -1;
+          key_s[slot + k] = (short)key;
+          if (key >= 0) atomicAdd(cursor + key, 1);
+        }
+      }
+      // the group's dot of corner k ends in lane k % G
+      float dot[G < 4 ? 4 / G : 1];
+      if constexpr (G >= 4) {
+        group_reduce_scatter<G>(pd, sub);
+        dot[0] = pd[0];
+      } else {
+#pragma unroll
+        for (int k0 = 0; k0 < 4; k0 += G) {
+          float part[G];
+#pragma unroll
+          for (int j = 0; j < G; ++j) part[j] = pd[k0 + j];
+          group_reduce_scatter<G>(part, sub);
+          dot[k0 / G] = part[0];
+        }
+      }
+      __syncwarp();  // every lane has read the sample's codes
+      float* ds = reinterpret_cast<float*>(scratch + s);
+#pragma unroll
+      for (int j = 0; j < (G < 4 ? 4 / G : 1); ++j) {
+        if (j * G + sub < 4) ds[j * G + sub] = dot[j];
+      }
+    }
+    __syncwarp();
+    // a lane a sample again: d loc and d attn from the four dots
+    for (int s = lane; s < per_round; s += 32) {
+      const int qs = i0 + (int)__umulhi((unsigned)s, magic_p);
+      const int p = s - (qs - i0) * P;
+      if (qs >= t.nq) continue;
+      const TileCell q = tile_cell(t, qs);
+      const int64_t at = lo + ((q.y * w + q.x) * H + t.hh) * P + p;
+      const float2 xy = xy_s[buf + s];
+      const float a = a_s[buf + s];
+      const SamplePos sp = sample_pos(fw, fh, xy.x, xy.y);
+      const float4 d4 = *reinterpret_cast<const float4*>(scratch + s);
+      const float dot[4] = {d4.x, d4.y, d4.z, d4.w};
+      // a corner outside the grid has dot 0 (the zero row), so its term
+      // vanishes whatever its flag and weight
+      Bilinear4 bl;
+      bl.fx = sp.fx;
+      bl.fy = sp.fy;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        bl.idx[k] = 0;
+        bl.cw[k] = corner_cw(k, sp.fx, sp.fy);
+      }
+      const SampleGrad sg = sample_grad(bl, dot, a, fw, fh);
+      grad_loc[2 * at] = sg.lx;
+      grad_loc[2 * at + 1] = sg.ly;
+      grad_attn[at] = sg.attn;
+    }
+    __syncwarp();  // the scratch is the next round's
+  }
+  __syncthreads();
+  // B: exclusive scan of the counts by warp 0, a run of rows a lane
+  if (tid < 32) {
+    const int per = (nh + 31) / 32, k0 = lane * per;
+    const int k1 = min(nh, k0 + per);
+    int sum = 0;
+    for (int k = k0; k < k1; ++k) sum += cursor[k];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int at = incl - sum;
+    for (int k = k0; k < k1; ++k) {
+      const int n = cursor[k];
+      start[k] = at;
+      cursor[k] = at;
+      at += n;
+    }
+    if (lane == 31) start[nh] = incl;
+  }
+  __syncthreads();
+  for (int e = tid; e < t.nq * P * 4; e += blockDim.x) {  // recorded slots
+    const int key = key_s[e];
+    if (key >= 0) list[atomicAdd(cursor + key, 1)] = (unsigned short)e;
+  }
+  __syncthreads();
+  // C: the list cut into one equal piece a group, walked a halo row at a
+  // time (the rows' starts bound each run, so no entry's row is looked
+  // up); the group's lanes walk the same slots
+  constexpr int GROUPS = kLocalThreads / G;
+  const int total = start[nh];
+  const int piece = (total + GROUPS - 1) / GROUPS;
+  int e = (tid / G) * piece;
+  const int e1 = min(total, e + piece);
+  // slot / (P * 4), the slot's query, as __umulhi(slot, magic): exact for
+  // slot * P * 4 < 2^32 (slots <= 2^16, P * 4 <= 2^16)
+  const unsigned magic = 0xffffffffu / (unsigned)(P * 4) + 1u;
+  if (e < e1) {
+    // the row of entry e: the last r with start[r] <= e
+    int r = 0, hi = nh - 1;
+    while (r < hi) {
+      const int mid = (r + hi + 1) >> 1;
+      if (start[mid] <= e) {
+        r = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    int ry = r / t.HX, rx = r - ry * t.HX;
+    while (e < e1) {
+      const int end = min(e1, start[r + 1]);
+      if (end > e) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (; e < end; ++e) {
+          const unsigned slot = list[e];
+          const float wk = w_s[slot];
+          const float4 gq = *reinterpret_cast<const float4*>(
+              g_s + __umulhi(slot, magic) * D + cr);
+          acc.x = fmaf(wk, gq.x, acc.x);
+          acc.y = fmaf(wk, gq.y, acc.y);
+          acc.z = fmaf(wk, gq.z, acc.z);
+          acc.w = fmaf(wk, gq.w, acc.w);
+        }
+        if (chan) {
+          const int cell = (t.hy0 + ry) * w + t.hx0 + rx;
+          atomicAdd(reinterpret_cast<float4*>(gvb + (int64_t)cell * row), acc);
+        }
+      }
+      ++r;
+      if (++rx == t.HX) {
+        rx = 0;
+        ++ry;
+      }
+    }
+  }
+}
+
+// The tile-local entry's backward: the gradients of msda_fwd_local (value,
+// loc, attn as it takes them) for grad_out (B, h * w, H * D) f32 ->
+// grad_value (B, h * w, H, D) f32 (zero-filled here, then summed by f32
+// atomics), grad_loc and grad_attn like loc and attn. value, grad_out and
+// grad_value 16-byte aligned, loc 8-byte aligned; P at most 128 (a tile's
+// slots index a 16-bit list) and the block's shared memory
+// (local_bwd_layout) within kLocalMaxSmem. Returns 0 on success, else a
+// cudaError_t code (cudaErrorInvalidValue for inputs it does not take).
+extern "C" int msda_bwd_local(const float* value, const float* loc,
+                              const float* attn, const float* grad_out,
+                              float* grad_value, float* grad_loc,
+                              float* grad_attn, int B, int h, int w, int H,
+                              int D, int P, void* stream) {
+  constexpr int TY = kLocalBwdTileY, TX = kLocalBwdTileX;
+  if (B < 0 || h < 1 || w < 1 || H < 1 || P < 1 || D < 4 || D > 32 ||
+      D % 4 != 0 ||
+      (((uintptr_t)value | (uintptr_t)grad_out | (uintptr_t)grad_value) &
+       15) != 0 ||
+      ((uintptr_t)loc & 7) != 0 || (int64_t)h * w * H * P > INT32_MAX ||
+      (int64_t)TY * TX * P * 4 > 65536 ||
+      local_bwd_layout(D, P, local_lanes(D)).total > kLocalMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tiles_y = (h + TY - 1) / TY, tiles_x = (w + TX - 1) / TX;
+  const int64_t blocks = (int64_t)B * tiles_y * tiles_x * H;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(
+      grad_value, 0, (size_t)B * h * w * H * D * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = (int)local_bwd_layout(D, P, local_lanes(D)).total;
+  void (*kernel)(const float*, const float*, const float*, const float*,
+                 float*, float*, float*, int, int, int, int, int, int) =
+      nullptr;
+  switch (D) {
+#define MSDA_BWD_LOCAL_CASE(D_) \
+  case D_:                      \
+    kernel = msda_bwd_local_kernel<D_>; \
+    break;
+    MSDA_BWD_LOCAL_CASE(4)
+    MSDA_BWD_LOCAL_CASE(8)
+    MSDA_BWD_LOCAL_CASE(12)
+    MSDA_BWD_LOCAL_CASE(16)
+    MSDA_BWD_LOCAL_CASE(20)
+    MSDA_BWD_LOCAL_CASE(24)
+    MSDA_BWD_LOCAL_CASE(28)
+    MSDA_BWD_LOCAL_CASE(32)
+#undef MSDA_BWD_LOCAL_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(unsigned)blocks, kLocalThreads, smem, s>>>(
+      value, loc, attn, grad_out, grad_value, grad_loc, grad_attn, h, w, H, P,
+      tiles_y, tiles_x);
   return (int)cudaGetLastError();
 }

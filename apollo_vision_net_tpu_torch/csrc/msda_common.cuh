@@ -2,7 +2,8 @@
 // level table, the loads and stores of f32 and bf16, and the formation of a
 // sample's location (on factored operands) and four bilinear corners. The backward must form its corners, and
 // round them, exactly as the forward does, so both take them from here.
-// Also the narrow variants' rows, lane slots and block runs.
+// Also the narrow variants' rows, lane slots and block runs, and the
+// tile-local entries' tiles, halos and corners.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,6 +66,33 @@ struct Bilinear4 {
   float fx, fy;
 };
 
+// The first corner (x0, y0) = (floor(px), floor(py)) of a sample at
+// normalized location (lx, ly) on a w x h grid, and its fractions.
+struct SamplePos {
+  int x0, y0;
+  float fx, fy;
+};
+
+__device__ __forceinline__ SamplePos sample_pos(float w, float h, float lx,
+                                                float ly) {
+  // px = loc * w - 0.5, each op rounded as the plain version rounds it (no
+  // contraction into an FMA)
+  const float px = __fsub_rn(__fmul_rn(lx, w), 0.5f);
+  const float py = __fsub_rn(__fmul_rn(ly, h), 0.5f);
+  const float fx0 = floorf(px), fy0 = floorf(py);
+  SamplePos s;
+  s.fx = px - fx0;
+  s.fy = py - fy0;
+  s.x0 = (int)fx0;
+  s.y0 = (int)fy0;
+  return s;
+}
+
+// The bilinear weight of corner k = (cx, cy) = (k & 1, k >> 1).
+__device__ __forceinline__ float corner_cw(int k, float fx, float fy) {
+  return __fmul_rn((k & 1) ? fx : 1.f - fx, (k >> 1) ? fy : 1.f - fy);
+}
+
 // The bilinear corners of a sample of level l at normalized location
 // (lx, ly).
 __device__ __forceinline__ Bilinear4 bilinear_at(const SharedLevels& s, int l,
@@ -72,23 +100,16 @@ __device__ __forceinline__ Bilinear4 bilinear_at(const SharedLevels& s, int l,
   const float4 f = s.whi[l];
   const int2 wh = s.wh[l];
   const int start = s.start[l];
-  // px = loc * w - 0.5, each op rounded as the plain version rounds it (no
-  // contraction into an FMA)
-  const float px = __fsub_rn(__fmul_rn(lx, f.x), 0.5f);
-  const float py = __fsub_rn(__fmul_rn(ly, f.y), 0.5f);
-  const float fx0 = floorf(px), fy0 = floorf(py);
+  const SamplePos sp = sample_pos(f.x, f.y, lx, ly);
   Bilinear4 c;
-  c.fx = px - fx0;
-  c.fy = py - fy0;
-  const int x0 = (int)fx0, y0 = (int)fy0;
+  c.fx = sp.fx;
+  c.fy = sp.fy;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int cx = k & 1, cy = k >> 1;
-    const int xx = x0 + cx, yy = y0 + cy;
+    const int xx = sp.x0 + (k & 1), yy = sp.y0 + (k >> 1);
     const bool in = xx >= 0 && xx < wh.x && yy >= 0 && yy < wh.y;
     c.idx[k] = in ? (start + yy * wh.x + xx) * row : -1;
-    c.cw[k] = in ? __fmul_rn(cx ? c.fx : 1.f - c.fx, cy ? c.fy : 1.f - c.fy)
-                 : 0.f;
+    c.cw[k] = in ? corner_cw(k, c.fx, c.fy) : 0.f;
   }
   return c;
 }
@@ -232,6 +253,171 @@ static inline cudaError_t narrow_runs(const void* kernel, int threads,
   r->run = (int)run;
   r->blocks_per_b = (int)(((int64_t)items_per_b + run - 1) / run);
   return cudaSuccess;
+}
+
+// ------------------------------------------------------------ tile-local
+//
+// The tile-local entries (msda_fwd_local in msda_fwd.cu, msda_bwd_local in
+// msda_bwd.cu) take calls whose queries are the cells of the value's own
+// single level: L = 1, Q = h * w, query q at cell (q / w, q % w), as
+// DCNv3 makes them. A block takes a tile of TY x TX cells of one batch
+// element and one head and stages the tile's halo in shared memory: the
+// value rows of the tile grown by kLocalHalo cells a side, clipped to the
+// map (a map that one tile and its halo cover is staged whole). A corner
+// in the halo is read there, any other corner in the grid from global
+// memory, so the result never depends on the halo's size. ops/msda_cuda.py
+// mirrors the constants (LOCAL_HALO, LOCAL_THREADS, LOCAL_FWD_TILE,
+// LOCAL_BWD_TILE, LOCAL_MAX_SMEM).
+constexpr int kLocalHalo = 2;
+constexpr int kLocalThreads = 256;
+constexpr int kLocalFwdTileY = 8, kLocalFwdTileX = 16;
+constexpr int kLocalBwdTileY = 8, kLocalBwdTileX = 16;
+// the shared memory a block may take on sm_90 (227 KB)
+constexpr int kLocalMaxSmem = 232448;
+
+// The lanes that take a query (4 channels a lane): D / 4 rounded up to a
+// power of two.
+__host__ __device__ constexpr int local_lanes(int D) {
+  return D <= 4 ? 1 : D <= 8 ? 2 : D <= 16 ? 4 : 8;
+}
+
+struct LocalTile {
+  int b, hh;              // batch element, head
+  int y0, x0, y1, x1;     // the tile's cells [y0, y1) x [x0, x1)
+  int hy0, hx0, HY, HX;   // the staged halo: HY x HX cells from (hy0, hx0)
+  int tw, nq;             // the tile's width and cells (a tile at the map's
+                          // edge holds fewer than TY x TX)
+  unsigned tw_magic;      // qi / tw as __umulhi(qi, tw_magic)
+};
+
+// The cell of the tile's query qi (0 <= qi < t.nq, row-major over the
+// tile's cells, so an edge tile's queries are packed).
+struct TileCell {
+  int y, x;
+};
+
+__device__ __forceinline__ TileCell tile_cell(const LocalTile& t, int qi) {
+  const int r = (int)__umulhi((unsigned)qi, t.tw_magic);
+  return TileCell{t.y0 + r, t.x0 + qi - r * t.tw};
+}
+
+// The tile of block `bid`: heads fastest, then tile columns, tile rows and
+// batch elements, so that the blocks in flight share their value rows and
+// their queries' location rows in L2.
+__device__ __forceinline__ LocalTile local_tile(int bid, int H, int tiles_x,
+                                                int tiles_y, int h, int w,
+                                                int TY, int TX) {
+  LocalTile t;
+  t.hh = bid % H;
+  int r = bid / H;
+  const int tx = r % tiles_x;
+  r /= tiles_x;
+  const int ty = r % tiles_y;
+  t.b = r / tiles_y;
+  t.y0 = ty * TY;
+  t.x0 = tx * TX;
+  t.y1 = min(h, t.y0 + TY);
+  t.x1 = min(w, t.x0 + TX);
+  t.hy0 = max(0, t.y0 - kLocalHalo);
+  t.hx0 = max(0, t.x0 - kLocalHalo);
+  t.HY = min(h, t.y1 + kLocalHalo) - t.hy0;
+  t.HX = min(w, t.x1 + kLocalHalo) - t.hx0;
+  t.tw = t.x1 - t.x0;
+  t.nq = (t.y1 - t.y0) * t.tw;
+  t.tw_magic = 0xffffffffu / (unsigned)t.tw + 1u;
+  return t;
+}
+
+// cp.async of N bytes (16: through L2 only; 8 or 4: through L1), and the
+// group commit and wait.
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+                 "n"(N));
+  }
+}
+__device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issues the copies of the tile's halo rows (D f32 channels of head t.hh a
+// cell, D a multiple of 4 up to 4 G; vb: the head's channels of cell 0 of
+// the batch element, row: elements between cells) to dst, row r = ry * HX
+// + rx: a warp a line of the halo, G lanes a cell, 16 bytes a lane.
+template <int G>
+__device__ __forceinline__ void stage_halo(float* dst, const float* vb,
+                                           const LocalTile& t, int w, int row,
+                                           int D) {
+  const int lane = threadIdx.x & 31, c4 = (lane % G) * 4;
+  for (int ry = threadIdx.x >> 5; ry < t.HY; ry += blockDim.x >> 5) {
+    const float* src = vb + ((int64_t)(t.hy0 + ry) * w + t.hx0) * row + c4;
+    float* out = dst + ry * t.HX * D + c4;
+    for (int rx = lane / G; rx < t.HX; rx += 32 / G) {
+      if (c4 < D) cp_async_n<16>(out + rx * D, src + (int64_t)rx * row);
+    }
+  }
+}
+
+// Issues the copies of a warp's round of samples: the locations (8 bytes)
+// and weights of queries i0 .. i0 + QW - 1 of the tile, P samples each,
+// sample s = (query - i0) * P + p, into xy_s and a_s; a query past the
+// tile's last copies nothing. lb and ab: the batch element's first
+// location and weight; magic_p: s / P as __umulhi(s, magic_p).
+template <int QW>
+__device__ __forceinline__ void stage_round(float2* xy_s, float* a_s,
+                                            const float2* lb, const float* ab,
+                                            const LocalTile& t, int w, int H,
+                                            int P, int i0, unsigned magic_p) {
+  for (int s = threadIdx.x & 31; s < QW * P; s += 32) {
+    const int qi = i0 + (int)__umulhi((unsigned)s, magic_p);
+    const int p = s - (qi - i0) * P;
+    if (qi < t.nq) {
+      const TileCell q = tile_cell(t, qi);
+      const int at = ((q.y * w + q.x) * H + t.hh) * P + p;
+      cp_async_n<8>(xy_s + s, lb + at);
+      cp_async_n<4>(a_s + s, ab + at);
+    }
+  }
+}
+
+// The four corners of a sample on the tile's map, as the tile-local kernels
+// read them: code[k] is the corner's staged halo row, `zero` (the block's
+// row of zeros, past the largest halo) for a corner outside the grid, or
+// ~cell (negative) for a corner in the grid but outside the halo; cw[k] is
+// its bilinear weight (0 outside the grid), rounded as bilinear_at rounds
+// it. A halo lies in the grid, so a corner in it is in the grid.
+__device__ __forceinline__ void local_corners(const SamplePos& s,
+                                              const LocalTile& t, int h,
+                                              int w, int zero, int (&code)[4],
+                                              float (&cw)[4]) {
+  const int hx = s.x0 - t.hx0, hy = s.y0 - t.hy0;
+  const int hrow = hy * t.HX + hx, cell = s.y0 * w + s.x0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // every arm formed, then selected
+    const int cx = k & 1, cy = k >> 1;
+    const bool in = (unsigned)(s.x0 + cx) < (unsigned)w &&
+                    (unsigned)(s.y0 + cy) < (unsigned)h;
+    const bool halo = (unsigned)(hx + cx) < (unsigned)t.HX &&
+                      (unsigned)(hy + cy) < (unsigned)t.HY;
+    const int far = ~(cell + cy * w + cx);
+    const int r = hrow + cy * t.HX + cx;
+    code[k] = halo ? r : in ? far : zero;
+    const float c = corner_cw(k, s.fx, s.fy);
+    cw[k] = in ? c : 0.f;
+  }
+}
+
+// Host side: cells of a tile's largest halo.
+static inline int local_halo_rows(int TY, int TX) {
+  return (TY + 2 * kLocalHalo) * (TX + 2 * kLocalHalo);
 }
 
 // Host side: the level table from 2 * L host ints (h0, w0, h1, w1, ...);

@@ -1,7 +1,9 @@
 // Multi-scale deformable attention forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of apollo_vision_net_tpu/ops/msda_pallas.py:
-//   - _msda_kernel         (decoder cross-attention, det and map decoders)
+//   - _msda_kernel         (decoder cross-attention, det and map decoders;
+//                           at DCNv3's call sites the msda_fwd_local entry
+//                           below)
 //   - _msda_kernel_slab    (temporal self-attention without a mask; spatial
 //                           cross-attention with a per-(camera, query-tile)
 //                           mask)
@@ -136,6 +138,54 @@
 // Factored entry, general variant (msda_factored_scalar_kernel; any other
 // D or a misaligned row): the same sampling stage, then for each sample
 // the lanes walk the channels with scalar loads and stores.
+//
+// Tile-local entry (msda_fwd_local, msda_local_kernel<D>; f32, L = 1, the
+// queries the cells of the level itself, D a multiple of 4 up to 32). It
+// replaces _msda_kernel (msda_pallas.py:194) at InternImage-S's DCNv3 call
+// sites (apollo_vision_net_tpu/ops/dcnv3.py dcnv3_core, ms_deform_attn at
+// one level, the 9 taps as points, the groups as heads): (6, 120 x 200 /
+// 60 x 100 / 30 x 50 / 15 x 25) cells, G = 5 / 10 / 20 / 40 heads of D =
+// 16, 33 calls a frame. What bounds it: bytes, each input read once and the
+// output written once (stage 0: value 46 MB, loc 52, attn 26, out 46:
+// 0.0507 ms at 3.35 TB/s). What held the vector kernel at 18% of it: each
+// value row is a corner of ~36 samples, and those ~1.66 GB of 16-byte
+// gathers a call at stage 0 ran at the L2's rate (~5.8 TB/s), a block of 4
+// queries sharing too few rows for L1 to help. The design:
+//   1. A block takes a tile of kLocalFwdTileY x kLocalFwdTileX cells of one
+//      batch element and one head (heads fastest in the grid) and copies
+//      the tile's halo of value rows (kLocalHalo cells a side, clipped to
+//      the map: 12 x 20 rows of 64 bytes, 15 KB, at D = 16) into shared
+//      memory by 16-byte cp.async, beside a row of zeros. Every corner in
+//      the halo is read there: a value row comes from L2 about twice (the
+//      halos overlap) instead of ~36 times. A corner outside the halo (1.4%
+//      of them at N(0, 1) px offsets) is read from global memory, so an
+//      offset of any size stays exact. An edge tile packs its cells, so no
+//      lane idles on a cell past the map.
+//   2. A warp takes rounds of 32 / G queries (8 at D = 16). A round's
+//      locations and weights arrive by cp.async into one of two buffers
+//      while the warp works on the round before. A lane a sample forms the
+//      corners once (sample_pos and corner_cw, the rounding of
+//      bilinear_at): a code a corner (its halo row, the zero row outside
+//      the grid, or ~cell outside the halo) and its weight, into the
+//      warp's scratch.
+//   3. G = D / 4 lanes (rounded up to a power of two) take a query, 4
+//      channels a lane, and walk its P samples from the scratch, the four
+//      corner loads in flight before any is used: no corner is formed or
+//      passed twice and nothing is reduced across lanes; the group's D
+//      channels leave as one 64-byte row.
+//   4. What is left (splits below): the corner reads are shared memory's
+//      (~2 wavefronts a sample, ~0.07 ms at stage 0 at 128 bytes a clock
+//      an SM), the corner forming, the staging and the rounds' barriers.
+//      Four blocks an SM at D = 16 (local_fwd_min_blocks).
+//   Measured (chip_smoke.py, f32, NVIDIA H100 80GB HBM3 at 700 W):
+//   0.1441, 0.0777, 0.0443, 0.0240 ms at stages 0-3, where the vector
+//   kernel ran 0.2831, 0.1385, 0.0670, 0.0329 in the same run (bounds
+//   0.0507, 0.0254, 0.0127, 0.0063). The split comes from edited copies of
+//   this source built and timed beside it outside the tree, which no
+//   script here reruns: at stage 0 the build without the sample walk ran
+//   0.0815, without the corner forming 0.1164, without the halo's
+//   staging 0.1375; a halo of 1 or 3 cells 0.1561 / 0.1449, tiles of 8 x
+//   32 or 16 x 16 0.1440 / 0.1454, three blocks an SM 0.1522.
 //
 // Bound: memory. Each input is read once and the output written once; at
 // the flagship shapes and f32 value that is about 12.2 MB for TSA, 36 MB
@@ -579,6 +629,136 @@ msda_narrow_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
+// ------------------------------------------------------------ local entry
+
+// Four blocks an SM (at most 64 registers) at D = 4, 8, 16 and 32, as many
+// as the forward's shared memory allows at D = 16: left to itself ptxas
+// took 66 registers and three blocks, 7% slower at DCNv3's stage 0 (H100).
+// The widths with a lane of each query idle (12, 20, 24, 28) spill at 64
+// and keep three.
+template <int D>
+constexpr int local_fwd_min_blocks() {
+  return (D & (D - 1)) == 0 ? 4 : 3;
+}
+
+// The tile-local forward (design notes in the header): a block stages its
+// tile's halo; each warp takes 32 / G queries a round. The round's
+// locations and weights arrive by cp.async while the warp works on the
+// round before; its lanes form the round's corners, a lane a sample (codes
+// and weights into the warp's scratch); then G lanes take a query, 4
+// channels a lane (D <= 4 G; lanes past D hold none), and walk its P
+// samples' corners from the scratch.
+template <int D>
+__global__ void __launch_bounds__(kLocalThreads, local_fwd_min_blocks<D>())
+msda_local_kernel(const float* __restrict__ value,
+                  const float* __restrict__ loc,
+                  const float* __restrict__ attn, float* __restrict__ out,
+                  int h, int w, int H, int P, int tiles_y, int tiles_x) {
+  constexpr int G = local_lanes(D);
+  constexpr int TY = kLocalFwdTileY, TX = kLocalFwdTileX;
+  constexpr int NH = (TY + 2 * kLocalHalo) * (TX + 2 * kLocalHalo);
+  constexpr int QW = 32 / G;                  // queries a warp's round
+  constexpr int WARPS = kLocalThreads / 32;
+  extern __shared__ __align__(16) float local_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_round = QW * P;               // samples a round
+  const int all = WARPS * per_round;          // the warps' rounds
+  float* halo = local_smem;                   // (NH + 1) x D: row NH zeros
+  int4* codes = reinterpret_cast<int4*>(halo + (NH + 1) * D) + warp * per_round;
+  float4* wts = reinterpret_cast<float4*>(codes - warp * per_round + all) +
+                warp * per_round;
+  // two buffers of a round's locations and weights
+  float2* xy_s = reinterpret_cast<float2*>(wts - warp * per_round + all) +
+                 warp * per_round;
+  float* a_s = reinterpret_cast<float*>(xy_s - warp * per_round + 2 * all) +
+               warp * per_round;
+  const LocalTile t =
+      local_tile(blockIdx.x, H, tiles_x, tiles_y, h, w, TY, TX);
+  const int V = h * w, row = H * D;  // row: elements between cells
+  const float* vb = value + (int64_t)t.b * V * row + t.hh * D;
+  const int64_t lo = (int64_t)t.b * V * H * P;
+  const float2* lb = reinterpret_cast<const float2*>(loc) + lo;
+  const float* ab = attn + lo;
+  // s / P as __umulhi(s, magic): exact for s * P < 2^32
+  const unsigned magic = 0xffffffffu / (unsigned)P + 1u;
+  int i0 = warp * QW;
+  stage_halo<G>(halo, vb, t, w, row, D);
+  stage_round<QW>(xy_s, a_s, lb, ab, t, w, H, P, i0, magic);
+  cp_async_commit_group();
+  for (int i = threadIdx.x; i < D; i += blockDim.x) halo[NH * D + i] = 0.f;
+  cp_async_wait_group<0>();
+  __syncthreads();
+
+  const int grp = lane / G, ch = (lane % G) * 4;
+  const bool chan = ch < D;
+  const int cr = chan ? ch : 0;  // a lane past D reads channels it drops
+  const float fw = (float)w, fh = (float)h;
+  for (int r = 0; i0 < t.nq; i0 += WARPS * QW, ++r) {
+    const int buf = (r & 1) * all;
+    if (i0 + WARPS * QW < t.nq) {  // the next round's, in flight
+      stage_round<QW>(xy_s + all - buf, a_s + all - buf, lb, ab, t, w, H, P,
+                      i0 + WARPS * QW, magic);
+    }
+    cp_async_commit_group();
+    cp_async_wait_group<1>();
+    __syncwarp();
+    // a lane a sample: the round's corners
+    for (int s = lane; s < per_round; s += 32) {
+      const int qi = i0 + (int)__umulhi((unsigned)s, magic);
+      int code[4] = {NH, NH, NH, NH};
+      float cw[4] = {0.f, 0.f, 0.f, 0.f};
+      if (qi < t.nq) {
+        const float2 xy = xy_s[buf + s];
+        const float a = a_s[buf + s];
+        local_corners(sample_pos(fw, fh, xy.x, xy.y), t, h, w, NH, code, cw);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cw[k] = __fmul_rn(cw[k], a);
+      }
+      codes[s] = make_int4(code[0], code[1], code[2], code[3]);
+      wts[s] = make_float4(cw[0], cw[1], cw[2], cw[3]);
+    }
+    __syncwarp();
+    // G lanes a query: its samples' corner rows, 4 channels a lane
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 3
+    for (int p = 0; p < P; ++p) {
+      const int4 cd = codes[grp * P + p];
+      const float4 wt = wts[grp * P + p];
+      const int c[4] = {cd.x, cd.y, cd.z, cd.w};
+      const float wk[4] = {wt.x, wt.y, wt.z, wt.w};
+      float4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // the four loads in flight
+        v[k] = *reinterpret_cast<const float4*>(
+            halo + (c[k] < 0 ? NH : c[k]) * D + cr);
+      }
+      if ((c[0] | c[1] | c[2] | c[3]) < 0) {  // in the grid, outside the halo
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (c[k] < 0) {
+            v[k] = __ldg(reinterpret_cast<const float4*>(
+                vb + (int64_t)~c[k] * row + cr));
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc.x = fmaf(wk[k], v[k].x, acc.x);
+        acc.y = fmaf(wk[k], v[k].y, acc.y);
+        acc.z = fmaf(wk[k], v[k].z, acc.z);
+        acc.w = fmaf(wk[k], v[k].w, acc.w);
+      }
+    }
+    const int qi = i0 + grp;
+    if (chan && qi < t.nq) {
+      const TileCell q = tile_cell(t, qi);
+      const int64_t item = ((int64_t)t.b * V + q.y * w + q.x) * H + t.hh;
+      *reinterpret_cast<float4*>(out + item * D + ch) = acc;
+    }
+    __syncwarp();  // the scratch is the next round's
+  }
+}
+
 // ------------------------------------------------------------- host side
 
 // The narrow variant stages a batch element's value rows in shared memory
@@ -797,5 +977,64 @@ extern "C" int msda_fwd_factored(const void* value, int dtype,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// The shared memory of msda_local_kernel: the largest halo's rows and a
+// row of zeros, and for each warp's round of samples their corner codes
+// and weights and two buffers of locations and weights (ops/msda_cuda.py
+// local_fwd_smem mirrors it).
+static inline int local_fwd_smem(int D, int P) {
+  return (local_halo_rows(kLocalFwdTileY, kLocalFwdTileX) + 1) * D * 4 +
+         (kLocalThreads / 32) * (32 / local_lanes(D)) * P * (16 + 16 + 2 * 12);
+}
+
+// The tile-local entry: value (B, h * w, H, D) f32 with D a multiple of 4
+// from 4 to 32, loc (B, h * w, H, 1, P, 2) and attn (B, h * w, H, 1, P)
+// f32 (query q at cell (q / w, q % w)), out (B, h * w, H * D) f32; value
+// and out 16-byte aligned, loc 8-byte aligned. Returns 0 on success, else
+// a cudaError_t code (cudaErrorInvalidValue for inputs it does not take).
+extern "C" int msda_fwd_local(const float* value, const float* loc,
+                              const float* attn, float* out, int B, int h,
+                              int w, int H, int D, int P, void* stream) {
+  constexpr int TY = kLocalFwdTileY, TX = kLocalFwdTileX;
+  if (B < 0 || h < 1 || w < 1 || H < 1 || P < 1 || P > 1024 || D < 4 ||
+      D > 32 || D % 4 != 0 ||
+      (((uintptr_t)value | (uintptr_t)out) & 15) != 0 ||
+      ((uintptr_t)loc & 7) != 0 || (int64_t)h * w * H * P > INT32_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tiles_y = (h + TY - 1) / TY, tiles_x = (w + TX - 1) / TX;
+  const int64_t blocks = (int64_t)B * tiles_y * tiles_x * H;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  const int smem = local_fwd_smem(D, P);
+  if (smem > kLocalMaxSmem) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const float*, const float*, const float*, float*, int, int,
+                 int, int, int, int) = nullptr;
+  switch (D) {
+#define MSDA_LOCAL_CASE(D_) \
+  case D_:                  \
+    kernel = msda_local_kernel<D_>; \
+    break;
+    MSDA_LOCAL_CASE(4)
+    MSDA_LOCAL_CASE(8)
+    MSDA_LOCAL_CASE(12)
+    MSDA_LOCAL_CASE(16)
+    MSDA_LOCAL_CASE(20)
+    MSDA_LOCAL_CASE(24)
+    MSDA_LOCAL_CASE(28)
+    MSDA_LOCAL_CASE(32)
+#undef MSDA_LOCAL_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(unsigned)blocks, kLocalThreads, smem, (cudaStream_t)stream>>>(
+      value, loc, attn, out, h, w, H, P, tiles_y, tiles_x);
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,12 @@ softmaxed modulation masks, over the group's channels. InternImage uses
 only 3x3 taps at dilation 1, so those are fixed here.
 
 The sampling is multi-scale deformable attention with one level, the K taps
-as points and the G groups as heads, so ``dcnv3_core`` runs on
-``ops.msda.ms_deform_attn``: its plain version for CPU tensors, the CUDA
-``msda_fwd`` plain entry (and ``msda_bwd`` for the gradients) for CUDA
-tensors. Stride 1, 'same' padding.
+as points, the G groups as heads and the map's own pixels as queries, so
+``dcnv3_core`` runs on ``ops.msda.ms_deform_attn_local``: its plain version
+for CPU tensors, the tile-local CUDA entry ``msda_fwd_local`` (and
+``msda_bwd_local`` for the gradients) for CUDA tensors, which it takes in
+f32 only (InternImage casts to f32 in every config). Stride 1, 'same'
+padding.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from apollo_vision_net_tpu_torch.ops.msda import ms_deform_attn
+from apollo_vision_net_tpu_torch.ops.msda import ms_deform_attn_local
 
 K = 9  # 3x3 taps at dilation 1
 
@@ -74,6 +76,7 @@ def dcnv3_core(
     """Returns (B, H, W, G·Dg) sampled features in value's dtype."""
     B, H, W, G, Dg = value.shape
     attn = mask.float().reshape(B, H * W, G, 1, K).contiguous()
-    out = ms_deform_attn(value.reshape(B, H * W, G, Dg).contiguous(), ((H, W),),
-                         sampling_locations(offset), attn)  # (B, Q, G·Dg)
+    out = ms_deform_attn_local(value.reshape(B, H * W, G, Dg).contiguous(),
+                               ((H, W),), sampling_locations(offset),
+                               attn)  # (B, Q, G·Dg)
     return out.reshape(B, H, W, G * Dg)

@@ -24,7 +24,11 @@ plain versions did not fit in 80 GB). ``ms_deform_attn_factored``
 does the same for multi-level SCA on factored operands (per-camera
 reference points, offsets and weights shared by the cameras of a sample),
 through ``FactoredMSDAFunction`` (``msda_cuda.msda_fwd_factored`` and
-``msda_cuda.msda_bwd_factored``).
+``msda_cuda.msda_bwd_factored``). ``ms_deform_attn_local`` takes the calls
+whose queries are the cells of the value's own single level (DCNv3's):
+the plain version for CPU tensors, and through ``LocalMSDAFunction`` the
+tile-local CUDA entry and its backward (``msda_cuda.msda_fwd_local``,
+``msda_cuda.msda_bwd_local``) for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -262,3 +266,66 @@ def ms_deform_attn_factored(
                 attn.reshape(B, Q, H, L, P), tile_mask=tile_mask, q_tile=q_tile)
     return FactoredMSDAFunction.apply(value, ref_flat, off_flat, attn_flat,
                                       spatial_shapes, tile_mask, q_tile)
+
+
+class LocalMSDAFunction(torch.autograd.Function):
+    """The tile-local CUDA MSDA forward (``msda_cuda.msda_fwd_local``) with
+    its CUDA backward (``msda_cuda.msda_bwd_local``): gradients of value,
+    locations and weights."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights,
+                spatial_shapes):
+        from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+        ctx.spatial_shapes = tuple(tuple(int(s) for s in hw)
+                                   for hw in spatial_shapes)
+        if any(ctx.needs_input_grad[:3]):
+            # the backward's blocks take fewer samples than the forward's:
+            # refuse them before any work, not halfway through a step
+            msda_cuda.check_local(value, spatial_shapes, sampling_locations,
+                                  attention_weights, backward=True)
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return msda_cuda.msda_fwd_local(value, spatial_shapes,
+                                        sampling_locations, attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+        value, loc, attn = ctx.saved_tensors
+        g_value, g_loc, g_attn = msda_cuda.msda_bwd_local(
+            value, ctx.spatial_shapes, loc, attn,
+            grad_out.to(value.dtype).contiguous())
+        return g_value, g_loc, g_attn, None
+
+
+def ms_deform_attn_local(
+    value: torch.Tensor,
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """MSDA whose queries are the cells of the value's one level: value
+    (B, h·w, H, D), spatial_shapes ((h, w),), loc (B, h·w, H, 1, P, 2),
+    attn (B, h·w, H, 1, P) -> (B, h·w, H·D), query q at cell (q // w,
+    q % w). The plain version for CPU tensors (under the plain MSDA's
+    profiler range); on CUDA tensors the tile-local kernel and its
+    backward, which raise on inputs they do not take
+    (``msda_cuda.check_local``: f32, D a multiple of 4 up to 32). On meta
+    tensors: the output's shape, and the kernel's operations tallied
+    (``ops.cost``)."""
+    B, V, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    if L != 1 or len(spatial_shapes) != 1 or Q != V:
+        raise ValueError(f"ms_deform_attn_local takes one level whose cells "
+                         f"are the queries: L={L}, V={V}, Q={Q}")
+    if value.device.type == "meta":
+        cost.record("msda_fwd_local", cost.msda_operations(B * Q, H, 1, P, D))
+        return value.new_empty((B, Q, H * D))
+    if use_plain(value):
+        with record_function("ms_deform_attn.plain"):
+            return ms_deform_attn_ref(value, spatial_shapes, sampling_locations,
+                                      attention_weights)
+    return LocalMSDAFunction.apply(value, sampling_locations, attention_weights,
+                                   spatial_shapes)

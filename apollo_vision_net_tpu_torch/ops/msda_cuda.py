@@ -44,6 +44,16 @@ grad_value rows of the coarsest levels summed in shared memory, as
 ``factored_bwd_plan`` chooses), ``vector`` (the same kernel with no level
 small enough) or ``general``.
 
+``msda_fwd_local`` and ``msda_bwd_local`` are the tile-local entry and its
+gradient, for calls whose queries are the cells of the value's own single
+level (L = 1, Q = h·w, query q at cell (q // w, q % w)), as DCNv3 makes
+them: a block stages a tile's halo of value rows in shared memory
+(``LOCAL_HALO``, ``LOCAL_FWD_TILE``, ``LOCAL_BWD_TILE``). f32 only, D a
+multiple of 4 up to 32; ``check_local`` refuses anything else before any
+device is touched. Their plain counterparts are ``ms_deform_attn_ref`` and
+autograd through it. ``launches_local`` and ``launches_bwd_local`` count
+their launches.
+
 ``ARGTYPES`` are the C signatures of the entry points as ctypes sees them:
 ``c_void_p`` for every pointer and the stream, ``c_int`` for every int.
 """
@@ -63,6 +73,8 @@ launches_factored = 0
 launches_bwd_plain = 0
 launches_bwd_masked = 0
 launches_bwd_factored = 0
+launches_local = 0
+launches_bwd_local = 0
 # the C entry reports the variant it launched: 1 vector, 2 narrow, 0 general
 VARIANTS = {1: "vector", 2: "narrow", 0: "general"}
 launches_plain_by_variant = dict.fromkeys(VARIANTS.values(), 0)
@@ -89,6 +101,18 @@ PRIVATE_BWD_BYTES = 96 * 1024
 # (csrc/msda_fwd.cu kNarrowStageBytes)
 NARROW_ROW_BYTES = (4, 8)
 NARROW_STAGE_BYTES = 40 * 1024
+# the tile-local entries (csrc/msda_common.cuh kLocalHalo, kLocalThreads,
+# kLocalFwdTileY/X, kLocalBwdTileY/X, kLocalMaxSmem): the halo's cells a
+# side, a block's threads, the (rows, columns) of a tile, and a block's
+# shared memory on sm_90; the head widths they take; the backward's slots
+# index a 16-bit list (a tile's corners at most 2^16)
+LOCAL_HALO = 2
+LOCAL_THREADS = 256
+LOCAL_FWD_TILE = (8, 16)
+LOCAL_BWD_TILE = (8, 16)
+LOCAL_MAX_SMEM = 232448
+LOCAL_WIDTHS = tuple(range(4, 33, 4))
+LOCAL_BWD_MAX_SLOTS = 65536
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -112,15 +136,25 @@ ARGTYPES = {
     # shapes, q_tile, private_from, stream, variant
     "msda_bwd_factored": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P],
+    # value, loc, attn, out, B, h, w, H, D, P, stream
+    "msda_fwd_local": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # value, loc, attn, grad_out, grad_value, grad_loc, grad_attn, B, h, w,
+    # H, D, P, stream
+    "msda_bwd_local": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P],
 }
 # the source of each entry point
 ENTRY_SOURCE = {"msda_fwd": SOURCE, "msda_fwd_factored": SOURCE,
-                "msda_bwd": BWD_SOURCE, "msda_bwd_factored": BWD_SOURCE}
+                "msda_fwd_local": SOURCE, "msda_bwd": BWD_SOURCE,
+                "msda_bwd_factored": BWD_SOURCE, "msda_bwd_local": BWD_SOURCE}
 
 
 def reset_launch_counts() -> None:
     global launches_plain, launches_masked, launches_factored
     global launches_bwd_plain, launches_bwd_masked, launches_bwd_factored
+    global launches_local, launches_bwd_local
+    launches_local = 0
+    launches_bwd_local = 0
     launches_plain = 0
     launches_masked = 0
     launches_factored = 0
@@ -525,3 +559,178 @@ def msda_bwd_factored(
     if variant[0] in BWD_FACTORED_VARIANTS:  # an empty call launches nothing
         launches_bwd_factored_by_variant[BWD_FACTORED_VARIANTS[variant[0]]] += 1
     return grad_value, grad_ref, grad_off, grad_attn
+
+
+# ------------------------------------------------------------ local entry
+
+def local_halo_rows(tile: Tuple[int, int]) -> int:
+    """Cells of a tile's largest halo: the (rows, columns) tile grown by
+    LOCAL_HALO a side (csrc/msda_common.cuh local_halo_rows); a halo at the
+    map's edge is clipped to the map and holds fewer."""
+    return (tile[0] + 2 * LOCAL_HALO) * (tile[1] + 2 * LOCAL_HALO)
+
+
+def local_tiles(h: int, w: int, tile: Tuple[int, int]) -> Tuple[int, int]:
+    """(tile rows, tile columns) of an h x w map: the grid of a batch
+    element and head (csrc msda_fwd_local / msda_bwd_local)."""
+    return (h + tile[0] - 1) // tile[0], (w + tile[1] - 1) // tile[1]
+
+
+def local_tile_cells(h: int, w: int, tile: Tuple[int, int], ty: int,
+                     tx: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The cells of tile (ty, tx), ((y0, y1), (x0, x1)), and its staged
+    halo, ((hy0, hy1), (hx0, hx1)): the tile grown by LOCAL_HALO a side and
+    clipped to the map (csrc/msda_common.cuh local_tile)."""
+    y0, x0 = ty * tile[0], tx * tile[1]
+    y1, x1 = min(h, y0 + tile[0]), min(w, x0 + tile[1])
+    halo = ((max(0, y0 - LOCAL_HALO), min(h, y1 + LOCAL_HALO)),
+            (max(0, x0 - LOCAL_HALO), min(w, x1 + LOCAL_HALO)))
+    return ((y0, y1), (x0, x1)), halo
+
+
+def local_lanes(D: int) -> int:
+    """Lanes that take a query in the tile-local kernels: D / 4 rounded up
+    to a power of two (csrc/msda_bwd.cu local_lanes)."""
+    return 1 if D <= 4 else 2 if D <= 8 else 4 if D <= 16 else 8
+
+
+def local_fwd_smem(D: int, P: int) -> int:
+    """Shared memory of a msda_fwd_local block (csrc/msda_fwd.cu
+    local_fwd_smem): the largest halo's rows of D f32 channels and a row of
+    zeros, and each warp's round of 32 / lanes queries' P samples, 56 bytes
+    a sample (corner codes and weights, and two buffers of locations and
+    weights)."""
+    rounds = LOCAL_THREADS // 32 * (32 // local_lanes(D)) * P
+    return (local_halo_rows(LOCAL_FWD_TILE) + 1) * D * 4 + rounds * 56
+
+
+def local_bwd_smem(D: int, P: int) -> int:
+    """Shared memory of a msda_bwd_local block (csrc/msda_bwd.cu
+    local_bwd_layout): the largest halo's value rows and a row of zeros and
+    the tile's grad_out rows in f32, 4 bytes for each of the tile's P·4
+    corners a query (weight), one region for the warps' rounds (16 bytes a
+    sample) or the row-sorted list (2 bytes a corner), whichever is larger,
+    two buffers of the rounds' locations and weights (12 bytes a sample),
+    two ints for each halo row (start, cursor) plus the list's end, and 2
+    bytes a corner (halo row key)."""
+    nh = local_halo_rows(LOCAL_BWD_TILE)
+    nq = LOCAL_BWD_TILE[0] * LOCAL_BWD_TILE[1]
+    slots = nq * P * 4
+    rounds = LOCAL_THREADS // 32 * (32 // local_lanes(D)) * P
+    region = (max(slots * 2, rounds * 16) + 15) // 16 * 16
+    return ((nh + 1 + nq) * D * 4 + slots * 4 + region + rounds * 24
+            + (2 * nh + 1) * 4 + slots * 2)
+
+
+def check_local(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                sampling_locations: torch.Tensor,
+                attention_weights: torch.Tensor,
+                grad_out: Optional[torch.Tensor] = None,
+                backward: bool = False) -> Tuple[int, ...]:
+    """The tile-local entries' contract, checked on shapes and dtypes only
+    (no device is touched): one level, the queries its cells (Q = V = h·w),
+    f32 value, locations and weights (and grad_out), D in LOCAL_WIDTHS, and
+    for the backward (``grad_out`` given, or ``backward``: a forward whose
+    gradients will be taken) a block's slots and shared memory within
+    LOCAL_BWD_MAX_SLOTS and LOCAL_MAX_SMEM. Returns (B, h, w, H, D, P);
+    raises ValueError or TypeError on what the kernels do not take."""
+    if value.dim() != 4 or sampling_locations.dim() != 6:
+        raise ValueError("value must be (B, V, H, D), locations (B, Q, H, L, P, 2)")
+    B, V, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    if L != 1 or len(spatial_shapes) != 1:
+        raise ValueError(f"the local entry takes one level, got L={L}, "
+                         f"spatial_shapes {spatial_shapes}")
+    (h, w), = spatial_shapes
+    if h * w != V or Q != V:
+        raise ValueError(f"the local entry's queries are the cells of its "
+                         f"{h}x{w} map: V={V}, Q={Q}")
+    for name, t in (("value", value), ("sampling_locations", sampling_locations),
+                    ("attention_weights", attention_weights),
+                    ("grad_out", grad_out)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"the local entry takes f32, {name} is {t.dtype}")
+    if D not in LOCAL_WIDTHS:
+        raise ValueError(f"the local entry takes D in {LOCAL_WIDTHS}, got {D}")
+    if local_fwd_smem(D, P) > LOCAL_MAX_SMEM:
+        raise ValueError(f"msda_fwd_local's block takes {LOCAL_MAX_SMEM} "
+                         f"bytes of shared memory at most: P={P} needs more")
+    if (backward or grad_out is not None) and (
+            LOCAL_BWD_TILE[0] * LOCAL_BWD_TILE[1] * P * 4 > LOCAL_BWD_MAX_SLOTS
+            or local_bwd_smem(D, P) > LOCAL_MAX_SMEM):
+        raise ValueError(f"msda_bwd_local takes at most "
+                         f"{LOCAL_BWD_MAX_SLOTS} corners a tile and "
+                         f"{LOCAL_MAX_SMEM} bytes a block, got P={P}")
+    dev = value.device
+    _check("value", value, (B, V, H, D), (torch.float32,), dev)
+    _check("sampling_locations", sampling_locations, (B, Q, H, 1, P, 2),
+           (torch.float32,), dev)
+    _check("attention_weights", attention_weights, (B, Q, H, 1, P),
+           (torch.float32,), dev)
+    if grad_out is not None:
+        _check("grad_out", grad_out, (B, Q, H * D), (torch.float32,), dev)
+    return B, h, w, H, D, P
+
+
+def _check_cuda_aligned(name, *tensors):
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} launches on CUDA tensors, got {tensors[0].device}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} takes 16-byte aligned rows")
+
+
+def msda_fwd_local(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """The tile-local MSDA forward: value (B, h·w, H, D) f32, loc
+    (B, h·w, H, 1, P, 2) f32, attn (B, h·w, H, 1, P) f32, the queries the
+    cells of the one (h, w) level -> (B, h·w, H·D) f32."""
+    global launches_local
+    B, h, w, H, D, P = check_local(value, spatial_shapes, sampling_locations,
+                                   attention_weights)
+    _check_cuda_aligned("msda_fwd_local", value)
+    lib = _lib()
+    out = torch.empty((B, h * w, H * D), dtype=torch.float32, device=value.device)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    err = lib.msda_fwd_local(
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), out.data_ptr(), B, h, w, H, D, P, stream)
+    if err != 0:
+        raise RuntimeError(f"msda_fwd_local kernel launch failed: CUDA error {err}")
+    launches_local += 1
+    return out
+
+
+def msda_bwd_local(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``msda_fwd_local`` at (value, loc, attn) for
+    ``grad_out`` (B, h·w, H·D) f32 -> (grad_value like value, grad_loc like
+    loc, grad_attn like attn), all f32; grad_value is summed by f32
+    atomics (per halo row and block, and per corner outside the halo), in
+    an order that varies from run to run."""
+    global launches_bwd_local
+    B, h, w, H, D, P = check_local(value, spatial_shapes, sampling_locations,
+                                   attention_weights, grad_out)
+    _check_cuda_aligned("msda_bwd_local", value, grad_out)
+    lib = _lib(BWD_SOURCE)
+    grad_value = torch.empty_like(value)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attn = torch.empty_like(attention_weights)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    err = lib.msda_bwd_local(
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), grad_out.data_ptr(),
+        grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
+        B, h, w, H, D, P, stream)
+    if err != 0:
+        raise RuntimeError(f"msda_bwd_local kernel launch failed: CUDA error {err}")
+    launches_bwd_local += 1
+    return grad_value, grad_loc, grad_attn

@@ -2,8 +2,8 @@
 launcher of a world of processes.
 
 Counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``: ``n``
-processes (gloo on the CPU by default, or ranks on ``cuda`` devices with
-``--device cuda``) form a (dp, sp) mesh, sp = 2 when n is even and at least
+processes (ranks on the ``cuda`` devices by default, or gloo processes on
+the CPU with ``--device cpu``) form a (dp, sp) mesh, sp = 2 when n is even and at least
 4 as in JAX, and take one train step of ``bev_smoke_det_map`` and
 ``bev_smoke_det_occ`` on a global batch of n samples, with the BEV
 partition ``("dp", "sp", None)`` when sp > 1. Rank 0 prints JAX's line:
@@ -119,7 +119,7 @@ def dryrun_rank(n: int, device: str) -> List[str]:
     return lines
 
 
-def dryrun_multichip(n: int, device: str = "cpu") -> List[str]:
+def dryrun_multichip(n: int, device: str = "cuda") -> List[str]:
     """Run the dry run on ``n`` ranks; prints and returns rank 0's lines."""
     lines = spawn_world(n, dryrun_rank, n, device, device=device,
                         backend="gloo")[0]
@@ -131,9 +131,9 @@ def dryrun_multichip(n: int, device: str = "cpu") -> List[str]:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("n", type=int, nargs="?", default=2, help="ranks")
-    p.add_argument("--device", default="cpu",
-                   help="'cpu' (gloo processes) or 'cuda' (every rank on "
-                        "the current card, over gloo)")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the ranks on the cards, over gloo; several "
+                        "ranks may share one) or 'cpu' (gloo processes)")
     a = p.parse_args(argv)
     dryrun_multichip(a.n, a.device)
     return 0

@@ -173,6 +173,7 @@ def kernel_launches() -> Dict[str, int]:
     return {"msda_fwd": msda_cuda.launches_plain,
             "msda_fwd_masked": msda_cuda.launches_masked,
             "msda_fwd_factored": msda_cuda.launches_factored,
+            "msda_fwd_local": msda_cuda.launches_local,
             "dcn_fwd": dcn_cuda.launches}
 
 

@@ -13,8 +13,8 @@ Phases, each printing JSON lines:
                masked MSDA forward's vector and narrow kernels, the
                factored MSDA forward, msda_bwd's gather and private
                kernels, the factored MSDA backward's privatizing kernel,
-               the DCN backward's d-input kernel) has a stack frame or
-               spills.
+               the DCN backward's d-input kernel, the tile-local MSDA
+               forward and backward) has a stack frame or spills.
   kernels      every CUDA kernel against its plain PyTorch version, in f32 and
                bf16: max abs error and tolerance, device time per call (CUDA
                graph replay), the plain version's time, an eager call's time
@@ -139,16 +139,17 @@ Phases, each printing JSON lines:
                frame and step against plain versions with the witnesses;
                frames/s, steps/s, peak memory, profiles.
   stream_intern_s, train_intern_s  bev_tiny_occ_intern_s at full width
-               (InternImage-S: 33 DCNv3 blocks on the plain MSDA entry at
-               D = 16, 9 taps, 5-40 groups over 120x200 to 15x25 with the six
-               cameras folded into the batch; an FPN level over its last
-               stage, 50x50 BEV, the CNN occupancy head; bf16 as configured,
-               the trunk's residual stream f32 as in the JAX package; the
-               DCNv3 ``offset`` and ``mask`` layers and the stem biases
-               seeded with noise) as ``stream_occ`` and ``train_occ``: 42
-               plain + 3 masked launches a frame, forward 114 + 9 and
-               backward 42 + 3 a step, all on the vector and gather
-               variants; the f32 frame against plain versions, and the f32
+               (InternImage-S: 33 DCNv3 blocks on the tile-local MSDA
+               entry in f32 at D = 16, 9 taps, 5-40 groups over 120x200 to
+               15x25 with the six cameras folded into the batch; an FPN
+               level over its last stage, 50x50 BEV, the CNN occupancy
+               head; bf16 as configured, the trunk's residual stream f32 as
+               in the JAX package; the DCNv3 ``offset`` and ``mask`` layers
+               and the stem biases seeded with noise) as ``stream_occ`` and
+               ``train_occ``: 9 plain + 3 masked + 33 local launches a
+               frame, forward 15 + 9 + 99 local and backward 9 + 3 + 33
+               local a step, the plain and masked ones on the vector and
+               gather variants; the f32 frame against plain versions, and the f32
                step at 1 encoder and 2 decoder layers (BASE_CMP_SIZES) with
                the witnesses; the bf16 occupancy against the f32 one;
                frames/s, steps/s, peak memory, profiles.
@@ -168,8 +169,8 @@ Phases, each printing JSON lines:
                steps/s and a profile (no f32 comparison).
   stream_base_intern_s  bev_base_occ_intern_s (InternImage-S stages 2-4
                through a 4-level FPN into bev_base_occ's encoder and heads)
-               streamed as ``base_occ``: 45 plain (33 DCNv3) + 6 factored
-               launches a frame, the f32 frame against plain versions, bf16
+               streamed as ``base_occ``: 12 plain + 33 local (DCNv3) + 6
+               factored launches a frame, the f32 frame against plain versions, bf16
                frames/s and a profile.
   stream_voxel, train_voxel  VoxelFormer's voxel_tiny_occ at full width
                (R50 + one FPN level, 4x50x50 voxel queries at 256
@@ -204,7 +205,8 @@ Phases, each printing JSON lines:
                hybrid_tiny_occ_intern_s at full width as ``train_voxel``:
                3 bf16 steps with exact launch counts by entry and variant
                (``train_launches_per_step``: R101's 26 DCN and 26 dcn_bwd,
-               InternImage-S's 33 DCNv3 calls a frame and their msda_bwd,
+               InternImage-S's 33 DCNv3 calls a frame and their backward
+               on the tile-local entry,
                the hybrids' D = 2 stage on the narrow forward and
                msda_bwd's private plan, the base SCA on the factored
                entries), loss terms finite and moving, steps/s, peak memory
@@ -344,7 +346,14 @@ MSDA shapes, the det+occ train step's 9,900-query decoder, the refinement
 pass's TSA (2, 40000) over 200x200 and masked SCA (6, 40000) over 30x50
 (``tsa_occ``, ``sca_occ``, whose forward has rows too), MapTRv2's trained
 map decoder, 7,000 queries over 50x50 (``map_decoder_v2_train``, forward
-too), InternImage-S's four DCNv3 shapes (``dcnv3_stage0``-``3``) and
+too), InternImage-S's four DCNv3 shapes (``dcnv3_stage0``-``3`` on the
+vector and gather kernels in f32 and bf16; ``dcnv3_local_stage0``-``3``
+on the tile-local entry, msda_fwd_local and msda_bwd_local, in f32 as the
+path runs it, each row with its share of the bound, the same call's
+vector or gather time and the share of in-grid corners outside their
+tile's halo, ``outside_halo``; and the local edge cases ``edge_local_*``:
+every corner outside the halo, corners off the image, a 15x25 map, widths
+that no tile divides, D = 4, 12 and 32) and
 bev_tiny_det's SCA (``sca_tiny_det``), forward too, and the voxel and
 hybrid SCAs (``sca_voxel``, ``sca_hybrid_stage1``-``4``, forward too; at D = 2
 the narrow forward and the private plan) and their base shapes (``sca_voxel_base``,
@@ -685,6 +694,11 @@ REPLACES = {
                           "backward of _msda_kernel_pt2d)"),
     "dcn_bwd": ("apollo_vision_net_tpu/ops/dcn_pallas.py:248 (_dense_bwd: "
                 "XLA VJP of _dcn_xla_ref, the backward of _dcn_kernel)"),
+    "msda_fwd_local": (f"{MSDA_PALLAS}:194 (_msda_kernel at DCNv3's call "
+                       "sites, apollo_vision_net_tpu/ops/dcnv3.py:22,33)"),
+    "msda_bwd_local": (f"{MSDA_PALLAS}:1468 (_bwd: XLA VJP of "
+                       "ms_deform_attn_xla, the backward of _msda_kernel at "
+                       "DCNv3's call sites)"),
 }
 TRAIN_STEP = "bev_tiny_det_map_apollo train step"
 BASE_TRAIN_STEP = "bev_base_det_map train step"
@@ -707,17 +721,29 @@ FRAME_CALLS = {
     "msda_bwd_factored": (BASE_TRAIN_STEP, {"sca_base_factored_bwd": 6}),
     "dcn_bwd": (BASE_TRAIN_STEP, {"dcn_s3_stride2_bwd": 1, "dcn_s3_bwd": 22,
                                   "dcn_s4_stride2_bwd": 1, "dcn_s4_bwd": 2}),
+    # InternImage-S's DCNv3 calls, f32 (ENTRY_DTYPE): a frame's 33 forwards
+    # and a train step's 33 backwards (the supervised frame's)
+    "msda_fwd_local": ("bev_tiny_occ_intern_s", {
+        f"dcnv3_local_stage{i}": n for i, n in enumerate(internimage.DEPTHS)}),
+    "msda_bwd_local": ("bev_tiny_occ_intern_s train step", {
+        f"dcnv3_local_stage{i}_bwd": n
+        for i, n in enumerate(internimage.DEPTHS)}),
 }
+# the dtype of the rows that the {"kernels": ...} line sums: what each
+# entry's main-path calls run
+ENTRY_DTYPE = {"msda_fwd_local": "float32", "msda_bwd_local": "float32"}
 # the file of csrc/ that holds each entry's kernels
 ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
                 "msda_fwd_factored": "msda_fwd.cu", "dcn_fwd": "dcn_fwd.cu",
                 "msda_bwd": "msda_bwd.cu", "msda_bwd_masked": "msda_bwd.cu",
-                "msda_bwd_factored": "msda_bwd.cu", "dcn_bwd": "dcn_bwd.cuh"}
+                "msda_bwd_factored": "msda_bwd.cu", "dcn_bwd": "dcn_bwd.cuh",
+                "msda_fwd_local": "msda_fwd.cu", "msda_bwd_local": "msda_bwd.cu"}
 # kernels whose every instance must build without a stack frame or spills
 VECTOR_KERNELS = ("msda_vec_kernel", "msda_narrow_kernel",
                   "msda_factored_vec_kernel", "msda_bwd_vec_kernel",
                   "msda_bwd_gather_kernel", "msda_bwd_private_kernel",
-                  "msda_bwd_factored_priv_kernel", "dcn_dinput_kernel")
+                  "msda_bwd_factored_priv_kernel", "dcn_dinput_kernel",
+                  "msda_local_kernel", "msda_bwd_local_kernel")
 
 
 def emit(obj) -> None:
@@ -822,6 +848,8 @@ def read_launch_counts() -> dict:
             "msda_bwd_masked": msda_cuda.launches_bwd_masked,
             "msda_bwd_factored": msda_cuda.launches_bwd_factored,
             "dcn_bwd": dcn_cuda.launches_bwd,
+            "msda_fwd_local": msda_cuda.launches_local,
+            "msda_bwd_local": msda_cuda.launches_bwd_local,
             **variant_counts()}
 
 
@@ -1106,6 +1134,83 @@ def dcnv3_cases(dev):
         # a stride-2 'SAME' conv rounds up
         h, w = (h + 1) // 2, (w + 1) // 2
     return cases
+
+
+def dcnv3_local_cases(cases):
+    """The DCNv3 cases (``dcnv3_cases``, the same tensors) on the tile-local
+    entry in f32, as the path runs them; each row is read beside the same
+    call's vector (forward) or gather (backward) row of its case ``vs``."""
+    return [dict(c, name=c["name"].replace("dcnv3_", "dcnv3_local_"),
+                 kind="local", dtypes=(torch.float32,), vs=c["name"],
+                 variant=None, bwd_variant=None)
+            for c in cases]
+
+
+def local_case(name, g, dev, *, B, h, w, H, D, off_px, shift_x=0.0):
+    """A tile-local call: value (B, h·w, H, D), DCNv3's locations over an
+    h x w map from offsets of N(0, off_px) px (plus ``shift_x`` px along x),
+    weights softmaxed over the 9 taps; f32."""
+    off = torch.randn((B, h, w, H, 9, 2), generator=g, device=dev) * off_px
+    off[..., 0] += shift_x
+    attn = _softmax_attn(g, dev, (B, h * w, H * 9), 9)
+    return dict(name=name, kind="local", dtypes=(torch.float32,),
+                value=torch.randn((B, h * w, H, D), generator=g, device=dev),
+                shapes=((h, w),), loc=sampling_locations(off),
+                attn=attn.reshape(B, h * w, H, 1, 9), tile_mask=None,
+                q_tile=32)
+
+
+def local_edge_cases(dev):
+    """The tile-local entries' edges, forward and backward against plain:
+    every corner outside its tile's halo (40 px to the right: global reads
+    and adds only, some off the image), corners off the image (offsets of
+    N(0, 4) px on a 9x13 map), a 15x25 map (InternImage-S's last stage),
+    maps whose width no tile divides, and D = 4, 12 (a lane of each
+    query's four without channels) and 32."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    return [
+        local_case("edge_local_outside_halo", g, dev, B=1, h=10, w=100, H=2,
+                   D=16, off_px=0.3, shift_x=40.0),
+        local_case("edge_local_off_image", g, dev, B=1, h=9, w=13, H=3, D=8,
+                   off_px=4.0),
+        local_case("edge_local_15x25", g, dev, B=2, h=15, w=25, H=4, D=16,
+                   off_px=1.0),
+        local_case("edge_local_ragged_D12", g, dev, B=1, h=21, w=45, H=3,
+                   D=12, off_px=1.5),
+        local_case("edge_local_D4", g, dev, B=2, h=7, w=50, H=2, D=4,
+                   off_px=1.0),
+        local_case("edge_local_D32", g, dev, B=1, h=12, w=40, H=3, D=32,
+                   off_px=2.0),
+    ]
+
+
+def outside_halo(loc, shapes, tile):
+    """The share of a tile-local call's in-grid corners that fall outside
+    their query's tile's halo (``msda_cuda.local_tile_cells``: the tile of
+    ``tile`` cells grown by LOCAL_HALO a side, clipped to the map), which
+    the kernels read (and the backward adds) through global memory."""
+    (h, w), = shapes
+    B, Q, H, _, P, _ = loc.shape
+    dev = loc.device
+    q = torch.arange(Q, device=dev)
+    qy, qx = q // w, q % w
+    y0, x0 = qy // tile[0] * tile[0], qx // tile[1] * tile[1]
+    R = msda_cuda.LOCAL_HALO
+    hy0, hx0 = (y0 - R).clamp(min=0), (x0 - R).clamp(min=0)
+    hy1 = ((y0 + tile[0]).clamp(max=h) + R).clamp(max=h)
+    hx1 = ((x0 + tile[1]).clamp(max=w) + R).clamp(max=w)
+    bounds = [t[None, :, None, None] for t in (hy0, hy1, hx0, hx1)]
+    x0c = torch.floor(loc[:, :, :, 0, :, 0] * w - 0.5)
+    y0c = torch.floor(loc[:, :, :, 0, :, 1] * h - 0.5)
+    inside = outside = 0
+    for cx, cy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xx, yy = x0c + cx, y0c + cy
+        ok = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        halo = ((yy >= bounds[0]) & (yy < bounds[1]) & (xx >= bounds[2])
+                & (xx < bounds[3]))
+        inside += int((ok & halo).sum())
+        outside += int((ok & ~halo).sum())
+    return outside / max(inside + outside, 1)
 
 
 def tiny_det_cases(dev):
@@ -1616,6 +1721,12 @@ def bind(case, dtype):
         return kernel, plain, lambda out: dcn_bound(x, case["offset"], w, out)
     value = shift(case["value"].to(dtype).contiguous())
     kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
+    if kind == "local":
+        args = (value, case["shapes"], case["loc"], case["attn"])
+        return (lambda: msda_cuda.msda_fwd_local(*args),
+                lambda: ms_deform_attn_ref(*args),
+                lambda out: msda_bound(value, case["shapes"], case["loc"],
+                                       None, 32))
     if kind == "factored":
         args = (value, case["shapes"], case["ref_flat"], case["off"], case["attn"])
         Q, P = case["ref_flat"].shape[1], case["ref_flat"].shape[2] // 2
@@ -1672,6 +1783,44 @@ def bind_bwd(case, dtype, seed=0):
             ("grad_value", "grad_loc", "grad_attn"),
             BWD_REL_TOL[str(dtype).replace("torch.", "")],
             msda_bwd_variant(case, dtype))
+
+
+def bind_bwd_local(case, dtype, seed=0):
+    """msda_bwd_local against autograd through ms_deform_attn_ref, as
+    ``bind_bwd`` (f32 only; the entry has one kernel, "local")."""
+    value = case["value"].to(dtype).contiguous()
+    loc, attn, shapes = case["loc"], case["attn"], case["shapes"]
+    B, _, H, D = value.shape
+    grad_out = _grad_out((B, loc.shape[1], H * D), dtype, value.device, seed)
+
+    def kernel():
+        return msda_cuda.msda_bwd_local(value, shapes, loc, attn, grad_out)
+
+    def plain():
+        ins = [t.detach().requires_grad_() for t in (value, loc, attn)]
+        out = ms_deform_attn_ref(ins[0], shapes, ins[1], ins[2])
+        return torch.autograd.grad(out, ins, grad_out)
+
+    def bound():
+        ms, by, _ = msda_bwd_bound(value, shapes, loc, attn, None, 32)
+        return ms, by, local_design_bytes(value, shapes, msda_cuda.LOCAL_BWD_TILE)
+
+    return (kernel, plain, bound, ("grad_value", "grad_loc", "grad_attn"),
+            BWD_REL_TOL[str(dtype).replace("torch.", "")], "local")
+
+
+def local_design_bytes(value, shapes, tile):
+    """What msda_bwd_local moves besides its bound's bytes: every tile's
+    staged halo read again (the halos overlap), grad_value zero-filled, and
+    each halo row's 16-byte atomic adds (read and written) at most once a
+    tile."""
+    (h, w), = shapes
+    B, _, H, D = value.shape
+    ty, tx = msda_cuda.local_tiles(h, w, tile)
+    halo = sum((hy1 - hy0) * (hx1 - hx0) for i in range(ty) for j in range(tx)
+               for _, ((hy0, hy1), (hx0, hx1)) in [
+                   msda_cuda.local_tile_cells(h, w, tile, i, j)])
+    return B * H * D * 4 * (halo * 3 + h * w)
 
 
 def msda_bwd_variant(case, dtype):
@@ -1845,15 +1994,45 @@ def dcn_bwd_bound(x, offset, weight, grad_out):
 
 
 BWD_BINDERS = {"msda": bind_bwd, "factored": bind_bwd_factored,
-               "dcn": bind_dcn_bwd}
+               "dcn": bind_dcn_bwd, "local": bind_bwd_local}
 
 
 def bwd_entry(case):
+    if case["kind"] == "local":
+        return "msda_bwd_local"
     if case["kind"] == "dcn":
         return "dcn_bwd"
     if case["kind"] == "factored":
         return "msda_bwd_factored"
     return "msda_bwd_masked" if case["tile_mask"] is not None else "msda_bwd"
+
+
+def ran_variants(entry, before, after):
+    """The variants of ``entry`` that launched between two
+    ``read_launch_counts`` readings; "local" for a tile-local entry (one
+    kernel each)."""
+    if entry.endswith("_local"):
+        return ["local"] * (after[entry] - before[entry])
+    return [k.split(".", 1)[1] for k, v in after.items()
+            if "." in k and k.startswith(entry + ".") and v > before[k]]
+
+
+def local_columns(row, case, rows):
+    """A tile-local row's share of its bound, the share of its in-grid
+    corners outside their tile's halo, and the same call's time on the
+    vector forward or the gather backward (the row of its case ``vs``)."""
+    row["share"] = row["bound_ms"] / row["ms"]
+    bwd = row["case"].endswith("_bwd")
+    tile = msda_cuda.LOCAL_BWD_TILE if bwd else msda_cuda.LOCAL_FWD_TILE
+    row["outside_halo"] = outside_halo(case["loc"], case["shapes"], tile)
+    vs = case.get("vs")
+    if vs is not None:
+        vs = vs + ("_bwd" if bwd else "")
+        other = next(r for r in rows if r["case"] == vs
+                     and r["dtype"] == row["dtype"])
+        row["vs_case"], row["vs_variant"] = vs, other.get("variant")
+        row["vs_ms"] = other["ms"]
+        row["faster_than_vs"] = row["ms"] < other["ms"]
 
 
 def bwd_rows(dev, cases):
@@ -1865,16 +2044,15 @@ def bwd_rows(dev, cases):
     autograd's eager time and the bound."""
     rows = []
     for case in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in case.get("dtypes", (torch.float32, torch.bfloat16)):
             dname = str(dtype).replace("torch.", "")
             kernel, plain, bound, names, tol, expect = BWD_BINDERS[case["kind"]](
                 case, dtype)
             entry = bwd_entry(case)
-            before = variant_counts()
+            before = read_launch_counts()
             got = kernel()
             torch.cuda.synchronize()
-            ran = [k.split(".", 1)[1] for k, v in variant_counts().items()
-                   if v > before[k] and k.startswith(entry + ".")]
+            ran = ran_variants(entry, before, read_launch_counts())
             want = plain()
             row = dict(case=case["name"] + "_bwd", dtype=dname,
                        variant=ran[0] if ran else None, entry=entry)
@@ -1896,13 +2074,18 @@ def bwd_rows(dev, cases):
                 row["plain_ms"] = time_ms(plain, warmup=1, iters=3)
                 row["call_ms"] = time_ms(kernel, warmup=3, iters=20)
                 row["bound_ms"], row["bound_by"], row["design_bytes"] = bound()
-                if case["kind"] == "msda":
+                if case["kind"] in ("msda", "local"):
                     row["corners_per_row"] = corner_list_lengths(
                         case["value"], case["shapes"], case["loc"],
                         case["tile_mask"], case["q_tile"])
                 if case.get("tile_mask") is not None:
                     row["active_tiles"] = int(case["tile_mask"].sum())
                     row["tiles"] = int(case["tile_mask"].numel())
+                if case["kind"] == "local":
+                    local_columns(row, case, rows)
+            elif case["kind"] == "local":
+                row["outside_halo"] = outside_halo(
+                    case["loc"], case["shapes"], msda_cuda.LOCAL_BWD_TILE)
             rows.append(row)
             emit({"phase": "kernels", **row})
             if not ok:
@@ -1947,26 +2130,29 @@ def fwd_rows(cases):
     the bound."""
     rows, outs = [], {}
     for case in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in case.get("dtypes", (torch.float32, torch.bfloat16)):
             dname = str(dtype).replace("torch.", "")
             kernel, plain, bound = bind(case, dtype)
-            before = variant_counts()
+            entry = {"dcn": "dcn_fwd", "factored": "msda_fwd_factored",
+                     "local": "msda_fwd_local"}.get(
+                case["kind"], "msda_fwd" if case.get("tile_mask") is None
+                else "msda_fwd_masked")
+            before = read_launch_counts()
             got = kernel()
             torch.cuda.synchronize()
-            ran = [k.split(".")[1] for k, v in variant_counts().items()
-                   if v > before[k]]
+            ran = ran_variants(entry, before, read_launch_counts())
             want = plain()
             err = float((got.float() - want.float()).abs().max())
             finite = bool(torch.isfinite(got).all())
-            entry = {"dcn": "dcn_fwd", "factored": "msda_fwd_factored"}.get(
-                case["kind"], "msda_fwd" if case.get("tile_mask") is None
-                else "msda_fwd_masked")
             row = dict(case=case["name"], dtype=dname, entry=entry,
                        max_abs_err=err, tol=TOL[dname], finite=finite,
                        max_abs_out=float(want.float().abs().max()))
             if ran:
                 row["variant"] = ran[0]
-            ok = finite and err <= TOL[dname]
+            ok = finite and err <= TOL[dname] and len(ran) == 1
+            if case["kind"] == "local" and case["name"].startswith("edge"):
+                row["outside_halo"] = outside_halo(
+                    case["loc"], case["shapes"], msda_cuda.LOCAL_FWD_TILE)
             if case.get("variant") and ran != [case["variant"][dname]]:
                 ok = False  # the case exists to reach this variant
             if "same_as" in case:
@@ -1980,7 +2166,7 @@ def fwd_rows(cases):
                 # as the main path makes it; plain_ms: see bind()
                 row["ms"] = graph_time_ms(kernel)
                 row["plain_ms"] = (graph_time_ms(plain, iters=5)
-                                   if case["kind"] == "msda"
+                                   if case["kind"] in ("msda", "local")
                                    else time_ms(plain, warmup=1, iters=3))
                 row["call_ms"] = time_ms(kernel, warmup=3, iters=20)
                 row["bound_ms"], row["bound_by"] = bound(got)
@@ -1993,6 +2179,8 @@ def fwd_rows(cases):
                     row["grid_sample_ms"] = grid_sample_ms(case, dtype)
                 if case["name"] == "sca_base_factored":
                     outs[(case["name"], dname)] = got
+                if case["kind"] == "local":
+                    local_columns(row, case, rows)
             rows.append(row)
             emit({"phase": "kernels", **row})
             if not ok:
@@ -2002,8 +2190,10 @@ def fwd_rows(cases):
 
 
 def phase_kernels(dev):
+    dcnv3 = dcnv3_cases(dev)
     rows = fwd_rows(flagship_cases(dev) + occ_cases(dev) + [occ_tsa_cases(dev)[1]]
-                    + mapv2_cases(dev) + dcnv3_cases(dev) + tiny_det_cases(dev)
+                    + mapv2_cases(dev) + dcnv3 + dcnv3_local_cases(dcnv3)
+                    + local_edge_cases(dev) + tiny_det_cases(dev)
                     + voxel_cases(dev) + voxel_base_cases(dev)
                     + base_msda_cases(dev) + msda_edge_cases(dev)
                     + factored_edge_cases(dev) + dcn_cases(dev))
@@ -2011,7 +2201,8 @@ def phase_kernels(dev):
     base = [c for c in base_msda_cases(dev) if c["name"] != "sca_base_materialized"]
     rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev)
                      + list(occ_tsa_cases(dev)) + mapv2_cases(dev)
-                     + dcnv3_cases(dev) + tiny_det_cases(dev)
+                     + dcnv3 + dcnv3_local_cases(dcnv3) + local_edge_cases(dev)
+                     + tiny_det_cases(dev)
                      + voxel_cases(dev) + voxel_base_cases(dev) + base
                      + base_factored_bwd_cases(next(
                          c for c in base if c["name"] == "sca_base_factored"))
@@ -2356,8 +2547,9 @@ def occ_bf16_vs_f32(phase, cfg, model, model32, dev, frames):
 def phase_stream_model(dev, cfg, phase, n_fps=20, f32=True):
     """A det, det+occ, MapTRv2, voxel or hybrid model at full width
     through the streaming runner: TSA per encoder layer, cross-attention per
-    det (and map) decoder layer and, with InternImage, DCNv3 per trunk
-    block on the plain entry, SCA per encoder layer on the masked one, plus
+    det (and map) decoder layer on the plain entry (with InternImage, DCNv3
+    per trunk block on the tile-local one), SCA per encoder layer on the
+    masked one, plus
     one TSA and one SCA with the refinement pass (``occ_tsa``), all on the
     vector variants (a voxel or hybrid head: ``voxel_family_launches``,
     with R101's DCN);
@@ -2502,7 +2694,8 @@ def phase_base_occ(dev, cfg=None, phase="base_occ", train=True,
     plain: 6 TSA and 6 det decoder, plus 33 DCNv3 with InternImage-S; 6
     factored; 26 DCN with R101-DCN; vector), finite outputs, its f32 frame
     with history against the same frame under ``ops.plain_versions()``,
-    bf16 frames/s and a profile; then, with ``train``, its train step
+    bf16 frames/s and a profile (InternImage-S's 33 DCNv3 calls on the
+    tile-local entry); then, with ``train``, its train step
     (``phase_train`` as ``train_phase``, by default ``phase`` + "_train"):
     3 bf16 steps with exact launch counts, steps/s, peak memory and a
     profile, and with ``cmp_sizes`` the f32 step against plain versions at
@@ -2514,11 +2707,12 @@ def phase_base_occ(dev, cfg=None, phase="base_occ", train=True,
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
     model = new_model(cfg, dev)
-    n_plain = m.encoder_layers + m.decoder_layers + dcnv3_blocks(cfg)
+    n_plain = m.encoder_layers + m.decoder_layers
     n_dcn = dcn_blocks(cfg)
     stream = drive(phase, cfg, model, frames, {
         **dict.fromkeys(read_launch_counts(), 0),
         "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
+        "msda_fwd_local": dcnv3_blocks(cfg),
         "msda_fwd_factored": m.encoder_layers,
         "msda_fwd_factored.vector": m.encoder_layers,
         "dcn_fwd": n_dcn, "dcn_fwd.vector": n_dcn})
@@ -2561,8 +2755,8 @@ def dcn_blocks(cfg) -> int:
 
 
 def dcnv3_blocks(cfg) -> int:
-    """DCNv3 calls a frame runs on the plain MSDA entry: one a block of
-    InternImage-S (4 + 4 + 21 + 4), none in the other trunks."""
+    """DCNv3 calls a frame runs on the tile-local MSDA entry: one a block
+    of InternImage-S (4 + 4 + 21 + 4), none in the other trunks."""
     if cfg.model.backbone_type != "internimage":
         return 0
     return sum(internimage.DEPTHS)
@@ -2592,7 +2786,8 @@ def voxel_family_launches(cfg, train: bool) -> dict:
     not derived from the wrappers' rules: the hybrids' D = 2 stage, whose
     SCA reads the cameras' single stride-32 map (``voxel_sca_case``), runs
     the narrow forward and msda_bwd's private plan, every other width
-    (D = 4-32) the vector forward and the gather plan."""
+    (D = 4-32) the vector forward and the gather plan; InternImage-S's
+    DCNv3 (f32) the tile-local entries."""
     m = cfg.model
     T = m.queue_length if train else 1
     enc, dec = head_widths(cfg)
@@ -2605,12 +2800,12 @@ def voxel_family_launches(cfg, train: bool) -> dict:
 
     for D in enc * T + dec:
         add("msda_fwd", "narrow" if D == 2 else "vector", 1)
-    add("msda_fwd", "vector", T * n_v3)
+    out["msda_fwd_local"] = T * n_v3
     add("dcn_fwd", "vector", T * n_dcn)
     if train:
         for D in enc + dec:
             add("msda_bwd", "private" if D == 2 else "gather", 1)
-        add("msda_bwd", "gather", n_v3)
+        out["msda_bwd_local"] = n_v3
         add("dcn_bwd", "quad", n_dcn)
     return out
 
@@ -2631,8 +2826,10 @@ def train_launches_per_step(cfg) -> dict:
     one TSA and one SCA on the supervised frame, forward and backward.
     MapTRv2's decoupled map layers make one cross-attention call each, as
     MapTR v1's do, over all 350 vectors in training. InternImage-S's 33
-    DCNv3 blocks run the plain entry in each frame and its backward on the
-    supervised one. Voxel and hybrid models: ``voxel_family_launches``."""
+    DCNv3 blocks run the tile-local entry in each frame (f32, as every
+    config runs them) and its backward on the supervised one, and nothing
+    on the plain entry. Voxel and hybrid models:
+    ``voxel_family_launches``."""
     m = cfg.model
     if m.head_family != "bev":
         return voxel_family_launches(cfg, train=True)
@@ -2643,13 +2840,14 @@ def train_launches_per_step(cfg) -> dict:
     sca_fwd = "msda_fwd_factored" if multi else "msda_fwd_masked"
     sca_bwd = "msda_bwd_factored" if multi else "msda_bwd_masked"
     n_dcn = dcn_blocks(cfg)
-    n = {"msda_fwd": T * (E + n_v3) + R + dec, sca_fwd: T * E + R,
-         "msda_bwd": E + n_v3 + R + dec, sca_bwd: E + R, "dcn_fwd": T * n_dcn,
+    n = {"msda_fwd": T * E + R + dec, sca_fwd: T * E + R,
+         "msda_bwd": E + R + dec, sca_bwd: E + R, "dcn_fwd": T * n_dcn,
          "dcn_bwd": n_dcn}
     out = dict.fromkeys(read_launch_counts(), 0)
     out.update({k: v for k, v in n.items() if v})
     out.update({f"{k}.{MAIN_PATH_VARIANT.get(k, 'vector')}": v
                 for k, v in n.items() if v})
+    out.update(msda_fwd_local=T * n_v3, msda_bwd_local=n_v3)
     return out
 
 
@@ -3411,16 +3609,18 @@ def fake_dla34_checkpoint(path, seed: int = 0) -> dict:
 
 
 def stream_launches_per_frame(cfg) -> dict:
-    """Launches of one served frame of a BEV-head model: TSA, the det (and
-    map) decoder layers and InternImage's DCNv3 blocks on the plain entry,
-    SCA (and the refinement pass's) on the masked one, all vector."""
+    """Launches of one served frame of a BEV-head model: TSA and the det
+    (and map) decoder layers on the plain entry, SCA (and the refinement
+    pass's) on the masked one, all vector; InternImage's 33 DCNv3 blocks on
+    the tile-local entry, none on the plain one."""
     m = cfg.model
     n_sca = m.encoder_layers + occ_tsa_layers(cfg)
-    n_plain = (n_sca + dcnv3_blocks(cfg) + m.decoder_layers
+    n_plain = (n_sca + m.decoder_layers
                + (m.map_decoder_layers if m.with_map else 0))
     return {**dict.fromkeys(read_launch_counts(), 0),
             "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
-            "msda_fwd_masked": n_sca, "msda_fwd_masked.vector": n_sca}
+            "msda_fwd_masked": n_sca, "msda_fwd_masked.vector": n_sca,
+            "msda_fwd_local": dcnv3_blocks(cfg)}
 
 
 CLI_QUEUE_SAMPLES, CLI_EVAL_PASSES = 2, 4
@@ -4440,14 +4640,15 @@ def phase_converters(dev):
 
 def kernels_line(rows, launches_by_path):
     """One entry per kernel entry point. Times are per-frame (per train
-    step for the backward) sums, in bf16 (the configured dtype), of the
-    entry's calls in one frame or step named by ``frame`` (FRAME_CALLS);
-    ``launches`` sums the main paths' runs, ``launches_by_path`` splits
-    them."""
+    step for the backward) sums, in bf16 (the configured dtype; f32 for the
+    entries of ENTRY_DTYPE), of the entry's calls in one frame or step
+    named by ``frame`` (FRAME_CALLS); ``launches`` sums the main paths'
+    runs, ``launches_by_path`` splits them."""
     out = []
     for name, (frame, mix) in FRAME_CALLS.items():
         sel = [r for r in rows if r["case"] in mix]
-        bf = [r for r in sel if r["dtype"] == "bfloat16"]
+        dtype = ENTRY_DTYPE.get(name, "bfloat16")
+        bf = [r for r in sel if r["dtype"] == dtype]
         by_path = {p: c[name] for p, c in launches_by_path.items()}
         by_variant = {k.split(".")[1]: sum(c[k] for c in launches_by_path.values())
                       for k in variant_counts() if k.startswith(name + ".")}
@@ -4469,8 +4670,9 @@ def kernels_line(rows, launches_by_path):
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "share": r["bound_ms"] / r["ms"]}
             for r in rows if r.get("entry") == name and "ms" in r
-            and r["dtype"] == "bfloat16"]
+            and r["dtype"] == dtype]
         entry["library_ms"] = None
+        entry["dtype"] = dtype
         entry["frame"] = frame
         entry["per_frame_calls"] = mix
         if by_variant:

@@ -32,6 +32,7 @@ from apollo_vision_net_tpu_torch.configs import (
     hybrid_tiny_occ,
     hybrid_tiny_occ_intern_s,
 )
+from apollo_vision_net_tpu_torch.configs import bev_base_occ_intern_s, bev_tiny_occ_intern_s
 from apollo_vision_net_tpu_torch.ops import dcn_cuda, msda_cuda
 
 CSRC = Path(msda_cuda.__file__).resolve().parent.parent / "csrc"
@@ -180,6 +181,24 @@ def test_chip_smoke_expects_the_new_variants_on_the_main_paths():
     for config in (bev_base_det_map, bev_tiny_det_map_apollo):
         n = chip_smoke.train_launches_per_step(config())
         assert n["msda_fwd.narrow"] == n["msda_bwd.private"] == 0
+    # InternImage-S's 33 DCNv3 calls, stated: 33 local forwards a frame and
+    # none on the vector forward; 99 local forwards and 33 local backwards a
+    # step, msda_bwd's gather plan 33 launches fewer than before the local
+    # entry (42 + 3 -> 9 + 3 at bev_tiny_occ_intern_s)
+    frame = chip_smoke.stream_launches_per_frame(bev_tiny_occ_intern_s())
+    assert (frame["msda_fwd_local"], frame["msda_fwd"],
+            frame["msda_fwd.vector"], frame["msda_fwd_masked"]) == (33, 9, 9, 3)
+    for config, gather in ((bev_tiny_occ_intern_s, 9), (bev_base_occ_intern_s, 12),
+                           (hybrid_tiny_occ_intern_s, 11)):
+        step = chip_smoke.train_launches_per_step(config())
+        assert (step["msda_fwd_local"], step["msda_bwd_local"]) == (99, 33)
+        assert step["msda_bwd"] == step["msda_bwd.gather"] + step[
+            "msda_bwd.private"] == gather + step["msda_bwd.private"]
+    hy = chip_smoke.voxel_family_launches(hybrid_tiny_occ_intern_s(), train=False)
+    assert hy["msda_fwd_local"] == 33 and hy["msda_fwd"] == 12
+    for config in (bev_base_det_map, bev_tiny_det_map_apollo, hybrid_tiny_occ):
+        n = chip_smoke.train_launches_per_step(config())
+        assert n["msda_fwd_local"] == n["msda_bwd_local"] == 0
     assert chip_smoke.factored_bwd_variant(
         32, False, fpn_shapes(bev_base_det_map()), 8) == "privatized"
     # D = 4 G (G = 1, 2, 4, 8) takes the privatizing kernel, other head

@@ -40,6 +40,8 @@ def test_every_entry_point_has_a_wrapper_signature():
     ("msda_fwd.cu", "msda_fwd_factored"),
     ("msda_bwd.cu", "msda_bwd"),
     ("msda_bwd.cu", "msda_bwd_factored"),
+    ("msda_fwd.cu", "msda_fwd_local"),
+    ("msda_bwd.cu", "msda_bwd_local"),
     ("dcn_fwd.cu", "dcn_fwd"),
     ("dcn_fwd.cu", "dcn_bwd_im2col"),
     ("dcn_fwd.cu", "dcn_bwd_col2im"),
@@ -61,7 +63,8 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
     (the plain/masked MSDA forward's vector and narrow kernels, the
     factored MSDA forward, the plain/masked MSDA backward's vector, gather
     and private kernels, the factored MSDA backward's privatizing kernel,
-    the DCN backward's quad d-input kernel) has a stack frame or spills, or
+    the DCN backward's quad d-input kernel, the tile-local MSDA forward and
+    backward) has a stack frame or spills, or
     is missing from the report; it reads them per kernel from the report,
     anonymous-namespace kernels included."""
     import chip_smoke
@@ -103,11 +106,19 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 123 registers, used 0 barriers",
         "ptxas info    : Function properties for "
+        "_Z17msda_local_kernelILi4EEvPKfS1_S1_Pfiiiiiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        "ptxas info    : Function properties for "
+        "_Z21msda_bwd_local_kernelILi8EEvPKfS1_S1_S1_PfS2_S2_iiiiiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers",
+        "ptxas info    : Function properties for "
         "_ZN12_GLOBAL__N_114dcn_fwd_kernelIfLi64ELi256ELb1EEEvPKT_",
         "    8 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
     ])
-    (fac, vec, priv, bvec, gather, narrow, private, quad,
+    (fac, vec, priv, bvec, gather, narrow, private, quad, local, blocal,
      dcn) = chip_smoke.ptxas_kernels(report)
     assert (fac["kernel"], fac["registers"], fac["smem_bytes"],
             fac["stack_bytes"], fac["spill_stores"]) == (
@@ -126,9 +137,13 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "msda_bwd_private_kernel", 48, 0)
     assert (quad["kernel"], quad["registers"], quad["spill_loads"]) == (
         "dcn_dinput_kernel", 123, 0)
+    assert (local["kernel"], local["registers"], local["stack_bytes"]) == (
+        "msda_local_kernel", 40, 0)
+    assert (blocal["kernel"], blocal["registers"], blocal["spill_stores"]) == (
+        "msda_bwd_local_kernel", 72, 0)
     assert (dcn["kernel"], dcn["stack_bytes"], dcn["spill_loads"]) == (
         "dcn_fwd_kernel", 8, 32)
-    clean = [fac, vec, priv, bvec, gather, narrow, private, quad]
+    clean = [fac, vec, priv, bvec, gather, narrow, private, quad, local, blocal]
     assert set(chip_smoke.VECTOR_KERNELS) == {k["kernel"] for k in clean}
     chip_smoke.check_vector_kernels([*clean, dcn])
     for k in clean:
