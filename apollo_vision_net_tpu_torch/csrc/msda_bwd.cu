@@ -1,10 +1,12 @@
 // Multi-scale deformable attention backward for Hopper (sm_90a).
 //
-// Three entries: msda_bwd, the gradient of the plain and masked MSDA entry
+// Four entries: msda_bwd, the gradient of the plain and masked MSDA entry
 // (msda_fwd in msda_fwd.cu) with respect to value, the sampling locations
 // and the attention weights; msda_bwd_factored, the gradient of the
-// factored entry (msda_fwd_factored), described at its section below; and
-// msda_bwd_local, the gradient of the tile-local entry (msda_fwd_local). In
+// factored entry (msda_fwd_factored), described at its section below;
+// msda_bwd_local, the gradient of the tile-local entry (msda_fwd_local);
+// and msda_bwd_resident, the gradient of the map-resident entry
+// (msda_fwd_resident). In
 // the JAX package the backward of every MSDA Pallas kernel is the XLA VJP
 // of ms_deform_attn_xla (apollo_vision_net_tpu/ops/msda_pallas.py
 // :1468-1484, :1521-1537, :1586-1606); these kernels compute the same
@@ -151,6 +153,42 @@
 //   SM), of 1 cell 0.5018; tiles of 4 x 32 or 8 x 32 0.6285 / 0.9261. The
 //   row sums read a grad_out row from shared memory a corner: ~1
 //   wavefront a corner, ~0.12 ms at stage 0 at 128 bytes a clock an SM.
+// Design of the map-resident entry, msda_bwd_resident
+// (msda_bwd_resident_items_kernel<D> at D = 16, 32,
+// msda_bwd_resident_samples_kernel<D> at D = 4, 8; f32, L = 1, a head's
+// map within kResidentMapBytes, with or without a tile mask): the gradient
+// of msda_fwd_resident. It replaces _bwd (msda_pallas.py:1468, the XLA
+// VJP) at the f32 single-level SCA over the cameras' 15 x 25 map. What
+// bounds it: bytes, the loc, attn and grad_out stream and the grad_loc and
+// grad_attn writes (voxel_base: 0.1848 ms). The gather plan walked each
+// row's list, 645 corners on average and 2,415 at most there, as a chain
+// of dependent loads, after pushing every corner onto it with a global
+// atomicExch. Here:
+//   1. A block stages a head group's whole map as the forward does and
+//      takes every blocks_per_pair-th tile of its pair; every corner row is
+//      read from shared memory.
+//   2. D = 16, 32: G = D / 4 lanes an item, as the forward: the item's
+//      grad_out row read once, 4 channels a lane; the group walks its
+//      samples with a corner in the grid, the four partial dot products
+//      summed over the group (log2 G shuffles each), the owner lane keeps
+//      its sample's and stores d loc and d attn (sample_grad). D = 4, 8: G
+//      lanes a sample (32 or 16 samples a warp in flight), every lane
+//      forming the sample's corners.
+//   3. grad_value: each corner in the grid of nonzero weight adds weight x
+//      grad_out to its row of the f32 grad_value (zero-filled first) by a
+//      16-byte atomic a lane, the group's G adds one contiguous row, in an
+//      order that varies from run to run. Other designs, built from edited
+//      copies of this source and timed beside it outside the tree (no
+//      script here reruns them; f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+//      §6): a block-local counting sort of a chunk's corners by map row,
+//      one add a row and chunk, ran 1.26 ms at voxel_base's SCA (1.85 with
+//      the chunks dealt round the blocks); shared f32 atomics into a
+//      private copy of the map, flushed once a block, 2.83 in this lane
+//      layout and 3.56 in the chunked one (a compare-and-swap loop a
+//      channel on sm_90); per-corner adds by a thread a sample, the
+//      atomics scattered over rows, 1.60; these coalesced adds 0.81-0.95
+//      (chip_smoke.py: 0.8484-0.8747, gather 2.16-2.17, bound 0.1848).
+//   4. A masked tile's items read nothing and get zero d loc and d attn.
 // The general kernel (any D or alignment; msda_bwd_scalar_kernel): one
 // warp per item, lane s forming sample s; the warp walks the samples, the
 // lanes the channels of each corner row (chunks of 32), each row's load
@@ -1915,5 +1953,389 @@ extern "C" int msda_bwd_local(const float* value, const float* loc,
   kernel<<<(unsigned)blocks, kLocalThreads, smem, s>>>(
       value, loc, attn, grad_out, grad_value, grad_loc, grad_attn, h, w, H, P,
       tiles_y, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------- resident entry
+
+// The shared memory of the map-resident backward kernels: the head
+// group's map and a row of zeros (ops/msda_cuda.py resident_smem mirrors
+// it).
+static inline int resident_bwd_smem(int V, int Hb, int D) {
+  return (V * Hb + 1) * D * 4;
+}
+
+// The map-resident backward at D = 16 and 32 (design notes in the header):
+// a block stages its head group's whole map and takes tiles of its (batch
+// element, head group) pair as the forward does, G = D / 4 lanes an item,
+// 4 channels a lane. The lanes read the item's grad_out row once; lane `sub` forms the
+// corners of samples p0 + sub, and the group walks those with a corner in
+// the grid: each lane reads its 4 channels of the four rows, the four
+// partial dot products are summed over the group (log2 G shuffles each),
+// the sample's owner keeps them, and each lane adds weight x its grad_out
+// channels to each corner's row of the f32 grad_value by one 16-byte
+// atomic, the group's G atomics one contiguous row. The owner then stores
+// the sample's d loc and d attn.
+template <int D>
+__global__ void __launch_bounds__(kResidentThreads)
+msda_bwd_resident_items_kernel(const float* __restrict__ value,
+                         const float* __restrict__ loc,
+                         const float* __restrict__ attn,
+                         const int* __restrict__ tile_mask,
+                         const float* __restrict__ grad_out,
+                         float* __restrict__ grad_value,
+                         float* __restrict__ grad_loc,
+                         float* __restrict__ grad_attn, int h, int w, int H,
+                         int Hb, int Q, int P, int blocks_per_pair,
+                         int q_tile, int n_tiles) {
+  constexpr int G = D / 4;
+  static_assert(G >= kResidentBallotLanes, "a group walks its item alone");
+  constexpr int QW = 32 / G;  // items a warp takes at once
+  constexpr int TILE = kResidentThreads / G;
+  extern __shared__ __align__(16) float res_smem[];
+  const int V = h * w, NR = V * Hb;
+  float* map = res_smem;  // (NR + 1) x D: row NR zeros
+  const int pair = blockIdx.x / blocks_per_pair;
+  const int first = (blockIdx.x - pair * blocks_per_pair) * TILE;
+  const int stride = blocks_per_pair * TILE, n_items = Q * Hb;
+  const int groups = H / Hb;
+  const int b = pair / groups, h0 = (pair - b * groups) * Hb;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / G, sub = lane % G;
+  const float2* loc2 = reinterpret_cast<const float2*>(loc);
+  float2* gloc2 = reinterpret_cast<float2*>(grad_loc);
+  auto item_of = [&](int it, int64_t& row, bool& on) {
+    const int q = it / Hb;
+    row = ((int64_t)b * Q + q) * H + h0 + it - q * Hb;
+    on = it < n_items && (tile_mask == nullptr ||
+                          __ldg(tile_mask + b * n_tiles + q / q_tile) != 0);
+  };
+  int64_t row;
+  bool on;
+  float2 nxy = make_float2(0.f, 0.f);
+  float na = 0.f;
+  item_of(first + warp * QW + grp, row, on);
+  if (on && sub < P) {
+    nxy = __ldg(loc2 + row * P + sub);
+    na = __ldg(attn + row * P + sub);
+  }
+  stage_resident_map(map, value + ((int64_t)b * V * H + h0) * D, V, H, Hb, D);
+  cp_async_commit_group();
+  for (int i = threadIdx.x; i < D; i += blockDim.x) map[NR * D + i] = 0.f;
+  cp_async_wait_group<0>();
+  __syncthreads();
+
+  const float fw = (float)w, fh = (float)h;
+  const unsigned gmask = resident_group_mask<G>(grp);
+  for (int t0 = first; t0 < n_items; t0 += stride) {
+    const int it = t0 + warp * QW + grp;
+    const int64_t item = row;
+    const bool live = it < n_items, cur_on = on;
+    const float2 cxy = nxy;
+    const float ca = na;
+    // the next tile's first samples, in flight during this one
+    item_of(it + stride, row, on);
+    if (on && sub < P) {
+      nxy = __ldg(loc2 + row * P + sub);
+      na = __ldg(attn + row * P + sub);
+    }
+    if (!live) continue;
+    if (!cur_on) {  // a masked tile's item: zero d loc and d attn
+      for (int p = sub; p < P; p += G) {
+        gloc2[item * P + p] = make_float2(0.f, 0.f);
+        grad_attn[item * P + p] = 0.f;
+      }
+      continue;
+    }
+    const int hl = it % Hb;
+    const float4 g4 =
+        __ldg(reinterpret_cast<const float4*>(grad_out + item * D + sub * 4));
+    // the item's head's channels of cell 0 in grad_value
+    float* gv = grad_value + ((int64_t)b * V * H + h0 + hl) * D + sub * 4;
+    for (int p0 = 0; p0 < P; p0 += G) {
+      const int p = p0 + sub;
+      float2 xy = cxy;
+      float a = ca;
+      SamplePos sp = {0, 0, 0.f, 0.f};
+      int code[4] = {NR, NR, NR, NR};
+      float wt[4] = {0.f, 0.f, 0.f, 0.f};
+      if (p < P) {
+        if (p0 > 0) {
+          xy = __ldg(loc2 + item * P + p);
+          a = __ldg(attn + item * P + p);
+        }
+        sp = sample_pos(fw, fh, xy.x, xy.y);
+        resident_corners(sp, h, w, Hb, hl, NR, code, wt);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) wt[k] = __fmul_rn(wt[k], a);
+      }
+      float mine[4] = {0.f, 0.f, 0.f, 0.f};  // this lane's sample's dots
+      // the group's samples with a corner in the grid, one at a time
+      unsigned todo = __ballot_sync(gmask, code[0] != NR || code[1] != NR ||
+                                               code[2] != NR || code[3] != NR) >>
+                      (grp * G);
+      while (todo) {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        int c[4];
+        float wk[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          c[k] = __shfl_sync(gmask, code[k], grp * G + j);
+          wk[k] = __shfl_sync(gmask, wt[k], grp * G + j);
+        }
+        float4 v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // the four loads in flight
+          v[k] = *reinterpret_cast<const float4*>(map + c[k] * D + sub * 4);
+        }
+        float pd[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          pd[k] = g4.x * v[k].x + g4.y * v[k].y + g4.z * v[k].z + g4.w * v[k].w;
+        }
+#pragma unroll
+        for (int m = 1; m < G; m <<= 1) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) pd[k] += __shfl_xor_sync(gmask, pd[k], m);
+        }
+        if (j == sub) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) mine[k] = pd[k];
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (c[k] != NR && wk[k] != 0.f) {
+            atomicAdd(reinterpret_cast<float4*>(gv + (int64_t)(c[k] / Hb) * H * D),
+                      make_float4(wk[k] * g4.x, wk[k] * g4.y, wk[k] * g4.z,
+                                  wk[k] * g4.w));
+          }
+        }
+      }
+      if (p < P) {
+        // a corner outside the grid has dot 0 (the zero row), so its term
+        // vanishes whatever its flag and weight
+        Bilinear4 bl;
+        bl.fx = sp.fx;
+        bl.fy = sp.fy;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          bl.idx[k] = 0;
+          bl.cw[k] = corner_cw(k, sp.fx, sp.fy);
+        }
+        const SampleGrad sg = sample_grad(bl, mine, a, fw, fh);
+        gloc2[item * P + p] = make_float2(sg.lx, sg.ly);
+        grad_attn[item * P + p] = sg.attn;
+      }
+    }
+  }
+}
+
+// The map-resident backward at D = 4 and 8 (design notes in the header): a
+// block stages its head group's whole map, then takes tiles of 8 x 32 / G
+// samples of its (batch element, head group) pair, every
+// blocks_per_pair-th tile, G = D / 4 lanes a sample and 4 channels a lane. The group's lanes all form the
+// sample's corners (no shuffle passes them round), read their 4 channels
+// of the item's grad_out row and of the four corner rows, sum the four
+// partial dot products over the group (log2 G shuffles each) and add
+// weight x their grad_out channels to each corner's row of the f32
+// grad_value by one 16-byte atomic, the group's G atomics one contiguous
+// row. The group's first lane stores the sample's d loc and d attn. The
+// next tile's sample is loaded while the group works on this one.
+template <int D>
+__global__ void __launch_bounds__(kResidentThreads)
+msda_bwd_resident_samples_kernel(const float* __restrict__ value,
+                         const float* __restrict__ loc,
+                         const float* __restrict__ attn,
+                         const int* __restrict__ tile_mask,
+                         const float* __restrict__ grad_out,
+                         float* __restrict__ grad_value,
+                         float* __restrict__ grad_loc,
+                         float* __restrict__ grad_attn, int h, int w, int H,
+                         int Hb, int Q, int P, int blocks_per_pair,
+                         int q_tile, int n_tiles) {
+  constexpr int G = D / 4;
+  static_assert(G < kResidentBallotLanes, "the warp's groups walk in step");
+  constexpr int SW = 32 / G;  // samples a warp takes at once
+  constexpr int TILE = kResidentThreads / G;
+  extern __shared__ __align__(16) float res_smem[];
+  const int V = h * w, NR = V * Hb;
+  float* map = res_smem;  // (NR + 1) x D: row NR zeros
+  const int pair = blockIdx.x / blocks_per_pair;
+  const int first = (blockIdx.x - pair * blocks_per_pair) * TILE;
+  const int stride = blocks_per_pair * TILE, n_samples = Q * Hb * P;
+  const int groups = H / Hb;
+  const int b = pair / groups, h0 = (pair - b * groups) * Hb;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / G, sub = lane % G;
+  const float2* loc2 = reinterpret_cast<const float2*>(loc);
+  float2* gloc2 = reinterpret_cast<float2*>(grad_loc);
+  // sample s: its item's row of grad_out (the item's (b, q, h) index), its
+  // element of loc and attn, its head in the group, and whether it is live
+  // and its tile active
+  struct Sample {
+    int64_t row, at;
+    int hl;
+    bool live, on;
+  };
+  auto sample_of = [&](int s) {
+    Sample t;
+    const int it = s / P, q = it / Hb;
+    t.hl = it - q * Hb;
+    t.row = ((int64_t)b * Q + q) * H + h0 + t.hl;
+    t.at = t.row * P + s - it * P;
+    t.live = s < n_samples;
+    t.on = t.live && (tile_mask == nullptr ||
+                      __ldg(tile_mask + b * n_tiles + q / q_tile) != 0);
+    return t;
+  };
+  Sample nxt = sample_of(first + warp * SW + grp);
+  float2 nxy = make_float2(0.f, 0.f);
+  float na = 0.f;
+  if (nxt.on) {
+    nxy = __ldg(loc2 + nxt.at);
+    na = __ldg(attn + nxt.at);
+  }
+  stage_resident_map(map, value + ((int64_t)b * V * H + h0) * D, V, H, Hb, D);
+  cp_async_commit_group();
+  for (int i = threadIdx.x; i < D; i += blockDim.x) map[NR * D + i] = 0.f;
+  cp_async_wait_group<0>();
+  __syncthreads();
+
+  const float fw = (float)w, fh = (float)h;
+  for (int t0 = first; t0 < n_samples; t0 += stride) {
+    const Sample cur = nxt;
+    const float2 xy = nxy;
+    const float a = na;
+    // the next tile's sample, in flight during this one
+    nxt = sample_of(t0 + stride + warp * SW + grp);
+    if (nxt.on) {
+      nxy = __ldg(loc2 + nxt.at);
+      na = __ldg(attn + nxt.at);
+    }
+    SamplePos sp = {0, 0, 0.f, 0.f};
+    int code[4] = {NR, NR, NR, NR};
+    float cw[4] = {0.f, 0.f, 0.f, 0.f};
+    float4 g4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (cur.on) {
+      sp = sample_pos(fw, fh, xy.x, xy.y);
+      resident_corners(sp, h, w, Hb, cur.hl, NR, code, cw);
+      g4 = __ldg(reinterpret_cast<const float4*>(grad_out + cur.row * D + sub * 4));
+    }
+    // every lane of the warp takes part in the shuffles: a sample without a
+    // corner in the grid reads the row of zeros
+    float dot[4] = {0.f, 0.f, 0.f, 0.f};
+    {
+      float4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // the four loads in flight
+        v[k] = *reinterpret_cast<const float4*>(map + code[k] * D + sub * 4);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        dot[k] = g4.x * v[k].x + g4.y * v[k].y + g4.z * v[k].z + g4.w * v[k].w;
+      }
+#pragma unroll
+      for (int m = 1; m < G; m <<= 1) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dot[k] += __shfl_xor_sync(FULL_MASK, dot[k], m);
+      }
+      float* gv = grad_value + ((int64_t)b * V * H + h0 + cur.hl) * D + sub * 4;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float wk = __fmul_rn(cw[k], a);
+        if (code[k] != NR && wk != 0.f) {
+          atomicAdd(reinterpret_cast<float4*>(gv + (int64_t)(code[k] / Hb) * H * D),
+                    make_float4(wk * g4.x, wk * g4.y, wk * g4.z, wk * g4.w));
+        }
+      }
+    }
+    if (cur.live && sub == 0) {
+      float2 gl = make_float2(0.f, 0.f);
+      float ga = 0.f;
+      if (cur.on) {
+        // a corner outside the grid has dot 0 (the zero row), so its term
+        // vanishes whatever its flag and weight
+        Bilinear4 bl;
+        bl.fx = sp.fx;
+        bl.fy = sp.fy;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          bl.idx[k] = 0;
+          bl.cw[k] = corner_cw(k, sp.fx, sp.fy);
+        }
+        const SampleGrad sg = sample_grad(bl, dot, a, fw, fh);
+        gl = make_float2(sg.lx, sg.ly);
+        ga = sg.attn;
+      }
+      gloc2[cur.at] = gl;
+      grad_attn[cur.at] = ga;
+    }
+  }
+}
+
+// The map-resident entry's backward: the gradients of msda_fwd_resident
+// (value, loc, attn, tile_mask as it takes them) for grad_out (B, Q, H *
+// D) f32 -> grad_value (B, V, H, D) f32 (zero-filled here, then summed by
+// f32 atomics), grad_loc and grad_attn like loc and attn. value, grad_out
+// and grad_value 16-byte aligned, loc 8-byte aligned, P at most
+// kResidentMaxPoints. Returns 0 on success, else a cudaError_t code
+// (cudaErrorInvalidValue for inputs it does not take).
+extern "C" int msda_bwd_resident(const float* value, const float* loc,
+                                 const float* attn, const int* tile_mask,
+                                 const float* grad_out, float* grad_value,
+                                 float* grad_loc, float* grad_attn, int B,
+                                 int h, int w, int H, int D, int Q, int P,
+                                 int q_tile, void* stream) {
+  if (B < 0 || Q < 0 || h < 1 || w < 1 || H < 1 || P < 1 ||
+      P > kResidentMaxPoints || q_tile < 1 ||
+      (D != 4 && D != 8 && D != 16 && D != 32) ||
+      (((uintptr_t)value | (uintptr_t)grad_out | (uintptr_t)grad_value) &
+       15) != 0 ||
+      ((uintptr_t)loc & 7) != 0 || (int64_t)Q * H * P > INT32_MAX ||
+      (int64_t)B * H > INT32_MAX ||
+      (int64_t)h * w * 16 > kResidentMapBytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int V = h * w, Hb = resident_heads(V, H, D);
+  if (Hb < 1) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Q == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(
+      grad_value, 0, (size_t)B * V * H * D * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = resident_bwd_smem(V, Hb, D);
+  // D = 16, 32: G lanes an item, the item's grad_out row read once; D = 4,
+  // 8: G lanes a sample, so that a warp has 16 or 32 samples in flight
+  // (either way round was the slower one at the other widths, H100)
+  void (*kernel)(const float*, const float*, const float*, const int*,
+                 const float*, float*, float*, float*, int, int, int, int,
+                 int, int, int, int, int) = nullptr;
+  switch (D) {
+    case 4:
+      kernel = msda_bwd_resident_samples_kernel<4>;
+      break;
+    case 8:
+      kernel = msda_bwd_resident_samples_kernel<8>;
+      break;
+    case 16:
+      kernel = msda_bwd_resident_items_kernel<16>;
+      break;
+    default:
+      kernel = msda_bwd_resident_items_kernel<32>;
+      break;
+  }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return (int)e;
+  // tiles of 256 / G items (D >= 16) or samples (D <= 8) a block round
+  const int blocks = resident_blocks_per_pair(
+      (const void*)kernel, smem, B, H, Hb, D >= 16 ? Q : Q * P,
+      kResidentThreads / (D / 4), &e);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)((int64_t)blocks * B * (H / Hb)), kResidentThreads, smem,
+           s>>>(value, loc, attn, tile_mask, grad_out, grad_value, grad_loc,
+                grad_attn, h, w, H, Hb, Q, P, blocks, q_tile,
+                (Q + q_tile - 1) / q_tile);
   return (int)cudaGetLastError();
 }

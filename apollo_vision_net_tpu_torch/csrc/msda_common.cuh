@@ -2,8 +2,9 @@
 // level table, the loads and stores of f32 and bf16, and the formation of a
 // sample's location (on factored operands) and four bilinear corners. The backward must form its corners, and
 // round them, exactly as the forward does, so both take them from here.
-// Also the narrow variants' rows, lane slots and block runs, and the
-// tile-local entries' tiles, halos and corners.
+// Also the narrow variants' rows, lane slots and block runs, the
+// tile-local entries' tiles, halos and corners, and the map-resident
+// entries' head groups, staging and corners.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -412,6 +413,115 @@ __device__ __forceinline__ void local_corners(const SamplePos& s,
     code[k] = halo ? r : in ? far : zero;
     const float c = corner_cw(k, s.fx, s.fy);
     cw[k] = in ? c : 0.f;
+  }
+}
+
+// ------------------------------------------------------------ resident
+//
+// The map-resident entries (msda_fwd_resident in msda_fwd.cu,
+// msda_bwd_resident in msda_bwd.cu) take f32 single-level calls whose
+// whole map is small, such as SCA over the six cameras' stride-32 15 x 25
+// map: a block takes one batch element b and a group of Hb heads h0 .. h0 +
+// Hb - 1, stages the group's whole map, value[b, :, h0 : h0 + Hb, :], in
+// shared memory, so that every corner of any query is read there, and
+// takes every blocks_per_pair-th tile of that pair's (query, head) items
+// (or samples), so that the pair's blocks share its masked and
+// out-of-view queries. Row r = cell * Hb + hl of the staged map is
+// head h0 + hl's D channels at `cell`; row V * Hb holds zeros. Hb is the
+// largest divisor of H whose map takes at most kResidentMapBytes
+// (resident_heads; ops/msda_cuda.py RESIDENT_MAP_BYTES and
+// resident_heads mirror them).
+constexpr int kResidentMapBytes = 48 * 1024;
+constexpr int kResidentThreads = 256;
+// the most samples a head (a group of lanes walks an item's samples)
+constexpr int kResidentMaxPoints = 128;
+
+// Host side: the heads a block stages, 0 when not even one head's map fits.
+static inline int resident_heads(int V, int H, int D) {
+  for (int hb = H; hb >= 1; --hb) {
+    if (H % hb == 0 && (int64_t)V * hb * D * 4 <= kResidentMapBytes) return hb;
+  }
+  return 0;
+}
+
+// Issues the copies of the Hb heads' map: vb points at value[b, 0, h0, 0];
+// a cell's Hb rows are contiguous in value and in the staged map, so
+// 16-byte piece k of the map is piece k % (Hb * D / 4) of cell k / (Hb *
+// D / 4).
+__device__ __forceinline__ void stage_resident_map(float* dst,
+                                                   const float* vb, int V,
+                                                   int H, int Hb, int D) {
+  const int per_cell = Hb * D / 4;
+  const int n = V * per_cell;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int c = k / per_cell;
+    cp_async_n<16>(dst + 4 * k, vb + (int64_t)c * H * D + 4 * (k - c * per_cell));
+  }
+}
+
+// Host side: the blocks a (batch element, head group) pair of a resident
+// entry's kernel gets, so that the grid is one wave of resident blocks
+// (each block stages its map once), and no more than the pair's tiles of
+// `tile` of its Q * Hb items (samples: Q = queries x points).
+static inline int resident_blocks_per_pair(const void* kernel, int smem,
+                                           int B, int H, int Hb, int Q,
+                                           int tile, cudaError_t* e) {
+  int dev = 0, sms = 0, per_sm = 0;
+  *e = cudaGetDevice(&dev);
+  if (*e == cudaSuccess) {
+    *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (*e == cudaSuccess) {
+    *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       kResidentThreads, smem);
+  }
+  const int64_t pairs = (int64_t)B * (H / Hb);
+  const int64_t tiles = ((int64_t)Q * Hb + tile - 1) / tile;
+  const int64_t want = ((int64_t)sms * (per_sm > 0 ? per_sm : 1) + pairs - 1) / pairs;
+  return (int)(want < tiles ? want : tiles);
+}
+
+// The samples, as bits from the group's first lane, that a group of G
+// lanes walks at points p0 .. p0 + G - 1 (`left` of them remain): those
+// whose corners fall in the grid (`in`) where G >= kResidentBallotLanes,
+// else all of them, a sample without a corner in the grid skipped after
+// its codes are passed round. (H100: the ballot everywhere ran D = 4 twice
+// as long, a fixed walk everywhere D = 16 and 32 1.2-1.45 times as long.)
+constexpr int kResidentBallotLanes = 4;
+
+template <int G>
+__device__ __forceinline__ unsigned resident_walk(unsigned gmask, int g,
+                                                  bool in, int left) {
+  if constexpr (G >= kResidentBallotLanes) {
+    return __ballot_sync(gmask, in) >> (g * G);
+  } else {
+    return (1u << (left < G ? left : G)) - 1u;
+  }
+}
+
+// The lanes that take part in a shuffle of a warp's group g of G lanes (G
+// = 1, 2, 4, 8): the group's own where G >= kResidentBallotLanes, so that a
+// group may skip alone; else the whole warp, whose groups then walk in step
+// (shuffles over 2-lane groups ran D = 8 about 1.5 times as long, H100).
+template <int G>
+__device__ __forceinline__ unsigned resident_group_mask(int g) {
+  return G >= kResidentBallotLanes ? ((1u << G) - 1u) << (g * G) : FULL_MASK;
+}
+
+// The four corners of a sample of head hl on the staged map: code[k] is
+// the corner's staged row, or `zero` (the row of zeros) outside the grid;
+// cw[k] its bilinear weight (0 outside the grid), rounded as bilinear_at
+// rounds it.
+__device__ __forceinline__ void resident_corners(const SamplePos& s, int h,
+                                                 int w, int Hb, int hl,
+                                                 int zero, int (&code)[4],
+                                                 float (&cw)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int xx = s.x0 + (k & 1), yy = s.y0 + (k >> 1);
+    const bool in = (unsigned)xx < (unsigned)w && (unsigned)yy < (unsigned)h;
+    code[k] = in ? (yy * w + xx) * Hb + hl : zero;
+    cw[k] = in ? corner_cw(k, s.fx, s.fy) : 0.f;
   }
 }
 

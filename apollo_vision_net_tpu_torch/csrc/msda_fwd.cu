@@ -14,6 +14,8 @@
 //                           masked entry at L = 4)
 //   - _msda_kernel_pt2d    (multi-level SCA on factored operands: the
 //                           msda_fwd_factored entry below)
+// and, at the f32 single-level SCA over a small map, _msda_kernel_slab and
+// _msda_kernel_masked through the msda_fwd_resident entry below.
 // The Pallas kernels contract a one-hot bilinear mask against the whole
 // value block on the TPU's matrix unit, because the TPU gathers rows slowly.
 // Hopper gathers well, so these kernels gather the four bilinear corners
@@ -186,6 +188,45 @@
 //   0.0815, without the corner forming 0.1164, without the halo's
 //   staging 0.1375; a halo of 1 or 3 cells 0.1561 / 0.1449, tiles of 8 x
 //   32 or 16 x 16 0.1440 / 0.1454, three blocks an SM 0.1522.
+//
+// Map-resident entry (msda_fwd_resident, msda_resident_kernel<D>; f32, L =
+// 1, D = 4, 8, 16 or 32, a head's map within kResidentMapBytes, with or
+// without a tile mask). It replaces _msda_kernel_slab (msda_pallas.py:234)
+// and _msda_kernel_masked (:212) at the f32 single-level SCA over the six
+// cameras' stride-32 15 x 25 map: bev_tiny_det's masked SCA (40,000
+// pillars, D = 32), the voxel heads' (10,000 or 40,000 voxels, D = 32)
+// and the hybrids' stages 0-3 (D = 32, 16, 8, 4). What bounds it: bytes,
+// the loc and attn stream and the output (voxel_base: 184 MB in, 246 MB
+// out, 0.129 ms at 3.35 TB/s); the value is 2.3 MB. What held the vector
+// kernel at 14-32% of it: every corner row came through L2, each row a
+// corner of 645 samples a call on average. The design:
+//   1. A block takes one batch element and a group of Hb heads (the
+//      largest divisor of H whose maps fit 48 KB: 1 at D = 32, 8 at D = 4
+//      over 15 x 25), copies the group's whole map into shared memory by
+//      16-byte cp.async once, and reads every corner there. The grid is
+//      one wave of resident blocks (four an SM).
+//   2. A block takes every blocks_per_pair-th tile of its pair's (query,
+//      head) items, so that the masked tiles and the voxels out of a
+//      camera's view (~80% of the voxel samples have no corner in the
+//      grid), which cluster in query order, spread over the pair's blocks:
+//      contiguous runs of items a block ran bev_tiny_det's masked SCA at
+//      0.31 ms, longer than the vector kernel's 0.19.
+//   3. G = D / 4 lanes an item, 4 channels a lane; lane sub forms the
+//      corners of samples p0 + sub (sample_pos, corner_cw: the rounding of
+//      bilinear_at) and the group walks them, each lane taking a sample's
+//      codes and weights by __shfl_sync and reading its four rows. At D >=
+//      16 a group walks only its samples with a corner in the grid
+//      (resident_walk) and skips a masked item alone; at D <= 8 the warp's
+//      groups walk in step (resident_group_mask). The first sample of a
+//      lane's next item is loaded while the warp works on this one.
+//   4. A masked tile's items read nothing and write zeros.
+//   Measured (chip_smoke.py, f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+//   §6): 0.2214 ms at voxel_base's SCA against the vector kernel's 0.4684
+//   in the same run (bound 0.1291), 0.1748 against 0.1896 at
+//   bev_tiny_det's masked SCA (bound 0.0857). Slower, in edited copies of this source timed beside
+//   it outside the tree (no script here reruns them): a thread a sample
+//   writing codes to a shared scratch in chunks of 1,024 samples (0.6458
+//   ms at voxel_base), the walk without the ballot (0.3169).
 //
 // Bound: memory. Each input is read once and the output written once; at
 // the flagship shapes and f32 value that is about 12.2 MB for TSA, 36 MB
@@ -759,6 +800,146 @@ msda_local_kernel(const float* __restrict__ value,
   }
 }
 
+// ------------------------------------------------------------ resident entry
+
+// The map-resident forward (design notes in the header): a block stages
+// its head group's whole map, then takes tiles of 8 x 32 / G items of its
+// (batch element, head group) pair, every blocks_per_pair-th tile from
+// its own, so that the pair's blocks share its masked and out-of-view
+// queries. Each warp takes 32 / G items of a tile, G = D / 4 lanes an item
+// and 4 channels a lane. Lane `sub` of a group forms the corners of samples
+// p0 + sub; the group walks them, each lane taking a sample's codes and
+// weights from its owner by __shfl_sync (G = 1: its own), and reads the
+// four corner rows from the staged map. The first sample of each lane's
+// next item is loaded while the warp works on this one. A sample with no
+// corner in the grid reads no row; an item of a masked tile reads nothing
+// and writes zeros.
+template <int D>
+__global__ void __launch_bounds__(kResidentThreads)
+msda_resident_kernel(const float* __restrict__ value,
+                     const float* __restrict__ loc,
+                     const float* __restrict__ attn,
+                     const int* __restrict__ tile_mask,
+                     float* __restrict__ out, int h, int w, int H, int Hb,
+                     int Q, int P, int blocks_per_pair, int q_tile,
+                     int n_tiles) {
+  constexpr int G = D / 4;
+  constexpr int QW = 32 / G;  // items a warp takes at once
+  constexpr int TILE = kResidentThreads / G;
+  extern __shared__ __align__(16) float res_smem[];
+  const int V = h * w, NR = V * Hb;
+  const int pair = blockIdx.x / blocks_per_pair;
+  const int first = (blockIdx.x - pair * blocks_per_pair) * TILE;
+  const int stride = blocks_per_pair * TILE, n_items = Q * Hb;
+  const int groups = H / Hb;
+  const int b = pair / groups, h0 = (pair - b * groups) * Hb;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / G, sub = lane % G;
+  const float2* loc2 = reinterpret_cast<const float2*>(loc);
+  // item it's row of out and its first sample; whether its tile is active
+  auto item_of = [&](int it, int64_t& row, bool& on) {
+    const int q = it / Hb;
+    row = ((int64_t)b * Q + q) * H + h0 + it - q * Hb;
+    on = it < n_items && (tile_mask == nullptr ||
+                          __ldg(tile_mask + b * n_tiles + q / q_tile) != 0);
+  };
+  int64_t row;
+  bool on;
+  float2 nxy = make_float2(0.f, 0.f);
+  float na = 0.f;
+  item_of(first + warp * QW + grp, row, on);
+  if (on && sub < P) {
+    nxy = __ldg(loc2 + row * P + sub);
+    na = __ldg(attn + row * P + sub);
+  }
+  stage_resident_map(res_smem, value + ((int64_t)b * V * H + h0) * D, V, H,
+                     Hb, D);
+  cp_async_commit_group();
+  for (int i = threadIdx.x; i < D; i += blockDim.x) res_smem[NR * D + i] = 0.f;
+  cp_async_wait_group<0>();
+  __syncthreads();
+
+  const float fw = (float)w, fh = (float)h;
+  // the lanes that pass a sample round: the group's own where it may skip
+  // alone (resident_walk), else the warp's
+  const unsigned gmask = resident_group_mask<G>(grp);
+  for (int t0 = first; t0 < n_items; t0 += stride) {
+    const int it = t0 + warp * QW + grp;
+    const int64_t item = row;
+    const bool live = it < n_items, cur_on = on;
+    const float2 cxy = nxy;
+    const float ca = na;
+    // the next tile's first samples, in flight during this one
+    item_of(it + stride, row, on);
+    if (on && sub < P) {
+      nxy = __ldg(loc2 + row * P + sub);
+      na = __ldg(attn + row * P + sub);
+    }
+    if (G >= kResidentBallotLanes && !cur_on) {  // past the end or masked
+      if (live) {
+        *reinterpret_cast<float4*>(out + item * D + sub * 4) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      continue;
+    }
+    const int hl = it % Hb;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p0 = 0; p0 < P; p0 += G) {
+      int code[4] = {NR, NR, NR, NR};
+      float wt[4] = {0.f, 0.f, 0.f, 0.f};
+      const int p = p0 + sub;
+      if (cur_on && p < P) {
+        float2 xy = cxy;
+        float a = ca;
+        if (p0 > 0) {
+          xy = __ldg(loc2 + item * P + p);
+          a = __ldg(attn + item * P + p);
+        }
+        resident_corners(sample_pos(fw, fh, xy.x, xy.y), h, w, Hb, hl, NR,
+                         code, wt);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) wt[k] = __fmul_rn(wt[k], a);
+      }
+      // the group's samples with a corner in the grid, one at a time
+      unsigned todo = resident_walk<G>(
+          gmask, grp, code[0] != NR || code[1] != NR || code[2] != NR ||
+                          code[3] != NR, P - p0);
+      while (todo) {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        int c[4];
+        float wk[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if constexpr (G == 1) {
+            c[k] = code[k];
+            wk[k] = wt[k];
+          } else {
+            c[k] = __shfl_sync(gmask, code[k], grp * G + j);
+            wk[k] = __shfl_sync(gmask, wt[k], grp * G + j);
+          }
+        }
+        if (c[0] == NR && c[1] == NR && c[2] == NR && c[3] == NR) {
+          continue;  // no corner in the grid
+        }
+        float4 v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // the four loads in flight
+          v[k] = *reinterpret_cast<const float4*>(res_smem + c[k] * D + sub * 4);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc.x = fmaf(wk[k], v[k].x, acc.x);
+          acc.y = fmaf(wk[k], v[k].y, acc.y);
+          acc.z = fmaf(wk[k], v[k].z, acc.z);
+          acc.w = fmaf(wk[k], v[k].w, acc.w);
+        }
+      }
+    }
+    if (live) *reinterpret_cast<float4*>(out + item * D + sub * 4) = acc;
+  }
+}
+
 // ------------------------------------------------------------- host side
 
 // The narrow variant stages a batch element's value rows in shared memory
@@ -1036,5 +1217,69 @@ extern "C" int msda_fwd_local(const float* value, const float* loc,
   }
   kernel<<<(unsigned)blocks, kLocalThreads, smem, (cudaStream_t)stream>>>(
       value, loc, attn, out, h, w, H, P, tiles_y, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// The shared memory of msda_resident_kernel: the head group's map and a
+// row of zeros (ops/msda_cuda.py resident_fwd_smem mirrors it).
+static inline int resident_fwd_smem(int V, int Hb, int D) {
+  return (V * Hb + 1) * D * 4;
+}
+
+// The map-resident entry: value (B, V, H, D) f32 over one h x w level (V =
+// h * w), D = 4, 8, 16 or 32; loc (B, Q, H, 1, P, 2) and attn (B, Q, H,
+// 1, P) f32; tile_mask (B, ceil(Q / q_tile)) int32 or null; out (B, Q,
+// H * D) f32. value and out 16-byte aligned, loc 8-byte aligned, and at
+// least one head's map within kResidentMapBytes (resident_heads). Returns 0
+// on success, else a cudaError_t code (cudaErrorInvalidValue for inputs
+// it does not take).
+extern "C" int msda_fwd_resident(const float* value, const float* loc,
+                                 const float* attn, const int* tile_mask,
+                                 float* out, int B, int h, int w, int H,
+                                 int D, int Q, int P, int q_tile,
+                                 void* stream) {
+  if (B < 0 || Q < 0 || h < 1 || w < 1 || H < 1 || P < 1 ||
+      P > kResidentMaxPoints || q_tile < 1 ||
+      (D != 4 && D != 8 && D != 16 && D != 32) ||
+      (((uintptr_t)value | (uintptr_t)out) & 15) != 0 ||
+      ((uintptr_t)loc & 7) != 0 || (int64_t)Q * H > INT32_MAX ||
+      (int64_t)B * H > INT32_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((int64_t)h * w * 16 > kResidentMapBytes) return (int)cudaErrorInvalidValue;
+  const int V = h * w, Hb = resident_heads(V, H, D);
+  if (Hb < 1) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Q == 0) return 0;
+  const int smem = resident_fwd_smem(V, Hb, D);
+  void (*kernel)(const float*, const float*, const float*, const int*,
+                 float*, int, int, int, int, int, int, int, int, int) = nullptr;
+  switch (D) {
+    case 4:
+      kernel = msda_resident_kernel<4>;
+      break;
+    case 8:
+      kernel = msda_resident_kernel<8>;
+      break;
+    case 16:
+      kernel = msda_resident_kernel<16>;
+      break;
+    default:
+      kernel = msda_resident_kernel<32>;
+      break;
+  }
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int pairs = B * (H / Hb);
+  const int per_pair = resident_blocks_per_pair(
+      (const void*)kernel, smem, B, H, Hb, Q, kResidentThreads / (D / 4), &e);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)((int64_t)per_pair * pairs), kResidentThreads, smem,
+           (cudaStream_t)stream>>>(value, loc, attn, tile_mask, out, h, w, H,
+                                   Hb, Q, P, per_pair, q_tile,
+                                   (Q + q_tile - 1) / q_tile);
   return (int)cudaGetLastError();
 }

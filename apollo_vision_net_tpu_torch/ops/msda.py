@@ -28,7 +28,11 @@ through ``FactoredMSDAFunction`` (``msda_cuda.msda_fwd_factored`` and
 whose queries are the cells of the value's own single level (DCNv3's):
 the plain version for CPU tensors, and through ``LocalMSDAFunction`` the
 tile-local CUDA entry and its backward (``msda_cuda.msda_fwd_local``,
-``msda_cuda.msda_bwd_local``) for CUDA tensors.
+``msda_cuda.msda_bwd_local``) for CUDA tensors. ``ms_deform_attn`` sends
+the f32 single-level calls whose whole map a block holds in shared memory
+(``msda_cuda.takes_resident``: SCA over the cameras' 15x25 map) through
+``ResidentMSDAFunction`` to the map-resident CUDA entry and its backward
+(``msda_cuda.msda_fwd_resident``, ``msda_cuda.msda_bwd_resident``).
 """
 from __future__ import annotations
 
@@ -204,6 +208,37 @@ class FactoredMSDAFunction(torch.autograd.Function):
         return g_value, g_ref, g_off, g_attn, None, None, None
 
 
+class ResidentMSDAFunction(torch.autograd.Function):
+    """The map-resident CUDA MSDA forward (``msda_cuda.msda_fwd_resident``)
+    with its CUDA backward (``msda_cuda.msda_bwd_resident``): gradients of
+    value, locations and weights, those of a masked tile's queries zero."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights,
+                spatial_shapes, tile_mask, q_tile):
+        from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+        ctx.spatial_shapes = tuple(tuple(int(s) for s in hw)
+                                   for hw in spatial_shapes)
+        ctx.q_tile = q_tile
+        ctx.save_for_backward(value, sampling_locations, attention_weights,
+                              tile_mask)
+        return msda_cuda.msda_fwd_resident(
+            value, spatial_shapes, sampling_locations, attention_weights,
+            tile_mask=tile_mask, q_tile=q_tile)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from apollo_vision_net_tpu_torch.ops import msda_cuda
+
+        value, loc, attn, tile_mask = ctx.saved_tensors
+        g_value, g_loc, g_attn = msda_cuda.msda_bwd_resident(
+            value, ctx.spatial_shapes, loc, attn,
+            grad_out.to(value.dtype).contiguous(), tile_mask=tile_mask,
+            q_tile=ctx.q_tile)
+        return g_value, g_loc, g_attn, None, None, None
+
+
 def ms_deform_attn(
     value: torch.Tensor,
     spatial_shapes: Shapes,
@@ -214,22 +249,32 @@ def ms_deform_attn(
     q_tile: int = 32,
 ) -> torch.Tensor:
     """MSDA front end: the plain version for CPU tensors, the hand-written
-    CUDA kernel for CUDA tensors (which raises on inputs it does not take),
-    with the hand-written CUDA backward where a gradient is needed. On meta
-    tensors: the output's shape, and the kernel's operations tallied
-    (``ops.cost``)."""
+    CUDA kernels for CUDA tensors (which raise on inputs they do not take),
+    with the hand-written CUDA backward where a gradient is needed: the
+    map-resident entry where ``msda_cuda.takes_resident`` holds, else the
+    plain and masked entry. On meta tensors: the output's shape, and the
+    kernel's operations tallied (``ops.cost``)."""
+    from apollo_vision_net_tpu_torch.ops import msda_cuda
+
     B, V, H, D = value.shape
+    resident = msda_cuda.takes_resident(value, spatial_shapes,
+                                        sampling_locations)
     if value.device.type == "meta":
         _, Q, _, L, P, _ = sampling_locations.shape
         # every query counted: a tile mask's values are not on the meta device
-        cost.record("msda_fwd" if tile_mask is None else "msda_fwd_masked",
-                    cost.msda_operations(B * Q, H, L, P, D))
+        entry = ("msda_fwd_resident" if resident else
+                 "msda_fwd" if tile_mask is None else "msda_fwd_masked")
+        cost.record(entry, cost.msda_operations(B * Q, H, L, P, D))
         return value.new_empty((B, Q, H * D))
     if use_plain(value):
         with record_function("ms_deform_attn.plain"):
             return ms_deform_attn_ref(
                 value, spatial_shapes, sampling_locations, attention_weights,
                 tile_mask=tile_mask, q_tile=q_tile)
+    if resident:
+        return ResidentMSDAFunction.apply(value, sampling_locations,
+                                          attention_weights, spatial_shapes,
+                                          tile_mask, q_tile)
     return MSDAFunction.apply(value, sampling_locations, attention_weights,
                               spatial_shapes, tile_mask, q_tile)
 

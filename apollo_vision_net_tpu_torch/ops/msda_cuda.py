@@ -54,6 +54,17 @@ device is touched. Their plain counterparts are ``ms_deform_attn_ref`` and
 autograd through it. ``launches_local`` and ``launches_bwd_local`` count
 their launches.
 
+``msda_fwd_resident`` and ``msda_bwd_resident`` are the map-resident entry
+and its gradient, for f32 single-level calls whose whole map is small (SCA
+over the cameras' 15x25 map): a block stages the whole map of a group of
+``resident_heads`` heads in shared memory and takes every n-th tile of
+their (query, head) items, with or without a tile mask.
+``takes_resident`` is the rule by which ``ops.msda.ms_deform_attn`` sends
+a call there; ``check_resident`` refuses what the kernels do not take
+before any device is touched. Their plain counterparts are
+``ms_deform_attn_ref`` and autograd through it. ``launches_resident`` and
+``launches_bwd_resident`` count their launches.
+
 ``ARGTYPES`` are the C signatures of the entry points as ctypes sees them:
 ``c_void_p`` for every pointer and the stream, ``c_int`` for every int.
 """
@@ -75,6 +86,8 @@ launches_bwd_masked = 0
 launches_bwd_factored = 0
 launches_local = 0
 launches_bwd_local = 0
+launches_resident = 0
+launches_bwd_resident = 0
 # the C entry reports the variant it launched: 1 vector, 2 narrow, 0 general
 VARIANTS = {1: "vector", 2: "narrow", 0: "general"}
 launches_plain_by_variant = dict.fromkeys(VARIANTS.values(), 0)
@@ -142,19 +155,30 @@ ARGTYPES = {
     # H, D, P, stream
     "msda_bwd_local": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P],
+    # value, loc, attn, tile_mask, out, B, h, w, H, D, Q, P, q_tile, stream
+    "msda_fwd_resident": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
+    # value, loc, attn, tile_mask, grad_out, grad_value, grad_loc,
+    # grad_attn, B, h, w, H, D, Q, P, q_tile, stream
+    "msda_bwd_resident": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P],
 }
 # the source of each entry point
 ENTRY_SOURCE = {"msda_fwd": SOURCE, "msda_fwd_factored": SOURCE,
                 "msda_fwd_local": SOURCE, "msda_bwd": BWD_SOURCE,
-                "msda_bwd_factored": BWD_SOURCE, "msda_bwd_local": BWD_SOURCE}
+                "msda_bwd_factored": BWD_SOURCE, "msda_bwd_local": BWD_SOURCE,
+                "msda_fwd_resident": SOURCE, "msda_bwd_resident": BWD_SOURCE}
 
 
 def reset_launch_counts() -> None:
     global launches_plain, launches_masked, launches_factored
     global launches_bwd_plain, launches_bwd_masked, launches_bwd_factored
     global launches_local, launches_bwd_local
+    global launches_resident, launches_bwd_resident
     launches_local = 0
     launches_bwd_local = 0
+    launches_resident = 0
+    launches_bwd_resident = 0
     launches_plain = 0
     launches_masked = 0
     launches_factored = 0
@@ -733,4 +757,169 @@ def msda_bwd_local(
     if err != 0:
         raise RuntimeError(f"msda_bwd_local kernel launch failed: CUDA error {err}")
     launches_bwd_local += 1
+    return grad_value, grad_loc, grad_attn
+
+
+# --------------------------------------------------------- resident entry
+
+# the map-resident entries (csrc/msda_common.cuh kResidentMapBytes,
+# kResidentThreads, kResidentMaxPoints): the bytes of a block's staged map,
+# a block's threads and the most samples a head; the head widths they take
+# (D = 4 G, G lanes of 4 channels an item or a sample)
+RESIDENT_MAP_BYTES = 48 * 1024
+RESIDENT_THREADS = 256
+RESIDENT_MAX_POINTS = 128
+RESIDENT_WIDTHS = (4, 8, 16, 32)
+
+
+def resident_heads(V: int, H: int, D: int) -> int:
+    """Heads Hb a block of the resident entries stages (csrc/
+    msda_common.cuh resident_heads): the largest divisor of H whose maps,
+    V·Hb rows of D f32 channels, take at most RESIDENT_MAP_BYTES; 0 when
+    not even one head's does."""
+    for hb in range(H, 0, -1):
+        if H % hb == 0 and V * hb * D * 4 <= RESIDENT_MAP_BYTES:
+            return hb
+    return 0
+
+
+def resident_smem(V: int, H: int, D: int) -> int:
+    """Shared memory of a block of either resident entry (csrc/msda_fwd.cu
+    resident_fwd_smem, csrc/msda_bwd.cu resident_bwd_smem): the head
+    group's map and a row of zeros."""
+    return (V * resident_heads(V, H, D) + 1) * D * 4
+
+
+def takes_resident(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                   sampling_locations: torch.Tensor) -> bool:
+    """Whether ``ops.msda.ms_deform_attn`` sends a call to the resident
+    entries: f32 value over one level, D in RESIDENT_WIDTHS, rows 16-byte
+    aligned (not asked of meta tensors), at most RESIDENT_MAX_POINTS
+    samples a head and at least one head's map within RESIDENT_MAP_BYTES;
+    with or without a tile mask."""
+    if value.dim() != 4 or sampling_locations.dim() != 6:
+        return False
+    B, V, H, D = value.shape
+    L, P = sampling_locations.shape[3], sampling_locations.shape[4]
+    return (value.dtype == torch.float32 and L == 1 and len(spatial_shapes) == 1
+            and D in RESIDENT_WIDTHS and P <= RESIDENT_MAX_POINTS
+            and (value.device.type == "meta" or value.data_ptr() % 16 == 0)
+            and resident_heads(V, H, D) >= 1)
+
+
+def check_resident(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                   sampling_locations: torch.Tensor,
+                   attention_weights: torch.Tensor,
+                   tile_mask: Optional[torch.Tensor], q_tile: int,
+                   grad_out: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
+    """The resident entries' contract, checked on shapes and dtypes only (no
+    device is touched): one level, f32 value, locations and weights (and
+    grad_out), ``takes_resident``'s widths, samples and map budget, an
+    int32 tile mask (B, ceil(Q / q_tile)) or none. Returns (B, h, w, H, D, Q, P);
+    raises ValueError or TypeError on what the kernels do not take."""
+    if value.dim() != 4 or sampling_locations.dim() != 6:
+        raise ValueError("value must be (B, V, H, D), locations (B, Q, H, L, P, 2)")
+    B, V, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    if L != 1 or len(spatial_shapes) != 1:
+        raise ValueError(f"the resident entry takes one level, got L={L}, "
+                         f"spatial_shapes {spatial_shapes}")
+    (h, w), = spatial_shapes
+    if h * w != V:
+        raise ValueError(f"spatial_shapes {spatial_shapes} do not match V={V}")
+    for name, t in (("value", value), ("sampling_locations", sampling_locations),
+                    ("attention_weights", attention_weights),
+                    ("grad_out", grad_out)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"the resident entry takes f32, {name} is {t.dtype}")
+    if D not in RESIDENT_WIDTHS:
+        raise ValueError(f"the resident entry takes D in {RESIDENT_WIDTHS}, got {D}")
+    if P > RESIDENT_MAX_POINTS:
+        raise ValueError(f"the resident entry takes at most "
+                         f"{RESIDENT_MAX_POINTS} samples a head, got P={P}")
+    if resident_heads(V, H, D) < 1:
+        raise ValueError(f"the resident entry stages a head's map within "
+                         f"{RESIDENT_MAP_BYTES} bytes: V={V}, D={D} needs "
+                         f"{V * D * 4}")
+    dev = value.device
+    _check("value", value, (B, V, H, D), (torch.float32,), dev)
+    _check("sampling_locations", sampling_locations, (B, Q, H, 1, P, 2),
+           (torch.float32,), dev)
+    _check("attention_weights", attention_weights, (B, Q, H, 1, P),
+           (torch.float32,), dev)
+    if tile_mask is not None:
+        _check("tile_mask", tile_mask, (B, (Q + q_tile - 1) // q_tile),
+               (torch.int32,), dev)
+    if grad_out is not None:
+        _check("grad_out", grad_out, (B, Q, H * D), (torch.float32,), dev)
+    return B, h, w, H, D, Q, P
+
+
+def msda_fwd_resident(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    *,
+    tile_mask: Optional[torch.Tensor] = None,
+    q_tile: int = 32,
+) -> torch.Tensor:
+    """The map-resident MSDA forward: value (B, h·w, H, D) f32, loc
+    (B, Q, H, 1, P, 2) f32, attn (B, Q, H, 1, P) f32, tile_mask
+    (B, ceil(Q / q_tile)) int32 or None -> (B, Q, H·D) f32 (a masked tile's
+    queries zero)."""
+    global launches_resident
+    B, h, w, H, D, Q, P = check_resident(value, spatial_shapes,
+                                         sampling_locations,
+                                         attention_weights, tile_mask, q_tile)
+    _check_cuda_aligned("msda_fwd_resident", value)
+    lib = _lib()
+    out = torch.empty((B, Q, H * D), dtype=torch.float32, device=value.device)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    err = lib.msda_fwd_resident(
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(),
+        tile_mask.data_ptr() if tile_mask is not None else None,
+        out.data_ptr(), B, h, w, H, D, Q, P, q_tile, stream)
+    if err != 0:
+        raise RuntimeError(f"msda_fwd_resident kernel launch failed: CUDA error {err}")
+    launches_resident += 1
+    return out
+
+
+def msda_bwd_resident(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    tile_mask: Optional[torch.Tensor] = None,
+    q_tile: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``msda_fwd_resident`` at (value, loc, attn) for
+    ``grad_out`` (B, Q, H·D) f32 -> (grad_value like value, grad_loc like
+    loc, grad_attn like attn), all f32, those of a masked tile's queries
+    zero; grad_value is summed by 16-byte f32 atomics (a corner's row at a
+    time), in an order that varies from run to run."""
+    global launches_bwd_resident
+    B, h, w, H, D, Q, P = check_resident(value, spatial_shapes,
+                                         sampling_locations,
+                                         attention_weights, tile_mask, q_tile,
+                                         grad_out)
+    _check_cuda_aligned("msda_bwd_resident", value, grad_out)
+    lib = _lib(BWD_SOURCE)
+    grad_value = torch.empty_like(value)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attn = torch.empty_like(attention_weights)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    err = lib.msda_bwd_resident(
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(),
+        tile_mask.data_ptr() if tile_mask is not None else None,
+        grad_out.data_ptr(), grad_value.data_ptr(), grad_loc.data_ptr(),
+        grad_attn.data_ptr(), B, h, w, H, D, Q, P, q_tile, stream)
+    if err != 0:
+        raise RuntimeError(f"msda_bwd_resident kernel launch failed: CUDA error {err}")
+    launches_bwd_resident += 1
     return grad_value, grad_loc, grad_attn

@@ -174,6 +174,7 @@ def kernel_launches() -> Dict[str, int]:
             "msda_fwd_masked": msda_cuda.launches_masked,
             "msda_fwd_factored": msda_cuda.launches_factored,
             "msda_fwd_local": msda_cuda.launches_local,
+            "msda_fwd_resident": msda_cuda.launches_resident,
             "dcn_fwd": dcn_cuda.launches}
 
 

@@ -156,8 +156,9 @@ Phases, each printing JSON lines:
   stream_tiny_det, train_tiny_det  bev_tiny_det, the reference's
                BEVFormer-tiny (R50 stage 4 through one FPN level, 200x200
                BEV, the det head alone, f32 as configured): 9 plain + 3
-               masked launches a frame (the SCA at 40,000 pillars over
-               15x25), forward 15 + 9 and backward 9 + 3 a step; the f32
+               map-resident launches a frame (the masked SCA at 40,000
+               pillars over 15x25, ``msda_route``), forward 15 + 9 and
+               backward 9 + 3 a step; the f32
                frame against plain versions, and the f32 step at 1 encoder
                and 2 decoder layers with the witnesses; frames/s, steps/s,
                profiles.
@@ -179,9 +180,11 @@ Phases, each printing JSON lines:
                over voxel2bev's 50x50 memory, the occupancy MLP over the
                voxels resized to 200x200x16; the head in f32 in every
                config, as the JAX package builds it) as ``stream_occ`` and
-               ``train_occ``: 9 plain launches a frame (dense SCA: no tile
-               mask), forward 15 and backward 9 a step, all on the vector
-               variant and the gather plan; the f32 frame and step against
+               ``train_occ``: 6 plain (det decoder) + 3 map-resident (the
+               dense SCA over 15x25: no tile mask) launches a frame,
+               forward 6 + 9 and backward 6 + 3 a step, the plain ones on
+               the vector variant and the gather plan; the f32 frame and
+               step against
                plain versions with the witnesses, the bf16 occupancy
                against the f32 one (the trunk alone differs), frames/s,
                steps/s, peak memory, profiles with the device time of
@@ -189,9 +192,11 @@ Phases, each printing JSON lines:
   stream_hybrid, train_hybrid  the OccNet cascade hybrid_tiny_occ (a BEV
                stage at 256 channels, then voxel stages of 2, 4, 8 and 16
                z-slices at 128, 64, 32 and 16 channels, per-head widths 16
-               to 2) the same way: 12 plain launches a frame, 11 on the
-               vector variant and the last stage's SCA (D = 2) on the
-               narrow one; forward 24 (21 + 3 narrow) and backward 12 a
+               to 2) the same way: 8 plain launches a frame (stage 0's TSA
+               and the 6 det decoder layers on the vector variant, the last
+               stage's SCA (D = 2) on the narrow one) and 4 map-resident
+               (the SCA of stages 0-3 over 15x25, D = 32 to 4); forward 12
+               plain (9 + 3 narrow) + 12 resident and backward 8 + 4 a
                step, the last stage's on msda_bwd's private plan; none on
                a general variant.
   stream_voxel_base, stream_hybrid_base, stream_hybrid_intern_s
@@ -315,7 +320,10 @@ Phases, each printing JSON lines:
                300 steps with warmup 30, as the JAX package's
                tools/overfit_check.py runs it: the loss curve every 10
                steps; fails unless the last loss_total is at most 30% of
-               the first.
+               the first. Each overfit's launches are exact
+               (``train_launches_per_step``): every MSDA call of the smoke
+               configs (f32, an 8x8 or 6x6 BEV, the cameras' 2x3 map) on
+               the map-resident entries.
   train_overfit_occ  bev_smoke_det_occ the same way; fails unless the last
                loss_occupancy is at most OCC_OVERFIT_SHARE of the first
                (loss_total stays high: loss_geo_scal does not fall, as in
@@ -358,7 +366,13 @@ bev_tiny_det's SCA (``sca_tiny_det``), forward too, and the voxel and
 hybrid SCAs (``sca_voxel``, ``sca_hybrid_stage1``-``4``, forward too; at D = 2
 the narrow forward and the private plan) and their base shapes (``sca_voxel_base``,
 ``tsa_hybrid_base``, ``sca_hybrid_base_stage0``-``4``, ``det_decoder_base100``
-over the 100x100 BEV, forward too); each MSDA
+over the 100x100 BEV, forward too); the same ten f32 SCA shapes at D =
+4-32 on the map-resident entry, msda_fwd_resident and msda_bwd_resident
+(``*_resident``, as the paths run them, each row with its share of the
+bound, its heads a block and the same call's vector or gather time), and
+the resident edge cases ``edge_resident_*`` (every sample on one point,
+corners on the border and outside, masked tiles inside a run with Q off
+the run, each D, 3 heads a block, a map of exactly 48 KB); each MSDA
 backward row counts its value rows' list lengths, ``corners_per_row``),
 the base TSA over 200x200 and both base decoders, and the MSDA edge
 shapes (the
@@ -699,6 +713,14 @@ REPLACES = {
     "msda_bwd_local": (f"{MSDA_PALLAS}:1468 (_bwd: XLA VJP of "
                        "ms_deform_attn_xla, the backward of _msda_kernel at "
                        "DCNv3's call sites)"),
+    "msda_fwd_resident": (f"{MSDA_PALLAS}:234 (_msda_kernel_slab at the f32 "
+                          "single-level SCA over the cameras' 15x25 map: the "
+                          f"voxel and hybrid heads); {MSDA_PALLAS}:212 "
+                          "(_msda_kernel_masked: bev_tiny_det's masked SCA)"),
+    "msda_bwd_resident": (f"{MSDA_PALLAS}:1468 (_bwd: XLA VJP of "
+                          "ms_deform_attn_xla, the backward of "
+                          "_msda_kernel_slab and _msda_kernel_masked at those "
+                          "SCA call sites)"),
 }
 TRAIN_STEP = "bev_tiny_det_map_apollo train step"
 BASE_TRAIN_STEP = "bev_base_det_map train step"
@@ -728,22 +750,34 @@ FRAME_CALLS = {
     "msda_bwd_local": ("bev_tiny_occ_intern_s train step", {
         f"dcnv3_local_stage{i}_bwd": n
         for i, n in enumerate(internimage.DEPTHS)}),
+    # the SCA of hybrid_base_occ's stages 0-3 over the cameras' 15x25 map
+    # (f32, D = 32, 16, 8, 4): a frame's forwards and a train step's
+    # backwards (the supervised frame's)
+    "msda_fwd_resident": ("hybrid_base_occ", {
+        f"sca_hybrid_base_stage{i}_resident": 1 for i in range(4)}),
+    "msda_bwd_resident": ("hybrid_base_occ train step", {
+        f"sca_hybrid_base_stage{i}_resident_bwd": 1 for i in range(4)}),
 }
 # the dtype of the rows that the {"kernels": ...} line sums: what each
 # entry's main-path calls run
-ENTRY_DTYPE = {"msda_fwd_local": "float32", "msda_bwd_local": "float32"}
+ENTRY_DTYPE = {"msda_fwd_local": "float32", "msda_bwd_local": "float32",
+               "msda_fwd_resident": "float32", "msda_bwd_resident": "float32"}
 # the file of csrc/ that holds each entry's kernels
 ENTRY_SOURCE = {"msda_fwd": "msda_fwd.cu", "msda_fwd_masked": "msda_fwd.cu",
                 "msda_fwd_factored": "msda_fwd.cu", "dcn_fwd": "dcn_fwd.cu",
                 "msda_bwd": "msda_bwd.cu", "msda_bwd_masked": "msda_bwd.cu",
                 "msda_bwd_factored": "msda_bwd.cu", "dcn_bwd": "dcn_bwd.cuh",
-                "msda_fwd_local": "msda_fwd.cu", "msda_bwd_local": "msda_bwd.cu"}
+                "msda_fwd_local": "msda_fwd.cu", "msda_bwd_local": "msda_bwd.cu",
+                "msda_fwd_resident": "msda_fwd.cu",
+                "msda_bwd_resident": "msda_bwd.cu"}
 # kernels whose every instance must build without a stack frame or spills
 VECTOR_KERNELS = ("msda_vec_kernel", "msda_narrow_kernel",
                   "msda_factored_vec_kernel", "msda_bwd_vec_kernel",
                   "msda_bwd_gather_kernel", "msda_bwd_private_kernel",
                   "msda_bwd_factored_priv_kernel", "dcn_dinput_kernel",
-                  "msda_local_kernel", "msda_bwd_local_kernel")
+                  "msda_local_kernel", "msda_bwd_local_kernel",
+                  "msda_resident_kernel", "msda_bwd_resident_items_kernel",
+                  "msda_bwd_resident_samples_kernel")
 
 
 def emit(obj) -> None:
@@ -850,6 +884,8 @@ def read_launch_counts() -> dict:
             "dcn_bwd": dcn_cuda.launches_bwd,
             "msda_fwd_local": msda_cuda.launches_local,
             "msda_bwd_local": msda_cuda.launches_bwd_local,
+            "msda_fwd_resident": msda_cuda.launches_resident,
+            "msda_bwd_resident": msda_cuda.launches_bwd_resident,
             **variant_counts()}
 
 
@@ -1144,6 +1180,70 @@ def dcnv3_local_cases(cases):
                  kind="local", dtypes=(torch.float32,), vs=c["name"],
                  variant=None, bwd_variant=None)
             for c in cases]
+
+
+def resident_cases(cases):
+    """The single-level cases that the map-resident entries take in f32
+    (``msda_cuda.takes_resident``: the SCA over the cameras' 15x25 map at
+    D = 4-32), the same tensors on the resident entries in f32, as the
+    paths run them; each row is read beside the same call's vector
+    (forward) or gather (backward) row of its case ``vs``."""
+    return [dict(c, name=c["name"] + "_resident", kind="resident",
+                 dtypes=(torch.float32,), vs=c["name"], variant=None,
+                 bwd_variant=None)
+            for c in cases if c["kind"] == "msda" and msda_cuda.takes_resident(
+                c["value"].float(), c["shapes"], c["loc"])]
+
+
+def resident_case(name, g, dev, *, B, h, w, H, D, Q, P, spread=1.0,
+                  hot=False, mask=False):
+    """A call of the map-resident entries: value (B, h·w, H, D), locations
+    uniform over [-(spread - 1) / 2, (spread + 1) / 2]^2 of the h x w map
+    (``spread`` > 1 puts corners on its border and outside it) or, with
+    ``hot``, every sample at one point (every corner on the same four
+    rows), weights softmaxed over P; with ``mask``, tiles of 32 queries
+    masked at random; f32."""
+    if hot:
+        loc = torch.tensor([0.43, 0.61], device=dev).expand(B, Q, H, 1, P, 2)
+    else:
+        loc = (torch.rand((B, Q, H, 1, P, 2), generator=g, device=dev) * spread
+               - (spread - 1) / 2)
+    n_tiles = (Q + 31) // 32
+    tile_mask = None
+    if mask:
+        tile_mask = (torch.rand((B, n_tiles), generator=g, device=dev)
+                     > 0.4).to(torch.int32)
+    return dict(name=name, kind="resident", dtypes=(torch.float32,),
+                value=torch.randn((B, h * w, H, D), generator=g, device=dev),
+                shapes=((h, w),), loc=loc.contiguous(),
+                attn=_softmax_attn(g, dev, (B, Q, H * P), P).reshape(
+                    B, Q, H, 1, P),
+                tile_mask=tile_mask, q_tile=32)
+
+
+def resident_edge_cases(dev):
+    """The map-resident entries' edges, forward and backward against
+    plain: every sample of a call at one point (the longest row lists, 32
+    samples a head); corners on the map's border and outside it; masked
+    tiles inside a block's run with Q a multiple of neither the tile nor
+    the run; each D (4 with 8 heads a block, 8, 16, 32); 6 heads of D = 8
+    over 15x25 (3 heads a block); and a map of exactly RESIDENT_MAP_BYTES
+    (16x24 cells of D = 32)."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    return [
+        resident_case("edge_resident_hot_row", g, dev, B=2, h=3, w=5, H=2,
+                      D=8, Q=700, P=32, hot=True),
+        resident_case("edge_resident_border", g, dev, B=2, h=15, w=25, H=8,
+                      D=32, Q=1000, P=8, spread=1.5),
+        resident_case("edge_resident_masked_D16", g, dev, B=3, h=15, w=25,
+                      H=8, D=16, Q=1001, P=8, spread=1.2, mask=True),
+        resident_case("edge_resident_masked_D4", g, dev, B=2, h=15, w=25,
+                      H=8, D=4, Q=999, P=8, spread=1.2, mask=True),
+        resident_case("edge_resident_H6_D8", g, dev, B=1, h=15, w=25, H=6,
+                      D=8, Q=777, P=8, spread=1.2),
+        resident_case("edge_resident_budget_D32", g, dev, B=1, h=16, w=24,
+                      H=2, D=32, Q=500, P=8, spread=1.2),
+    ]
 
 
 def local_case(name, g, dev, *, B, h, w, H, D, off_px, shift_x=0.0):
@@ -1721,6 +1821,12 @@ def bind(case, dtype):
         return kernel, plain, lambda out: dcn_bound(x, case["offset"], w, out)
     value = shift(case["value"].to(dtype).contiguous())
     kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
+    if kind == "resident":
+        args = (value, case["shapes"], case["loc"], case["attn"])
+        return (lambda: msda_cuda.msda_fwd_resident(*args, **kw),
+                lambda: ms_deform_attn_ref(*args, **kw),
+                lambda out: msda_bound(value, case["shapes"], case["loc"],
+                                       kw["tile_mask"], kw["q_tile"]))
     if kind == "local":
         args = (value, case["shapes"], case["loc"], case["attn"])
         return (lambda: msda_cuda.msda_fwd_local(*args),
@@ -1807,6 +1913,47 @@ def bind_bwd_local(case, dtype, seed=0):
 
     return (kernel, plain, bound, ("grad_value", "grad_loc", "grad_attn"),
             BWD_REL_TOL[str(dtype).replace("torch.", "")], "local")
+
+
+def bind_bwd_resident(case, dtype, seed=0):
+    """msda_bwd_resident against autograd through ms_deform_attn_ref, as
+    ``bind_bwd`` (f32 only; the entry has one kernel, "resident")."""
+    value = case["value"].to(dtype).contiguous()
+    loc, attn, shapes = case["loc"], case["attn"], case["shapes"]
+    kw = dict(tile_mask=case["tile_mask"], q_tile=case["q_tile"])
+    B, _, H, D = value.shape
+    grad_out = _grad_out((B, loc.shape[1], H * D), dtype, value.device, seed)
+
+    def kernel():
+        return msda_cuda.msda_bwd_resident(value, shapes, loc, attn, grad_out,
+                                           **kw)
+
+    def plain():
+        ins = [t.detach().requires_grad_() for t in (value, loc, attn)]
+        out = ms_deform_attn_ref(ins[0], shapes, ins[1], ins[2], **kw)
+        return torch.autograd.grad(out, ins, grad_out)
+
+    def bound():
+        ms, by, _ = msda_bwd_bound(value, shapes, loc, attn, kw["tile_mask"],
+                                   kw["q_tile"])
+        return ms, by, resident_design_bytes(value, shapes, loc, case)
+
+    return (kernel, plain, bound, ("grad_value", "grad_loc", "grad_attn"),
+            BWD_REL_TOL[str(dtype).replace("torch.", "")], "resident")
+
+
+def resident_design_bytes(value, shapes, loc, case):
+    """What msda_bwd_resident moves besides its bound's bytes: each block's
+    staged map (one wave, at most four blocks an SM on 132 SMs, over the
+    (batch element, head group) pairs), grad_value zero-filled, and for
+    each in-grid corner its row's 16-byte atomic adds (read and written)."""
+    B, V, H, D = value.shape
+    hb = msda_cuda.resident_heads(V, H, D)
+    pairs = B * H // hb
+    blocks = max(pairs, 132 * 4 // pairs * pairs)
+    corners = int(corner_counts(value, shapes, loc, case["tile_mask"],
+                                case["q_tile"]).sum())
+    return blocks * V * hb * D * 4 + B * V * H * D * 4 + corners * D * 8
 
 
 def local_design_bytes(value, shapes, tile):
@@ -1994,12 +2141,15 @@ def dcn_bwd_bound(x, offset, weight, grad_out):
 
 
 BWD_BINDERS = {"msda": bind_bwd, "factored": bind_bwd_factored,
-               "dcn": bind_dcn_bwd, "local": bind_bwd_local}
+               "dcn": bind_dcn_bwd, "local": bind_bwd_local,
+               "resident": bind_bwd_resident}
 
 
 def bwd_entry(case):
     if case["kind"] == "local":
         return "msda_bwd_local"
+    if case["kind"] == "resident":
+        return "msda_bwd_resident"
     if case["kind"] == "dcn":
         return "dcn_bwd"
     if case["kind"] == "factored":
@@ -2009,10 +2159,11 @@ def bwd_entry(case):
 
 def ran_variants(entry, before, after):
     """The variants of ``entry`` that launched between two
-    ``read_launch_counts`` readings; "local" for a tile-local entry (one
-    kernel each)."""
-    if entry.endswith("_local"):
-        return ["local"] * (after[entry] - before[entry])
+    ``read_launch_counts`` readings; "local" for a tile-local entry and
+    "resident" for a map-resident one (one kernel each)."""
+    for kind in ("local", "resident"):
+        if entry.endswith("_" + kind):
+            return [kind] * (after[entry] - before[entry])
     return [k.split(".", 1)[1] for k, v in after.items()
             if "." in k and k.startswith(entry + ".") and v > before[k]]
 
@@ -2033,6 +2184,21 @@ def local_columns(row, case, rows):
         row["vs_case"], row["vs_variant"] = vs, other.get("variant")
         row["vs_ms"] = other["ms"]
         row["faster_than_vs"] = row["ms"] < other["ms"]
+
+
+def resident_columns(row, case, rows):
+    """A map-resident row's share of its bound, its heads a block, and the
+    same call's time on the vector forward or the gather backward (the
+    f32 row of its case ``vs``)."""
+    row["share"] = row["bound_ms"] / row["ms"]
+    _, V, H, D = case["value"].shape
+    row["heads_a_block"] = msda_cuda.resident_heads(V, H, D)
+    bwd = row["case"].endswith("_bwd")
+    vs = case["vs"] + ("_bwd" if bwd else "")
+    other = next(r for r in rows if r["case"] == vs and r["dtype"] == "float32")
+    row["vs_case"], row["vs_variant"] = vs, other.get("variant")
+    row["vs_ms"] = other["ms"]
+    row["faster_than_vs"] = row["ms"] < other["ms"]
 
 
 def bwd_rows(dev, cases):
@@ -2071,10 +2237,11 @@ def bwd_rows(dev, cases):
             if not case["name"].startswith("edge"):
                 row["ms"] = graph_time_ms(kernel)
                 row["parts"] = device_parts(kernel, n=10)
-                row["plain_ms"] = time_ms(plain, warmup=1, iters=3)
+                # one timed call: the comparison call above warmed it
+                row["plain_ms"] = time_ms(plain, warmup=0, iters=1)
                 row["call_ms"] = time_ms(kernel, warmup=3, iters=20)
                 row["bound_ms"], row["bound_by"], row["design_bytes"] = bound()
-                if case["kind"] in ("msda", "local"):
+                if case["kind"] in ("msda", "local", "resident"):
                     row["corners_per_row"] = corner_list_lengths(
                         case["value"], case["shapes"], case["loc"],
                         case["tile_mask"], case["q_tile"])
@@ -2083,6 +2250,8 @@ def bwd_rows(dev, cases):
                     row["tiles"] = int(case["tile_mask"].numel())
                 if case["kind"] == "local":
                     local_columns(row, case, rows)
+                if case["kind"] == "resident":
+                    resident_columns(row, case, rows)
             elif case["kind"] == "local":
                 row["outside_halo"] = outside_halo(
                     case["loc"], case["shapes"], msda_cuda.LOCAL_BWD_TILE)
@@ -2134,7 +2303,8 @@ def fwd_rows(cases):
             dname = str(dtype).replace("torch.", "")
             kernel, plain, bound = bind(case, dtype)
             entry = {"dcn": "dcn_fwd", "factored": "msda_fwd_factored",
-                     "local": "msda_fwd_local"}.get(
+                     "local": "msda_fwd_local",
+                     "resident": "msda_fwd_resident"}.get(
                 case["kind"], "msda_fwd" if case.get("tile_mask") is None
                 else "msda_fwd_masked")
             before = read_launch_counts()
@@ -2166,7 +2336,8 @@ def fwd_rows(cases):
                 # as the main path makes it; plain_ms: see bind()
                 row["ms"] = graph_time_ms(kernel)
                 row["plain_ms"] = (graph_time_ms(plain, iters=5)
-                                   if case["kind"] in ("msda", "local")
+                                   if case["kind"] in ("msda", "local",
+                                                       "resident")
                                    else time_ms(plain, warmup=1, iters=3))
                 row["call_ms"] = time_ms(kernel, warmup=3, iters=20)
                 row["bound_ms"], row["bound_by"] = bound(got)
@@ -2181,6 +2352,8 @@ def fwd_rows(cases):
                     outs[(case["name"], dname)] = got
                 if case["kind"] == "local":
                     local_columns(row, case, rows)
+                if case["kind"] == "resident":
+                    resident_columns(row, case, rows)
             rows.append(row)
             emit({"phase": "kernels", **row})
             if not ok:
@@ -2191,19 +2364,22 @@ def fwd_rows(cases):
 
 def phase_kernels(dev):
     dcnv3 = dcnv3_cases(dev)
+    sca = tiny_det_cases(dev) + voxel_cases(dev) + voxel_base_cases(dev)
     rows = fwd_rows(flagship_cases(dev) + occ_cases(dev) + [occ_tsa_cases(dev)[1]]
                     + mapv2_cases(dev) + dcnv3 + dcnv3_local_cases(dcnv3)
-                    + local_edge_cases(dev) + tiny_det_cases(dev)
-                    + voxel_cases(dev) + voxel_base_cases(dev)
+                    + local_edge_cases(dev) + sca + resident_cases(sca)
+                    + resident_edge_cases(dev)
                     + base_msda_cases(dev) + msda_edge_cases(dev)
                     + factored_edge_cases(dev) + dcn_cases(dev))
+    del sca
     torch.cuda.empty_cache()
     base = [c for c in base_msda_cases(dev) if c["name"] != "sca_base_materialized"]
+    sca = tiny_det_cases(dev) + voxel_cases(dev) + voxel_base_cases(dev)
     rows += bwd_rows(dev, flagship_cases(dev) + occ_cases(dev)
                      + list(occ_tsa_cases(dev)) + mapv2_cases(dev)
                      + dcnv3 + dcnv3_local_cases(dcnv3) + local_edge_cases(dev)
-                     + tiny_det_cases(dev)
-                     + voxel_cases(dev) + voxel_base_cases(dev) + base
+                     + sca + resident_cases(sca) + resident_edge_cases(dev)
+                     + base
                      + base_factored_bwd_cases(next(
                          c for c in base if c["name"] == "sca_base_factored"))
                      + msda_edge_cases(dev) + factored_edge_cases(dev)
@@ -2551,7 +2727,7 @@ def phase_stream_model(dev, cfg, phase, n_fps=20, f32=True):
     per trunk block on the tile-local one), SCA per encoder layer on the
     masked one, plus
     one TSA and one SCA with the refinement pass (``occ_tsa``), all on the
-    vector variants (a voxel or hybrid head: ``voxel_family_launches``,
+    vector variants (a voxel or hybrid head: ``stream_launches_per_frame``,
     with R101's DCN);
     the occupancy grid's class histogram (and the flows' shape with a flow
     branch) or both segmentation logits' shapes; offset predictors seeded
@@ -2566,10 +2742,7 @@ def phase_stream_model(dev, cfg, phase, n_fps=20, f32=True):
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
     model = new_model(cfg, dev)
-    expect = stream_launches_per_frame(cfg)
-    if m.head_family != "bev":
-        expect = voxel_family_launches(cfg, train=False)
-    launches = drive(phase, cfg, model, frames, expect)
+    launches = drive(phase, cfg, model, frames, stream_launches_per_frame(cfg))
     dname = "bf16" if cfg.compute_dtype == "bfloat16" else "f32"
     runs = [(dname, cfg, model)]
     if f32:
@@ -2594,19 +2767,15 @@ def phase_stream_model(dev, cfg, phase, n_fps=20, f32=True):
 
 def phase_stream_occ_aggr(dev):
     """bev_smoke_det_occ_flow served (the warping acts in training only):
-    6 frames through the streaming runner with exact launches (TSA and 2
-    decoder layers on the plain entry, SCA on the masked one), finite
+    6 frames through the streaming runner with exact launches (its f32 TSA,
+    SCA and 2 decoder layers over the 8x8 BEV and the cameras' 2x3 map all
+    on the map-resident entry, ``stream_launches_per_frame``), finite
     outputs and flows of every voxel."""
     cfg = bev_smoke_det_occ_flow()
-    m = cfg.model
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
-    n_plain = m.encoder_layers + m.decoder_layers
     return drive("stream_occ_aggr", cfg, build_model(cfg, device=dev, seed=0),
-                 frames, {**dict.fromkeys(read_launch_counts(), 0),
-                          "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
-                          "msda_fwd_masked": m.encoder_layers,
-                          "msda_fwd_masked.vector": m.encoder_layers})
+                 frames, stream_launches_per_frame(cfg))
 
 
 @torch.no_grad()
@@ -2653,22 +2822,15 @@ def perturb_trunk_stem_biases(model, seed):
 def phase_stream_base(dev):
     cfg = bev_base_det_map()
     cfg32 = f32_config(cfg)
-    m = cfg.model
     torch.cuda.reset_peak_memory_stats()
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
     model = new_model(cfg, dev)
-    n_dcn = dcn_blocks(cfg)
     # per frame: TSA per encoder layer and cross-attention per det and map
     # decoder layer (18), factored SCA per encoder layer (6), DCN in every
     # block of stages 3-4 (23 + 3); all on their vector variants
-    n_plain = m.encoder_layers + m.decoder_layers + m.map_decoder_layers
-    launches = drive("stream_base", cfg, model, frames, {
-        **dict.fromkeys(read_launch_counts(), 0),
-        "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
-        "msda_fwd_factored": m.encoder_layers,
-        "msda_fwd_factored.vector": m.encoder_layers,
-        "dcn_fwd": n_dcn, "dcn_fwd.vector": n_dcn})
+    launches = drive("stream_base", cfg, model, frames,
+                     stream_launches_per_frame(cfg))
 
     model32 = build_model(cfg32, device=dev, seed=0)
     model32.load_state_dict(model.state_dict())
@@ -2702,20 +2864,11 @@ def phase_base_occ(dev, cfg=None, phase="base_occ", train=True,
     those sizes."""
     cfg = cfg or bev_base_occ()
     cfg32 = f32_config(cfg)
-    m = cfg.model
     torch.cuda.reset_peak_memory_stats()
     frames = [_frame_to(f, dev) for f in
               make_stream(cfg, 6, seed=1, scene_change_at=(3,))]
     model = new_model(cfg, dev)
-    n_plain = m.encoder_layers + m.decoder_layers
-    n_dcn = dcn_blocks(cfg)
-    stream = drive(phase, cfg, model, frames, {
-        **dict.fromkeys(read_launch_counts(), 0),
-        "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
-        "msda_fwd_local": dcnv3_blocks(cfg),
-        "msda_fwd_factored": m.encoder_layers,
-        "msda_fwd_factored.vector": m.encoder_layers,
-        "dcn_fwd": n_dcn, "dcn_fwd.vector": n_dcn})
+    stream = drive(phase, cfg, model, frames, stream_launches_per_frame(cfg))
     model32 = build_model(cfg32, device=dev, seed=0)
     model32.load_state_dict(model.state_dict())
     f32_frame_vs_plain(phase + "_f32_vs_plain", cfg32, model32, dev, frames,
@@ -2762,93 +2915,135 @@ def dcnv3_blocks(cfg) -> int:
     return sum(internimage.DEPTHS)
 
 
-def head_widths(cfg):
-    """The per-head widths D of a voxel or hybrid head's MSDA calls in one
-    frame: (encoder calls, det decoder calls). The VoxelFormer's encoder
-    makes one SCA a layer (its TSA runs ``ops.msda3d``); the HybridFormer's
-    a TSA and an SCA at stage 0 and one SCA in each voxel stage (one layer a
-    stage, as the JAX package builds it), 8 heads each."""
+def sca_map(cfg):
+    """(h, w) of the cameras' single level that a single-level SCA samples:
+    DLA's stride-16 FPN level (the flagship family, ``flagship_cases``),
+    else stage 4 at stride 32 through one FPN level (R50/R101,
+    InternImage-S, VoVNet; ``voxel_sca_case``)."""
     m = cfg.model
-    dec = [m.embed_dims // 8] * m.decoder_layers
+    stride = 16 if m.backbone_type == "dla" else 32
+    return m.img_shape[0] // stride, m.img_shape[1] // stride
+
+
+def msda_route(kind, V, D, f32):
+    """(forward entry, its variant, backward entry, its variant) of an MSDA
+    call with 8 heads of width D over a single level of V cells (``kind``
+    "plain" or "masked") or over several levels on factored operands
+    ("factored"), as ``ops.msda`` sends it (stated, not derived from the
+    launches): an f32 single-level call of D = 4-32 whose one head's map
+    a block can hold (``msda_cuda.resident_heads``) goes to the
+    map-resident entries, which have one kernel each (variant None); else
+    the plain or masked entry, narrow forward and private backward at D =
+    2, vector and gather at D = 4-32; the factored calls their vector and
+    privatized kernels."""
+    if kind == "factored":
+        return "msda_fwd_factored", "vector", "msda_bwd_factored", "privatized"
+    if (f32 and D in msda_cuda.RESIDENT_WIDTHS
+            and msda_cuda.resident_heads(V, 8, D) >= 1):
+        return "msda_fwd_resident", None, "msda_bwd_resident", None
+    fwd, bwd = (("msda_fwd", "msda_bwd") if kind == "plain"
+                else ("msda_fwd_masked", "msda_bwd_masked"))
+    if D == 2:
+        return fwd, "narrow", bwd, "private"
+    return fwd, "vector", bwd, "gather"
+
+
+def msda_calls(cfg):
+    """The MSDA calls of one frame, (kind, V, D, f32) each, in three groups:
+    "queue", the encoder's calls, made in each of the queue's frames;
+    "supervised", those made on the supervised frame only (the occupancy
+    refinement pass: TSA over the 200x200 grid and SCA into the cameras'
+    map); "decoder", the det and map decoder layers over the BEV (on the
+    supervised frame in training). A BEV head: TSA over the BEV and SCA
+    (masked over one level, factored over several) a layer; a VoxelFormer:
+    one SCA a layer (its TSA runs ``ops.msda3d``); a HybridFormer: TSA and
+    SCA at stage 0 and one SCA in each voxel stage; 8 heads each. Voxel and
+    hybrid heads run f32 in every config, BEV heads in the config's dtype
+    (MapTRv2's map decoder in f32)."""
+    m = cfg.model
+    bev = m.bev_h * m.bev_w
+    fh, fw = sca_map(cfg)
+    D = m.embed_dims // 8
+    dec_f32 = True
     if m.head_family == "voxel":
-        return [m.embed_dims // 8] * m.encoder_layers, dec
-    dims = m.hybrid_encoder_embed_dims
-    return [dims[0] // 8] * 2 + [c // 8 for c in dims[1:]], dec
+        queue = [("plain", fh * fw, D, True)] * m.encoder_layers
+        supervised = []
+    elif m.head_family == "hybrid":
+        dims = m.hybrid_encoder_embed_dims
+        queue = ([("plain", bev, dims[0] // 8, True)]
+                 + [("plain", fh * fw, c // 8, True) for c in dims])
+        supervised = []
+    else:
+        f32 = cfg.compute_dtype != "bfloat16"
+        dec_f32 = f32
+        sca = ("factored" if m.num_feature_levels > 1 else "masked",
+               fh * fw, D, f32)
+        queue = [("plain", bev, D, f32), sca] * m.encoder_layers
+        # the refinement pass runs in f32 in every dtype, as the JAX
+        # package's (stream_occ_tsa_bf16_vs_f32)
+        supervised = [("plain", 200 * 200, D, True),
+                      ("masked", fh * fw, D, True)] * occ_tsa_layers(cfg)
+    decoder = [("plain", bev, D, dec_f32)] * m.decoder_layers
+    if m.with_map:
+        decoder += [("plain", bev, D, dec_f32 or m.map_version == 2)] * m.map_decoder_layers
+    return {"queue": queue, "supervised": supervised, "decoder": decoder}
 
 
-def voxel_family_launches(cfg, train: bool) -> dict:
-    """Launches of one frame, or with ``train`` of one train step, of a
-    voxel or hybrid model, by entry and variant: every MSDA call of the
-    head on the plain entry in f32 (the head's dtype in every config), in
-    each of the queue's T frames for the encoder and on the supervised one
-    for the det decoder; InternImage-S's DCNv3 and R101's DCN per frame;
-    the backward on the supervised frame's calls. The variants are stated,
-    not derived from the wrappers' rules: the hybrids' D = 2 stage, whose
-    SCA reads the cameras' single stride-32 map (``voxel_sca_case``), runs
-    the narrow forward and msda_bwd's private plan, every other width
-    (D = 4-32) the vector forward and the gather plan; InternImage-S's
-    DCNv3 (f32) the tile-local entries."""
+def count_msda_calls(cfg, train: bool) -> dict:
+    """Launches of one frame, or with ``train`` of one train step, by entry
+    and variant (``msda_calls`` through ``msda_route``): the forward runs
+    the queue calls in each of the queue's T frames and the others once;
+    the backward runs every call of the supervised frame once (the
+    history replay is under no_grad); InternImage-S's 33 DCNv3 blocks the
+    tile-local entry in each frame (f32, as every config runs them) and its
+    backward on the supervised one; R101's DCN in every block of its DCN
+    stages in each frame, its backward on the supervised one."""
     m = cfg.model
     T = m.queue_length if train else 1
-    enc, dec = head_widths(cfg)
+    calls = msda_calls(cfg)
     n_v3, n_dcn = dcnv3_blocks(cfg), dcn_blocks(cfg)
     out = dict.fromkeys(read_launch_counts(), 0)
 
     def add(entry, variant, n):
         out[entry] += n
-        out[f"{entry}.{variant}"] += n
+        if variant is not None:
+            out[f"{entry}.{variant}"] += n
 
-    for D in enc * T + dec:
-        add("msda_fwd", "narrow" if D == 2 else "vector", 1)
+    once = calls["supervised"] + calls["decoder"]
+    for call in calls["queue"] * T + once:
+        fwd, fvar, _, _ = msda_route(*call)
+        add(fwd, fvar, 1)
     out["msda_fwd_local"] = T * n_v3
     add("dcn_fwd", "vector", T * n_dcn)
     if train:
-        for D in enc + dec:
-            add("msda_bwd", "private" if D == 2 else "gather", 1)
+        for call in calls["queue"] + once:
+            _, _, bwd, bvar = msda_route(*call)
+            add(bwd, bvar, 1)
         out["msda_bwd_local"] = n_v3
         add("dcn_bwd", "quad", n_dcn)
     return out
 
 
-# the variant each entry takes on the main paths where it is not "vector"
-MAIN_PATH_VARIANT = {"msda_bwd": "gather", "msda_bwd_masked": "gather",
-                     "msda_bwd_factored": "privatized", "dcn_bwd": "quad"}
-
-
 def train_launches_per_step(cfg) -> dict:
-    """Launches of one train step, by entry and variant: the forward runs
-    TSA per encoder layer in each of the T queue frames and the det (and
-    map) decoder layers on the supervised one (plain entry), SCA per encoder
-    layer in each frame (the masked entry over one level, the factored
-    entry over several) and DCN in every block of the DCN stages in each
-    frame; the backward runs on the supervised frame's calls only (the
-    history replay is under no_grad). The occupancy refinement pass adds
-    one TSA and one SCA on the supervised frame, forward and backward.
-    MapTRv2's decoupled map layers make one cross-attention call each, as
-    MapTR v1's do, over all 350 vectors in training. InternImage-S's 33
-    DCNv3 blocks run the tile-local entry in each frame (f32, as every
-    config runs them) and its backward on the supervised one, and nothing
-    on the plain entry. Voxel and hybrid models:
-    ``voxel_family_launches``."""
-    m = cfg.model
-    if m.head_family != "bev":
-        return voxel_family_launches(cfg, train=True)
-    T, E, R = m.queue_length, m.encoder_layers, occ_tsa_layers(cfg)
-    dec = m.decoder_layers + (m.map_decoder_layers if m.with_map else 0)
-    n_v3 = dcnv3_blocks(cfg)
-    multi = m.num_feature_levels > 1
-    sca_fwd = "msda_fwd_factored" if multi else "msda_fwd_masked"
-    sca_bwd = "msda_bwd_factored" if multi else "msda_bwd_masked"
-    n_dcn = dcn_blocks(cfg)
-    n = {"msda_fwd": T * E + R + dec, sca_fwd: T * E + R,
-         "msda_bwd": E + R + dec, sca_bwd: E + R, "dcn_fwd": T * n_dcn,
-         "dcn_bwd": n_dcn}
-    out = dict.fromkeys(read_launch_counts(), 0)
-    out.update({k: v for k, v in n.items() if v})
-    out.update({f"{k}.{MAIN_PATH_VARIANT.get(k, 'vector')}": v
-                for k, v in n.items() if v})
-    out.update(msda_fwd_local=T * n_v3, msda_bwd_local=n_v3)
-    return out
+    """Launches of one train step, by entry and variant
+    (``count_msda_calls``): the forward runs TSA per encoder layer in each
+    of the T queue frames and the det (and map) decoder layers on the
+    supervised one (plain entry), SCA per encoder layer in each frame (the
+    masked entry over one level, the factored entry over several; the
+    map-resident entry for an f32 SCA over 15x25, ``msda_route``) and DCN
+    in every block of the DCN stages in each frame; the backward runs on
+    the supervised frame's calls only (the history replay is under
+    no_grad). The occupancy refinement pass adds one TSA and one SCA on the
+    supervised frame, forward and backward. MapTRv2's decoupled map layers
+    make one cross-attention call each, as MapTR v1's do, over all 350
+    vectors in training. InternImage-S's 33 DCNv3 blocks run the tile-local
+    entry in each frame (f32, as every config runs them) and its backward
+    on the supervised one, and nothing on the plain entry. Voxel and hybrid
+    heads run every MSDA call in f32: their SCA over the cameras' 15x25
+    map on the map-resident entries at D = 4-32, the hybrids' D = 2 stage
+    on the narrow forward and msda_bwd's private plan, stage 0's TSA and
+    the det decoder over the BEV on the vector forward and gather plan."""
+    return count_msda_calls(cfg, train=True)
 
 
 def new_model(cfg, dev):
@@ -3609,18 +3804,13 @@ def fake_dla34_checkpoint(path, seed: int = 0) -> dict:
 
 
 def stream_launches_per_frame(cfg) -> dict:
-    """Launches of one served frame of a BEV-head model: TSA and the det
+    """Launches of one served frame (``count_msda_calls``; voxel and hybrid
+    heads as ``train_launches_per_step`` says); a BEV head: TSA and the det
     (and map) decoder layers on the plain entry, SCA (and the refinement
-    pass's) on the masked one, all vector; InternImage's 33 DCNv3 blocks on
-    the tile-local entry, none on the plain one."""
-    m = cfg.model
-    n_sca = m.encoder_layers + occ_tsa_layers(cfg)
-    n_plain = (n_sca + m.decoder_layers
-               + (m.map_decoder_layers if m.with_map else 0))
-    return {**dict.fromkeys(read_launch_counts(), 0),
-            "msda_fwd": n_plain, "msda_fwd.vector": n_plain,
-            "msda_fwd_masked": n_sca, "msda_fwd_masked.vector": n_sca,
-            "msda_fwd_local": dcnv3_blocks(cfg)}
+    pass's) on the masked one, all vector, or on the map-resident entry
+    where ``msda_route`` sends them; InternImage's 33 DCNv3 blocks on the
+    tile-local entry, none on the plain one."""
+    return count_msda_calls(cfg, train=False)
 
 
 CLI_QUEUE_SAMPLES, CLI_EVAL_PASSES = 2, 4

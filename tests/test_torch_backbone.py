@@ -20,6 +20,10 @@ from apollo_vision_net_tpu_torch.models.dla import DLA
 from apollo_vision_net_tpu_torch.models.layers import Conv2d
 from apollo_vision_net_tpu_torch.models.second_fpn import SECONDFPNV2
 
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REL_TOL = 1e-4
 
 

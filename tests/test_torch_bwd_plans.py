@@ -169,33 +169,41 @@ def test_chip_smoke_expects_the_new_variants_on_the_main_paths():
                                                     "general"}
     assert set(msda_cuda.VARIANTS.values()) == {"vector", "narrow", "general"}
     # the hybrids' D = 2 stage: 1 narrow forward a frame; 3 narrow forwards
-    # and 1 private backward a step; nothing on a general variant
+    # and 1 private backward a step; nothing on a general variant. Their
+    # f32 SCA of stages 0-3 over the cameras' 15x25 map left the vector and
+    # gather kernels for the map-resident entries: 4 a frame, 12 + 4 a step
+    # (test_torch_resident.py); the gather plan keeps stage 0's TSA and the
+    # 6 det decoder layers over the BEV
     for config in (hybrid_tiny_occ, hybrid_base_occ, hybrid_tiny_occ_intern_s):
-        frame = chip_smoke.voxel_family_launches(config(), train=False)
+        frame = chip_smoke.stream_launches_per_frame(config())
         step = chip_smoke.train_launches_per_step(config())
         assert frame["msda_fwd.narrow"] == 1 and step["msda_fwd.narrow"] == 3
         assert step["msda_bwd.private"] == 1
         assert not any(n for k, n in {**frame, **step}.items()
                        if k.endswith(".general"))
         assert step["msda_bwd"] == step["msda_bwd.gather"] + 1
+        assert (step["msda_bwd.gather"], step["msda_bwd_resident"]) == (7, 4)
     for config in (bev_base_det_map, bev_tiny_det_map_apollo):
         n = chip_smoke.train_launches_per_step(config())
         assert n["msda_fwd.narrow"] == n["msda_bwd.private"] == 0
     # InternImage-S's 33 DCNv3 calls, stated: 33 local forwards a frame and
     # none on the vector forward; 99 local forwards and 33 local backwards a
     # step, msda_bwd's gather plan 33 launches fewer than before the local
-    # entry (42 + 3 -> 9 + 3 at bev_tiny_occ_intern_s)
+    # entry (42 + 3 -> 9 + 3 at bev_tiny_occ_intern_s); hybrid_tiny_occ_intern_s
+    # 4 fewer again, its f32 SCA of stages 0-3 on the map-resident entry
+    # (11 -> 7), its frame's plain forwards 12 -> 8
     frame = chip_smoke.stream_launches_per_frame(bev_tiny_occ_intern_s())
     assert (frame["msda_fwd_local"], frame["msda_fwd"],
             frame["msda_fwd.vector"], frame["msda_fwd_masked"]) == (33, 9, 9, 3)
     for config, gather in ((bev_tiny_occ_intern_s, 9), (bev_base_occ_intern_s, 12),
-                           (hybrid_tiny_occ_intern_s, 11)):
+                           (hybrid_tiny_occ_intern_s, 7)):
         step = chip_smoke.train_launches_per_step(config())
         assert (step["msda_fwd_local"], step["msda_bwd_local"]) == (99, 33)
         assert step["msda_bwd"] == step["msda_bwd.gather"] + step[
             "msda_bwd.private"] == gather + step["msda_bwd.private"]
-    hy = chip_smoke.voxel_family_launches(hybrid_tiny_occ_intern_s(), train=False)
-    assert hy["msda_fwd_local"] == 33 and hy["msda_fwd"] == 12
+    hy = chip_smoke.stream_launches_per_frame(hybrid_tiny_occ_intern_s())
+    assert hy["msda_fwd_local"] == 33 and hy["msda_fwd"] == 8
+    assert hy["msda_fwd_resident"] == 4
     for config in (bev_base_det_map, bev_tiny_det_map_apollo, hybrid_tiny_occ):
         n = chip_smoke.train_launches_per_step(config())
         assert n["msda_fwd_local"] == n["msda_bwd_local"] == 0
@@ -295,7 +303,11 @@ def test_bwd_plan_takes_gather_at_every_main_shape():
     """The TSA, decoder and single-level SCA calls of the four configs
     (B, V, H, D, Q, L·P) take the gather plan; other head widths, a
     misaligned row and corner slots past 2^31 take the general one, as the
-    C entry's checks (the widths below) demand."""
+    C entry's checks (the widths below) demand. The f32 single-level SCA
+    over the cameras' 15x25 map (bev_tiny_det, the voxel and hybrid heads)
+    would take the gather plan too, but the front end sends it to the
+    map-resident entries instead (``takes_resident``), which no main shape
+    below reaches."""
     text = BWD_SRC.read_text()
     widths = tuple(int(w) for w in re.findall(
         r"D == (\d+)", re.search(r"\(D == 4 \|\|[^)]*\)", text).group()))
@@ -309,6 +321,17 @@ def test_bwd_plan_takes_gather_at_every_main_shape():
             (1, 2500, 8, 32, 9900, 4)]       # det+occ train decoder
     for shape in main:
         assert msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(*shape)] == "gather"
+        B, V, H, D, Q, LP = shape
+        assert not msda_cuda.takes_resident(
+            torch.zeros((B, V, H, D), device="meta"), ((1, V),),
+            torch.zeros((B, Q, H, 1, LP, 2), device="meta"))
+    # the shapes that left the gather plan for the map-resident entries
+    for D, Q in ((32, 40000), (32, 10000), (16, 20000), (8, 40000), (4, 80000)):
+        shape = (6, 375, 8, D, Q, 8)
+        assert msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(*shape)] == "gather"
+        assert msda_cuda.takes_resident(
+            torch.zeros((6, 375, 8, D), device="meta"), ((15, 25),),
+            torch.zeros((6, Q, 8, 1, 8, 2), device="meta"))
     for D in (12, 40, 64):
         assert msda_cuda.bwd_plan(1, 100, 2, D, 10, 4) == 0
     # D = 2 (and 1) take the private plan where their rows fit its budget
@@ -402,6 +425,12 @@ def test_narrow_and_private_at_the_hybrid_stage4_shapes(Q):
     for shape in [(2, 40000, 8, 32, 40000, 4), (6, 1500, 8, 32, 2500, 8),
                   (6, 375, 8, 16, Q, 8), (6, 375, 8, 4, Q, 8)]:
         assert msda_cuda.BWD_VARIANTS[msda_cuda.bwd_plan(*shape)] == "gather"
+    # of which the f32 stages over 15x25 go to the map-resident entries;
+    # the D = 2 stage does not
+    for D, want in ((16, True), (4, True), (2, False)):
+        assert msda_cuda.takes_resident(
+            torch.zeros((6, 375, 8, D), device="meta"), ((15, 25),),
+            torch.zeros((6, Q, 8, 1, 8, 2), device="meta")) == want
 
 
 def test_private_budget_edge_matches_the_c_source():

@@ -30,6 +30,10 @@ from apollo_vision_net_tpu_torch.ops.dcn import (
     modulated_deform_conv_ref,
 )
 
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 TOL = 1e-4
 # (stride, offset std in pixels, H, W): stride 1 and 2, odd sizes at
 # stride 2, far offsets

@@ -44,6 +44,10 @@ from apollo_vision_net_tpu_torch.ops import dcnv3 as tdcn
 from apollo_vision_net_tpu_torch.ops import msda as tmsda
 from apollo_vision_net_tpu_torch.ops import msda_cuda
 
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REL_TOL = 1e-4
 CSRC = Path(msda_cuda.__file__).resolve().parent.parent / "csrc"
 

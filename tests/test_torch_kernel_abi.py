@@ -42,6 +42,8 @@ def test_every_entry_point_has_a_wrapper_signature():
     ("msda_bwd.cu", "msda_bwd_factored"),
     ("msda_fwd.cu", "msda_fwd_local"),
     ("msda_bwd.cu", "msda_bwd_local"),
+    ("msda_fwd.cu", "msda_fwd_resident"),
+    ("msda_bwd.cu", "msda_bwd_resident"),
     ("dcn_fwd.cu", "dcn_fwd"),
     ("dcn_fwd.cu", "dcn_bwd_im2col"),
     ("dcn_fwd.cu", "dcn_bwd_col2im"),
@@ -63,8 +65,8 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
     (the plain/masked MSDA forward's vector and narrow kernels, the
     factored MSDA forward, the plain/masked MSDA backward's vector, gather
     and private kernels, the factored MSDA backward's privatizing kernel,
-    the DCN backward's quad d-input kernel, the tile-local MSDA forward and
-    backward) has a stack frame or spills, or
+    the DCN backward's quad d-input kernel, the tile-local and the
+    map-resident MSDA forward and backward) has a stack frame or spills, or
     is missing from the report; it reads them per kernel from the report,
     anonymous-namespace kernels included."""
     import chip_smoke
@@ -114,12 +116,24 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 72 registers, used 1 barriers",
         "ptxas info    : Function properties for "
+        "_Z20msda_resident_kernelILi32EEvPKfS1_S1_PKiPfiiiiiiiiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        "ptxas info    : Function properties for "
+        "_Z30msda_bwd_resident_items_kernelILi32EEvPKfS1_S1_PKiS1_PfS4_S4_iiiiiiiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers",
+        "ptxas info    : Function properties for "
+        "_Z32msda_bwd_resident_samples_kernelILi4EEvPKfS1_S1_PKiS1_PfS4_S4_iiiiiiiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 50 registers, used 1 barriers",
+        "ptxas info    : Function properties for "
         "_ZN12_GLOBAL__N_114dcn_fwd_kernelIfLi64ELi256ELb1EEEvPKT_",
         "    8 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
     ])
     (fac, vec, priv, bvec, gather, narrow, private, quad, local, blocal,
-     dcn) = chip_smoke.ptxas_kernels(report)
+     res, bres, bres_s, dcn) = chip_smoke.ptxas_kernels(report)
     assert (fac["kernel"], fac["registers"], fac["smem_bytes"],
             fac["stack_bytes"], fac["spill_stores"]) == (
         "msda_factored_vec_kernel", 79, 224, 0, 0)
@@ -141,9 +155,16 @@ def test_chip_smoke_reads_stack_frames_and_spills_from_ptxas():
         "msda_local_kernel", 40, 0)
     assert (blocal["kernel"], blocal["registers"], blocal["spill_stores"]) == (
         "msda_bwd_local_kernel", 72, 0)
+    assert (res["kernel"], res["registers"], res["stack_bytes"]) == (
+        "msda_resident_kernel", 40, 0)
+    assert (bres["kernel"], bres["registers"], bres["spill_loads"]) == (
+        "msda_bwd_resident_items_kernel", 80, 0)
+    assert (bres_s["kernel"], bres_s["registers"], bres_s["stack_bytes"]) == (
+        "msda_bwd_resident_samples_kernel", 50, 0)
     assert (dcn["kernel"], dcn["stack_bytes"], dcn["spill_loads"]) == (
         "dcn_fwd_kernel", 8, 32)
-    clean = [fac, vec, priv, bvec, gather, narrow, private, quad, local, blocal]
+    clean = [fac, vec, priv, bvec, gather, narrow, private, quad, local, blocal,
+             res, bres, bres_s]
     assert set(chip_smoke.VECTOR_KERNELS) == {k["kernel"] for k in clean}
     chip_smoke.check_vector_kernels([*clean, dcn])
     for k in clean:

@@ -58,7 +58,10 @@ from apollo_vision_net_tpu_torch.models.heads.map_head_v2 import (
 )
 from apollo_vision_net_tpu_torch.parallel import train as train_lib
 from apollo_vision_net_tpu_torch.runtime.inference import StreamingRunner
-from test_torch_occ import _identity_dropout, perturbed_params
+from test_torch_occ import _identity_dropout, one_torch_thread, perturbed_params  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MODULE_TOL = 1e-5
 HEAD_TOL = 1e-4

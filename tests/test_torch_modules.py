@@ -43,6 +43,10 @@ from apollo_vision_net_tpu_torch.ops import grid_sample as tgs
 from apollo_vision_net_tpu_torch.utils import box_coder as tbc
 from apollo_vision_net_tpu_torch.utils import geometry as tgeo
 
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 C, H = 32, 4
 
 

@@ -33,6 +33,10 @@ from apollo_vision_net_tpu_torch.ops.msda import (
     ms_deform_attn_ref,
 )
 
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 TOL = 1e-5
 
 

@@ -48,6 +48,10 @@ from apollo_vision_net_tpu_torch.parallel.mesh import (
 from apollo_vision_net_tpu_torch.parallel.optim import make_optimizer
 from apollo_vision_net_tpu_torch.runtime.train_loop import step_seed
 from apollo_vision_net_tpu_torch.tools.dryrun_multichip import spawn_world
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+# the test process on one torch thread, as the spawned ranks run
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GLOBAL_BATCH = 2
 BATCH_SEED = 3

@@ -10,6 +10,7 @@ of f32 sums in different orders).
 """
 import jax
 import numpy as np
+import pytest
 import torch
 
 from apollo_vision_net_tpu.models.fpn import FPN as JaxFPN
@@ -18,6 +19,10 @@ from apollo_vision_net_tpu_torch.bridge import state_dict_from_flax
 from apollo_vision_net_tpu_torch.models.fpn import FPN
 from apollo_vision_net_tpu_torch.models.resnet import CHANNELS, ResNet
 from test_torch_backbone import assert_rel_close, nchw, perturbed
+
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DCN = (False, False, True, True)
 OUT = (1, 2, 3)

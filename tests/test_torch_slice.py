@@ -22,6 +22,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from apollo_vision_net_tpu.configs import bev_base_det_map as jax_base
@@ -40,6 +41,10 @@ from apollo_vision_net_tpu_torch.runtime.inference import (
     StreamingRunner,
     last_layer,
 )
+
+from test_torch_occ import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = dict(bev_h=8, bev_w=8, embed_dims=32, num_cams=2, img_shape=(64, 96),
              encoder_layers=2, decoder_layers=2, map_decoder_layers=2,

@@ -252,10 +252,14 @@ def test_encoder_layer_flops_equal_a_hand_count():
     ffn = dense(B * Q, C, FF) + dense(B * Q, FF, C)
     D = C // H
     assert flops["aten"] == tsa + sca + ffn
+    # f32 over the 8x8 BEV and the 2x3 map: both calls on the map-resident
+    # entry (msda_cuda.takes_resident)
     assert flops["kernels"] == {
-        "msda_fwd": (2 * B * Q) * H * 1 * Pt * 8 * D,
-        "msda_fwd_masked": (B * N * Q) * H * 1 * Ps * 8 * D}
-    assert flops["kernels"]["msda_fwd"] == cost.msda_operations(2 * B * Q, H, 1, Pt, D)
+        "msda_fwd_resident": (2 * B * Q) * H * 1 * Pt * 8 * D
+        + (B * N * Q) * H * 1 * Ps * 8 * D}
+    assert flops["kernels"]["msda_fwd_resident"] == (
+        cost.msda_operations(2 * B * Q, H, 1, Pt, D)
+        + cost.msda_operations(B * N * Q, H, 1, Ps, D))
     assert flops["total"] == flops["aten"] + sum(flops["kernels"].values())
 
 
@@ -263,13 +267,19 @@ def test_frame_flops_count_every_kernel_call():
     cfg = port_configs.bev_smoke_det_map()
     m = cfg.model
     flops = get_params.frame_flops(cfg)
-    assert set(flops["kernels"]) == {"msda_fwd", "msda_fwd_masked"}
+    # f32 over the 8x8 BEV and the 2x3 map: every call on the map-resident
+    # entry (msda_cuda.takes_resident)
+    assert set(flops["kernels"]) == {"msda_fwd_resident"}
     assert flops["aten"] > 0
-    # the decoders' cross-attention: one level, 4 points a head
+    # the decoders' cross-attention and TSA: one level, 4 points a head;
+    # SCA: 8 points a head over every camera
     decoder = m.decoder_layers * m.num_query + m.map_decoder_layers * m.num_map_vec * m.map_num_pts
     tsa = m.encoder_layers * 2 * m.bev_h * m.bev_w
+    sca = m.encoder_layers * m.num_cams * m.bev_h * m.bev_w
     D = m.embed_dims // 8
-    assert flops["kernels"]["msda_fwd"] == cost.msda_operations(tsa + decoder, 8, 1, 4, D)
+    assert flops["kernels"]["msda_fwd_resident"] == (
+        cost.msda_operations(tsa + decoder, 8, 1, 4, D)
+        + cost.msda_operations(sca, 8, 1, 8, D))
 
 
 # ------------------------------------------------------------ profile_step

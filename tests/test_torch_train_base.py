@@ -63,7 +63,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_kernel_abi import c_entries
-from test_torch_occ import _identity_dropout, _jax_det_indices
+from test_torch_occ import _identity_dropout, _jax_det_indices, one_torch_thread  # noqa: F401
 from test_torch_train import SIZES, _jax_gt, _jax_indices, perturbed_params
 
 from apollo_vision_net_tpu.configs import bev_base_det_map as jax_base
@@ -111,16 +111,18 @@ UNDAMPED_GRAD_REL_TOL = 5e-4
 # side at the same image. Its trunk holds ReLU inputs so near zero that the
 # two frameworks' summation orders put some on different sides: JAX against
 # itself at the witness images moves the trunk's gradients by up to 2.84%
-# of their largest magnitude. The port's gradients agree with JAX's at the
-# same image within 1.4e-5 at the images of seeds 0 and 5 and differ by
-# 0.62-2.84% at the other seven (the images included), always in trunk
-# tensors below such a ReLU. So every image is held within KINK_GRAD_REL_TOL
-# (about 1.8x the largest reading) and OCC_AGREEING of the nine within
-# GRAD_REL_TOL.
+# of their largest magnitude. The port's gradients (torch on one thread,
+# as the module runs) agree with JAX's at the same image within 7.7e-6 at
+# the images of seeds 0, 3 and 5 and differ by 0.62-2.84% at the other six
+# (the images included), always in trunk tensors below such a ReLU (on
+# eight threads: within 1.4e-5 at seeds 0 and 5). So every image is held
+# within KINK_GRAD_REL_TOL (about 1.8x the largest reading) and
+# OCC_AGREEING of the nine within GRAD_REL_TOL.
 WITNESS_EPS = 1e-7
 WITNESS_SEEDS = range(8)
 KINK_GRAD_REL_TOL = 5e-2
 OCC_AGREEING = 2
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 # the base trunk at the size of the ResNet test: two Bottlenecks a stage
 SMALL_BASE = dict(SIZES, backbone_depth=18)
 # the same trunk with bev_base_occ's MLP head on the 8x8 BEV (4 z-cells of
